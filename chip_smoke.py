@@ -18,7 +18,14 @@ without printing the result line):
    the weekly-active query, and the TPC-H lineitem table at scale factor
    1 (6,001,215 rows) served the same way, every answer checked against
    numpy; kernel launch counts are read for this phase alone;
-4. one ``{"kernels": [...]}`` JSON line, then the result line.
+4. the binary-LM path at the example's own width
+   (``repro_torch.apps.binary_lm.main``: 150 STE steps of a 256-to-8
+   BitLinear, then packed XNOR-popcount inference over 2048 examples),
+   accuracy above 0.5; launch counts are read for this phase alone;
+5. one ``{"kernels": [...]}`` JSON line, then the result line.
+
+Each path must launch its own kernels: the four serving kernels on
+phase 3, ``binary_matmul`` on phase 4.
 
 Imports nothing of the JAX package and needs no network.
 """
@@ -39,6 +46,9 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # int32 rate; the card's integer logic issues no faster than its float32
 # pipe, so time at this rate is a floor for the kernels' integer ops.
 FP32_OPS_PER_S = 67e12
+# The data sheet's dense int8 tensor-core rate: the fastest the card runs
+# a product of +-1 values, so the floor for binary_matmul's 2*M*N*K ops.
+INT8_TC_OPS_PER_S = 1979e12
 SEED = 0
 
 
@@ -101,8 +111,9 @@ class Timer:
         return (t.cuda.Event(enable_timing=True),
                 t.cuda.Event(enable_timing=True))
 
-    def __call__(self, fn):
+    def __call__(self, fn, reps=None):
         torch = self.torch
+        reps = self.reps if reps is None else reps
         fn()                                    # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -114,7 +125,7 @@ class Timer:
         # sample whose enqueue outlasted its sleep is dropped
         sleep_s = 4 * host_s + 2e-3
         device = []
-        for _ in range(self.reps):
+        for _ in range(reps):
             self.flush_buf.zero_()
             a, b = self._events()
             t0 = time.perf_counter()
@@ -126,12 +137,12 @@ class Timer:
             b.synchronize()
             if enqueue_s < sleep_s:
                 device.append(a.elapsed_time(b))
-        if len(device) < self.reps // 2:
-            fail(f"timer: only {len(device)} of {self.reps} launches were "
+        if len(device) < reps // 2:
+            fail(f"timer: only {len(device)} of {reps} launches were "
                  "enqueued inside their sleep")
         device = statistics.median(device)
         launch = []
-        for _ in range(self.reps):
+        for _ in range(reps):
             self.flush_buf.zero_()
             torch.cuda.synchronize()
             a, b = self._events()
@@ -164,6 +175,25 @@ def _same(torch, got, want, what, kernel, stats):
         fail(f"{what}: kernel != plain version in {diff} words")
 
 
+# binary_matmul (M, N, K bits): the CPU suite's shapes (ragged K blocks
+# and edges among them), then the timed ones: the example's inference,
+# the reference benchmark's 256x256x4096 (benchmarks/kernels_micro.py),
+# and a BitLinear at qwen2.5-3b's MLP width (d_model 2048 -> d_ff 11008)
+# over 2048 tokens, the one that loads the card.
+BMM_CHECK_SHAPES = [(1, 1, 32), (5, 9, 64), (16, 16, 128), (40, 70, 1000),
+                    (8, 128, 4096), (3, 5, 40000), (65, 67, 16416)]
+BMM_TIME_SHAPES = [(2048, 8, 256), (256, 256, 4096), (2048, 11008, 2048)]
+
+
+def _packed_pm1(torch, rng, rows, k_bits):
+    """Random +-1 rows packed as bits: (rows, ceil(k/32)) int32 words on
+    the card, pad bits beyond k_bits zero."""
+    w = _rand_words(torch, rng, (rows, (k_bits + 31) // 32))
+    if k_bits % 32:
+        w[:, -1] &= (1 << (k_bits % 32)) - 1
+    return w
+
+
 def check_kernels(torch):
     """Every kernel against its plain version on the card, exactly.
     Returns kernel name -> {"checks", "max_abs_err"} (0 when all agree)."""
@@ -171,6 +201,7 @@ def check_kernels(torch):
     from repro_torch.core import expr as E
     from repro_torch.core.engine import BulkBitwiseEngine
     from repro_torch.core.bitvector import BitVector
+    from repro_torch.kernels import binary_matmul as kbmm
     from repro_torch.kernels import bitweaving as kbv
     from repro_torch.kernels import bitwise as kbw
     from repro_torch.kernels import popcount as kpc
@@ -242,6 +273,11 @@ def check_kernels(torch):
                       kbv.bitweaving_scan_plain(planes, c1, c2),
                       f"bitweaving_scan b={b} words={words} [{c1},{c2}]",
                       "bitweaving_scan", stats)
+    for m, n, k in BMM_CHECK_SHAPES + BMM_TIME_SHAPES:
+        a, b = _packed_pm1(torch, rng, m, k), _packed_pm1(torch, rng, n, k)
+        _same(torch, kbmm.binary_matmul(a, b, k),
+              kbmm.binary_matmul_plain(a, b, k), f"binary_matmul {m}x{n}x{k}",
+              "binary_matmul", stats)
     # the engine's entry points on the card: kernels == plain backend
     eng_k = BulkBitwiseEngine("cuda")
     eng_p = BulkBitwiseEngine("torch")
@@ -272,16 +308,17 @@ def time_kernels(torch, timer):
     X, Y = E.Expr.var("x"), E.Expr.var("y")
     out = {}
 
-    def bound(nbytes, ops):
+    def bound(nbytes, ops, rate):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_OPS_PER_S * 1e3
+        t_ops = ops / rate * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
-    def row(name, shape, kernel, plain, library, nbytes, ops):
-        b_ms, b_by = bound(nbytes, ops)
+    def row(name, shape, kernel, plain, library, nbytes, ops,
+            rate=FP32_OPS_PER_S, plain_reps=None):
+        b_ms, b_by = bound(nbytes, ops, rate)
         k_dev, k_launch = timer(kernel)
-        p_dev, _ = timer(plain)
+        p_dev, _ = timer(plain, plain_reps)
         lib = None if library is None else timer(library)[0]
         r = {"ms": k_dev, "launch_ms": k_launch, "plain_ms": p_dev,
              "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
@@ -370,7 +407,44 @@ def time_kernels(torch, timer):
         lambda: kbv.bitweaving_scan(bplanes, 37, 200),
         lambda: kbv.bitweaving_scan_plain(bplanes, 37, 200), None,
         9 * 4 * 187538, 8 * 6 * 187538)
+    out["binary_matmul"] = time_binary_matmul(torch, rng, row)
     return out
+
+
+def time_binary_matmul(torch, rng, row):
+    """binary_matmul at BMM_TIME_SHAPES. The yardstick is one bf16
+    ``torch.mm`` of the same +-1 values, unpacked beforehand, summed and
+    returned in float32 (exact: K < 2^24); its result is held against
+    the kernel's. TF32 is off for float32 products while timing
+    (``torch.backends.cuda.matmul.allow_tf32 = False``); the yardstick is
+    bf16 and does not read it. Returns the example's shape's row with
+    the others under ``more``."""
+    from repro_torch.core.bitvector import unpack_bits
+    from repro_torch.kernels import binary_matmul as kbmm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for m, n, k in BMM_TIME_SHAPES:
+        a, b = _packed_pm1(torch, rng, m, k), _packed_pm1(torch, rng, n, k)
+        apm = (unpack_bits(a, k).to(torch.bfloat16) * 2 - 1).contiguous()
+        bpm_t = (unpack_bits(b, k).to(torch.bfloat16) * 2 - 1).T
+        got = kbmm.binary_matmul(a, b, k)
+        lib_out = torch.mm(apm, bpm_t, out_dtype=torch.float32)
+        if not torch.equal(lib_out.to(torch.int32), got):
+            fail(f"binary_matmul {m}x{n}x{k}: the bf16 yardstick disagrees "
+                 "with the kernel")
+        kw = a.shape[1]
+        rows.append(row(
+            "binary_matmul", f"{m}x{n}x{k}",
+            lambda a=a, b=b, k=k: kbmm.binary_matmul(a, b, k),
+            lambda a=a, b=b, k=k: kbmm.binary_matmul_plain(a, b, k),
+            lambda x=apm, y=bpm_t: torch.mm(x, y, out_dtype=torch.float32),
+            4 * (m * kw + n * kw + m * n), 2 * m * n * k,
+            rate=INT8_TC_OPS_PER_S, plain_reps=6 if m * n * k > 1e9 else None))
+        del apm, bpm_t, lib_out
+    first = dict(rows[0])
+    first["more"] = rows[1:]
+    return first
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -571,14 +645,52 @@ KERNELS = (
     ("bitweaving_scan", "bitweaving",
      "src/repro_torch/kernels/csrc/bitweaving.cu",
      "src/repro/kernels/bitweaving.py:55"),
+    ("binary_matmul", "binary_matmul",
+     "src/repro_torch/kernels/csrc/binary_matmul.cu",
+     "src/repro/kernels/binary_matmul.py:59"),
 )
+# the path whose run each kernel's launches are read from
+PATH_OF = {"fused_bitwise": "serving", "fused_bitwise_stacked": "serving",
+           "popcount_rows": "serving", "bitweaving_scan": "serving",
+           "binary_matmul": "binary_lm"}
 
 
 def _wrappers():
-    from repro_torch.kernels import bitweaving, bitwise, popcount
+    from repro_torch.kernels import (binary_matmul, bitweaving, bitwise,
+                                     popcount)
     mods = {"bitwise": bitwise, "popcount": popcount,
-            "bitweaving": bitweaving}
+            "bitweaving": bitweaving, "binary_matmul": binary_matmul}
     return {name: getattr(mods[mod], name) for name, mod, _, _ in KERNELS}
+
+
+def _path_launches(wrappers, path, drive):
+    """Zero every count, run ``drive``, read the counts; fail if a kernel
+    of ``path`` never launched."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    result = drive()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"launches on the {path} path: {launches}")
+    idle = [n for n, c in launches.items() if PATH_OF[n] == path and c <= 0]
+    if idle:
+        fail(f"kernels never launched on the {path} path: {idle}")
+    return result, launches
+
+
+def binary_lm_phase(torch, card):
+    """The example at its own width on the card, timed end to end."""
+    from repro_torch.apps import binary_lm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = binary_lm.main("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not acc > 0.5:
+        fail(f"binary_lm accuracy {acc} <= 0.5")
+    log(f"binary_lm d=256 classes=8 examples=2048 steps=150 accuracy={acc} "
+        f"wall_s={wall:.3f} on {card} (measured on the card, first call "
+        f"of the example included)")
+    return {"accuracy": acc, "wall_s": wall}
 
 
 def main() -> int:
@@ -604,32 +716,36 @@ def main() -> int:
 
     log("== phase 3: serving at full width on backend 'cuda'")
     wrappers = _wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    bitmap = serve_bitmaps(torch, "cuda", n_users=1 << 24, n_items=12,
-                           n_tenants=1024, n_queries=2048)[3]
-    weekly_active(torch, "cuda", n_users=1 << 24)
-    tpch = serve_tpch(torch, "cuda", n_rows=6_001_215, n_tenants=1024,
-                      n_queries=2048)
-    log(f"serving wall qps on {card}: bitmap {bitmap['wall_qps']:.1f}, "
-        f"tpch {tpch['wall_qps']:.1f} (mismatches=0 in both)")
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    log(f"launches on the serving path: {launches}")
-    idle = [n for n, c in launches.items() if c <= 0]
-    if idle:
-        fail(f"kernels never launched on the serving path: {idle}")
+
+    def serve():
+        bitmap = serve_bitmaps(torch, "cuda", n_users=1 << 24, n_items=12,
+                               n_tenants=1024, n_queries=2048)[3]
+        weekly_active(torch, "cuda", n_users=1 << 24)
+        tpch = serve_tpch(torch, "cuda", n_rows=6_001_215, n_tenants=1024,
+                          n_queries=2048)
+        log(f"serving wall qps on {card}: bitmap {bitmap['wall_qps']:.1f}, "
+            f"tpch {tpch['wall_qps']:.1f} (mismatches=0 in both)")
+
+    launches = {"serving": _path_launches(wrappers, "serving", serve)[1]}
+    torch.cuda.empty_cache()
+
+    log("== phase 4: the binary-LM path on the card")
+    launches["binary_lm"] = _path_launches(
+        wrappers, "binary_lm", lambda: binary_lm_phase(torch, card))[1]
 
     kernels = []
     for name, _, source, replaces in KERNELS:
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "path": PATH_OF[name],
+            "launches": launches[PATH_OF[name]][name],
             "checks": checks[name]["checks"],
             "max_abs_err": checks[name]["max_abs_err"], "ms": t["ms"],
             "launch_ms": t["launch_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": t["shape"]})
+            "library_ms": t["library_ms"], "shape": t["shape"],
+            **({"more": t["more"]} if "more" in t else {})})
     log(f"total_s={time.perf_counter() - t_start:.1f} card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

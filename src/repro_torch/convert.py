@@ -7,8 +7,9 @@ back with every bit preserved.
 
 Raw words and bitvectors land on the CPU unless ``device`` says
 otherwise: the runtime and the engine move them to their own device.
-Columns and tables compute where their planes lie, so, like every entry
-point of the port, they land on the card unless the caller names another.
+Columns, tables and BitLinear layers compute where their tensors lie, so,
+like every entry point of the port, they land on the card unless the
+caller names another.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .apps.binary_lm import BitLinear
 from .apps.bitweaving_db import TPCH_COLUMNS, BitWeavingColumn, TpchTable
 from .core.bitvector import BitVector
 from .core.engine import resolve_device
@@ -57,3 +59,10 @@ def table_from_numpy(values: Dict[str, np.ndarray], columns=TPCH_COLUMNS,
             for name, bits in columns}
     return TpchTable(n_rows, {name: values[name] for name, _ in columns},
                      cols)
+
+
+def bitlinear_from_numpy(weight: np.ndarray, device=None) -> BitLinear:
+    """A reference BitLinear weight (float32 ``(classes, d)``, the ``w``
+    of ``examples/binary_lm.py``) -> the port's ``BitLinear`` on
+    ``device``, every float kept."""
+    return BitLinear(weight, device=device)

@@ -17,9 +17,11 @@ import numpy as np
 import torch
 
 from ..core import expr as E
+from . import binary_matmul as _bmm
 from . import bitweaving as _bw
 from . import bitwise as _bitwise
 from . import popcount as _pc
+from . import ref
 
 # -- fused-dispatch probe ------------------------------------------------------
 # Counts calls to the fused bitwise entry points at the wrapper layer - one
@@ -105,3 +107,17 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
 def bitweaving_scan(planes: torch.Tensor, c1: int, c2: int) -> torch.Tensor:
     """(b, words) bit-sliced planes -> packed (words,) predicate bitvector."""
     return _bw.bitweaving_scan(planes.contiguous(), int(c1), int(c2))
+
+
+def binary_matmul(a_packed: torch.Tensor, b_packed: torch.Tensor,
+                  k_bits: int) -> torch.Tensor:
+    """Packed XNOR-popcount matmul: (M,Kw) x (N,Kw) -> (M,N) int32."""
+    return _bmm.binary_matmul(a_packed.contiguous(), b_packed.contiguous(),
+                              int(k_bits))
+
+
+def binary_matmul_mxu(a_packed: torch.Tensor, b_packed: torch.Tensor,
+                      k_bits: int) -> torch.Tensor:
+    """Dense-product alternative: unpack to +-1 and ``torch.matmul`` (a
+    plain product outside any kernel, as the reference leaves it to XLA)."""
+    return ref.binary_matmul_mxu(a_packed, b_packed, int(k_bits))

@@ -12,7 +12,11 @@ from typing import Dict
 import torch
 
 from ..core import expr as E
-from ..core.bitvector import popcount_words
+from ..core.bitvector import popcount_words, unpack_bits
+
+# Elements of the (rows, N, Kw) XOR block that ``binary_matmul`` builds at
+# once: its int64 SWAR temporaries (a few alive together) stay near 1 GiB.
+BMM_CHUNK_ELEMS = 1 << 25
 
 
 def bitwise_eval(expression: E.Expr,
@@ -76,3 +80,35 @@ def _pack32(bits01: torch.Tensor) -> torch.Tensor:
     bits01 = bits01.reshape(-1, 32).to(torch.int32)
     shifts = torch.arange(32, dtype=torch.int32, device=bits01.device)
     return (bits01 << shifts).sum(-1, dtype=torch.int32)
+
+
+def binary_matmul(a_packed: torch.Tensor, b_packed: torch.Tensor,
+                  k_bits: int) -> torch.Tensor:
+    """XNOR-popcount matmul over {-1,+1} vectors packed as bits (1 = +1).
+
+    a_packed: (M, Kw) int32, b_packed: (N, Kw) int32.
+    Returns (M, N) int32 with C[m,n] = sum_k a[m,k]*b[n,k]
+                                     = k_bits - 2*popcount(a XOR b).
+    Padding bits beyond k_bits must be zero in both operands (0 XOR 0
+    adds nothing to the popcount). Rows of ``a`` go in chunks so that
+    the (rows, N, Kw) intermediate stays under ``BMM_CHUNK_ELEMS``.
+    """
+    m, n, kw = a_packed.shape[0], b_packed.shape[0], a_packed.shape[1]
+    out = torch.empty((m, n), dtype=torch.int32, device=a_packed.device)
+    step = max(1, BMM_CHUNK_ELEMS // max(1, n * kw))
+    for r in range(0, m, step):
+        x = a_packed[r:r + step, None, :] ^ b_packed[None, :, :]
+        pc = popcount_words(x).sum(-1)
+        out[r:r + step] = (k_bits - 2 * pc).to(torch.int32)
+    return out
+
+
+def binary_matmul_mxu(a_packed: torch.Tensor, b_packed: torch.Tensor,
+                      k_bits: int) -> torch.Tensor:
+    """Dense-product oracle: unpack to +-1 float32 and ``torch.matmul``.
+    Exact while k_bits < 2^24 (every partial sum is an integer float32
+    holds); +-1 are exact in TF32 too, so the card's matmul precision
+    does not change the result."""
+    a = unpack_bits(a_packed, k_bits).to(torch.float32) * 2 - 1
+    b = unpack_bits(b_packed, k_bits).to(torch.float32) * 2 - 1
+    return torch.matmul(a, b.T).to(torch.int32)

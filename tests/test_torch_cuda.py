@@ -1,5 +1,6 @@
-"""The port on the card: every kernel against its plain version, and the
-serving slice on backend "cuda" against the committed reference tokens.
+"""The port on the card: every kernel against its plain version, the
+serving slice on backend "cuda" against the committed reference tokens,
+and the binary-LM example through the XNOR-popcount kernel.
 
 Imports nothing of JAX or of the JAX package, so it runs on a GPU machine
 that has only PyTorch:
@@ -20,8 +21,10 @@ import pytest
 import torch
 
 from benchmarks.serve_closed_loop import _obs_tokens, _zipf_pairs
+from repro_torch.apps import binary_lm
 from repro_torch.core import BitVector, Expr
 from repro_torch.core import expr as E
+from repro_torch.kernels import binary_matmul as kbmm
 from repro_torch.kernels import bitweaving as kbv
 from repro_torch.kernels import bitwise as kbw
 from repro_torch.kernels import popcount as kpc
@@ -152,6 +155,41 @@ def test_bitweaving_scan_matches_plain_on_card(cuda, b):
         for c1, c2 in ((0, top), (0, 0), (top, top), (top // 3, top // 2)):
             assert torch.equal(kbv.bitweaving_scan(planes, c1, c2),
                                kbv.bitweaving_scan_plain(planes, c1, c2))
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (1, 1, 32), (5, 9, 64), (16, 16, 128), (40, 70, 1000), (8, 128, 4096),
+    (3, 5, 40000), (65, 67, 16416), (2048, 8, 256), (256, 256, 4096)])
+def test_binary_matmul_matches_plain_on_card(cuda, m, n, k):
+    rng = np.random.default_rng(k)
+    kw = (k + 31) // 32
+    a, b = words(rng, (m, kw), cuda), words(rng, (n, kw), cuda)
+    if k % 32:                      # pad bits beyond k are zero
+        keep = (1 << (k % 32)) - 1
+        a[:, -1] &= keep
+        b[:, -1] &= keep
+    launches = kbmm.binary_matmul.launches
+    got = kbmm.binary_matmul(a, b, k)
+    assert kbmm.binary_matmul.launches == launches + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, kbmm.binary_matmul_plain(a, b, k))
+
+
+def test_binary_matmul_raises_on_what_it_does_not_take(cuda):
+    a = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    b = torch.zeros((6, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kbmm.binary_matmul(a.to(torch.int64), b, 256)
+    with pytest.raises(ValueError):
+        kbmm.binary_matmul(a[:, ::2], b[:, ::2], 128)
+    with pytest.raises(ValueError):
+        kbmm.binary_matmul(a, b.cpu(), 256)
+
+
+def test_binary_lm_example_on_card(cuda):
+    launches = kbmm.binary_matmul.launches
+    assert binary_lm.main(cuda) > 0.5
+    assert kbmm.binary_matmul.launches > launches
 
 
 def test_serving_row_reproduced_on_card(cuda):

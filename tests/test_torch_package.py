@@ -53,7 +53,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch, repro_torch.core, "
             "repro_torch.pim, repro_torch.serve, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.apps.bitmap_index, "
-            "repro_torch.apps.bitweaving_db; "
+            "repro_torch.apps.bitweaving_db, repro_torch.apps.binary_lm; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -100,6 +100,28 @@ def test_bitweaving_entry_points_default_to_the_card(entry, monkeypatch):
     made = make(device="cpu")
     cols = made.columns.values() if hasattr(made, "columns") else [made]
     assert all(c.planes.device.type == "cpu" for c in cols)
+
+
+@pytest.mark.parametrize("entry", ["main", "BitLinear",
+                                   "bitlinear_from_numpy"])
+def test_binary_lm_entry_points_default_to_the_card(entry, monkeypatch):
+    """The binary-LM example and its layer run on the card unless the
+    caller names the CPU, and raise without a card."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.apps import binary_lm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = np.full((8, 256), 0.1, np.float32)
+    make = {
+        "main": lambda **kw: binary_lm.main(**kw),
+        "BitLinear": lambda **kw: binary_lm.BitLinear(w, **kw),
+        "bitlinear_from_numpy": lambda **kw: convert.bitlinear_from_numpy(
+            w, **kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    if entry != "main":
+        assert make(device="cpu").weight.device.type == "cpu"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
