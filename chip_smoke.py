@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -79,10 +80,55 @@ def environment(torch):
     log(f"build: {len(logs)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in sorted(logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+        for entry in ptxas_summary(text):
+            log(f"  ptxas[{name}] {entry}")
+    tensor_core_check(build)
     return card
+
+
+def ptxas_summary(text: str):
+    """One line an entry point of ``nvcc -Xptxas -v`` output: registers,
+    stack frame, spills and shared memory."""
+    out, name, props = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"\d+((?:fused_bitwise|binary_matmul|popcount|"
+                          r"bitweaving)[a-z_]*)(I.*?E+(?=v))?", mangled)
+            name = mangled if not k else k.group(1) + (
+                "<" + ",".join(re.findall(r"Li(\d+)E", k.group(2))) + ">"
+                if k.group(2) else "")
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            props = (f"stack frame {m.group(1)} B, spills {m.group(2)}/"
+                     f"{m.group(3)} B")
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            out.append(f"{name}: {m.group(1)} registers, {props}, static "
+                       f"shared {smem.group(1) if smem else 0} B")
+            name = None
+    return out
+
+
+def tensor_core_check(build):
+    """binary_matmul's SASS must hold tensor-core products (wgmma is
+    GMMA in SASS, mma.sync IMMA) and no popcount loop."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("  sass[binary_matmul]: cuobjdump not found, not checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(build._target("binary_matmul"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    gmma, imma = sass.count("GMMA."), sass.count("IMMA.")
+    log(f"  sass[binary_matmul]: {gmma} GMMA (wgmma), {imma} IMMA (mma.sync), "
+        f"{sass.count('POPC')} POPC instructions")
+    if not gmma or not imma:
+        fail("binary_matmul's SASS lacks its tensor-core products")
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -183,6 +229,15 @@ def _same(torch, got, want, what, kernel, stats):
 BMM_CHECK_SHAPES = [(1, 1, 32), (5, 9, 64), (16, 16, 128), (40, 70, 1000),
                     (8, 128, 4096), (3, 5, 40000), (65, 67, 16416)]
 BMM_TIME_SHAPES = [(2048, 8, 256), (256, 256, 4096), (2048, 11008, 2048)]
+# the kernel's own edges (``binary_matmul.plan``): M, N and Kw (chunks of 8
+# words) one short of, on and one past the 128x256 wgmma tile (from 132
+# tiles up), the 64x64 and the 128x8 tiles; k_bits off a multiple of 32;
+# split K on each of the three tiles
+BMM_EDGE_SHAPES = [(1536, 2816, 256), (1535, 2815, 224), (1537, 2817, 289),
+                   (1664, 2816, 8191), (1536, 2816, 4100),
+                   (63, 65, 288), (64, 64, 256), (65, 63, 225),
+                   (127, 129, 4101), (300, 200, 100000),
+                   (127, 8, 31), (129, 7, 257), (128, 8, 256), (300, 1, 40000)]
 
 
 def _packed_pm1(torch, rng, rows, k_bits):
@@ -192,6 +247,54 @@ def _packed_pm1(torch, rng, rows, k_bits):
     if k_bits % 32:
         w[:, -1] &= (1 << (k_bits % 32)) - 1
     return w
+
+
+def regs64_expr():
+    """Pairwise xors of 12 operands, consumed by an and-chain in one order
+    and an or-chain in the other: its lowering holds 64 live registers."""
+    from repro_torch.core import expr as E
+    leaves = [E.Expr.var(f"v{i}") for i in range(12)]
+    mids = [leaves[i] ^ leaves[j] for i in range(12)
+            for j in range(i + 1, 12)][:61]
+    chain1, chain2 = mids[0], mids[-1]
+    for m in mids[1:]:
+        chain1 = chain1 & m
+    for m in reversed(mids[:-1]):
+        chain2 = chain2 | m
+    return chain1 ^ chain2
+
+
+def check_tpch_layout(torch, rng, exprs, stats):
+    """The fused kernel as TPC-H serving launches it: operands are row
+    views of one (planes, 187538) tensor (odd rows 4 bytes off a 16-byte
+    boundary) and results are masked to the table's 6,001,215 rows; every
+    program above, one epoch past the by-value pointer table."""
+    from repro_torch.core import expr as E
+    from repro_torch.kernels import bitwise as kbw
+    rows = 6_001_215
+    for ename, expr in exprs.items():
+        names = tuple(sorted({n.name for n in E.topo_order(expr)
+                              if n.op == "var"}))
+        prog = kbw.lower(expr, names)
+        views = list(_rand_words(torch, rng, (len(names), 187538)).unbind(0))
+        for n_bits in (rows, rows - 31, None):
+            _same(torch, kbw.fused_bitwise(expr, names, views, prog,
+                                           n_bits=n_bits),
+                  kbw.fused_bitwise_plain(expr, names, views, n_bits),
+                  f"fused_bitwise {ename} TPC-H rows {n_bits}",
+                  "fused_bitwise", stats)
+    names = tuple(f"x{i}" for i in range(8))
+    prog = kbw.lower(exprs["scan"], names)
+    q = kbw.PARAM_PTRS // (len(names) + 1) + 3
+    operands = [list(_rand_words(torch, rng, (8, 187538)).unbind(0))
+                for _ in range(q)]
+    got = kbw.fused_bitwise_stacked(exprs["scan"], names, operands, prog,
+                                    n_bits=rows)
+    want = kbw.fused_bitwise_stacked_plain(exprs["scan"], names, operands,
+                                           rows)
+    for k, (g, w) in enumerate(zip(got, want)):
+        _same(torch, g, w, f"fused_bitwise_stacked TPC-H epoch q{k}",
+              "fused_bitwise_stacked", stats)
 
 
 def check_kernels(torch):
@@ -216,6 +319,8 @@ def check_kernels(torch):
         "lit": E.Expr("or", (E.Expr("and", (X, E.ONE)),
                              E.Expr("xor", (Y, E.ZERO)))),
         "scan": scan_expr(8, 37, 200, prefix="x"),
+        # 64 live registers, the most a program may hold
+        "regs64": regs64_expr(),
     }
     shapes = [(1, 524288), (1, 7), (129,), (2, 3, 40), (257, 8), (187538,)]
     stats: dict = {}
@@ -258,6 +363,7 @@ def check_kernels(torch):
             for k, (g, w) in enumerate(zip(got, want)):
                 _same(torch, g, w, f"fused_bitwise_stacked {ename} q{k}",
                       fbs, stats)
+    check_tpch_layout(torch, rng, exprs, stats)
     for shape in ((1, 524288), (1, 7), (1, 129), (6, 40), (257, 8),
                   (70000, 3)):
         x = _rand_words(torch, rng, shape)
@@ -273,11 +379,17 @@ def check_kernels(torch):
                       kbv.bitweaving_scan_plain(planes, c1, c2),
                       f"bitweaving_scan b={b} words={words} [{c1},{c2}]",
                       "bitweaving_scan", stats)
-    for m, n, k in BMM_CHECK_SHAPES + BMM_TIME_SHAPES:
+    plans = set()
+    for m, n, k in BMM_CHECK_SHAPES + BMM_TIME_SHAPES + BMM_EDGE_SHAPES:
         a, b = _packed_pm1(torch, rng, m, k), _packed_pm1(torch, rng, n, k)
+        p = kbmm.plan(m, n, a.shape[1])
+        plans.add((p.config, p.splits > 1))
         _same(torch, kbmm.binary_matmul(a, b, k),
-              kbmm.binary_matmul_plain(a, b, k), f"binary_matmul {m}x{n}x{k}",
-              "binary_matmul", stats)
+              kbmm.binary_matmul_plain(a, b, k),
+              f"binary_matmul {m}x{n}x{k} {p}", "binary_matmul", stats)
+        del a, b
+    if plans != {(c, s) for c in range(3) for s in (False, True)}:
+        fail(f"binary_matmul checks missed a tile or split: {sorted(plans)}")
     # the engine's entry points on the card: kernels == plain backend
     eng_k = BulkBitwiseEngine("cuda")
     eng_p = BulkBitwiseEngine("torch")
@@ -338,35 +450,39 @@ def time_kernels(torch, timer):
         lambda: kbw.fused_bitwise(X & Y, ("x", "y"), [x, y], prog),
         lambda: kbw.fused_bitwise_plain(X & Y, ("x", "y"), [x, y]),
         lambda: torch.bitwise_and(x, y), 3 * 4 * n, n)
-    # the same query on operands 4 bytes past a 16-byte boundary: the
-    # scalar path, against the 16-byte path above
+    # the same query on operands 4 bytes past a 16-byte boundary
     xo, yo = (_rand_words(torch, rng, (n + 1,))[1:].reshape(shape)
               for _ in range(2))
-    out["x&y scalar"] = row(
-        "fused_bitwise", "x&y (1,524288) 4-byte offset, scalar path",
+    more = [row(
+        "fused_bitwise", "x&y (1,524288) 4-byte offset",
         lambda: kbw.fused_bitwise(X & Y, ("x", "y"), [xo, yo], prog),
         lambda: kbw.fused_bitwise_plain(X & Y, ("x", "y"), [xo, yo]),
-        lambda: torch.bitwise_and(xo, yo), 3 * 4 * n, n)
+        lambda: torch.bitwise_and(xo, yo), 3 * 4 * n, n)]
     # the heavier program of the TPC-H path: an 8-plane range predicate,
-    # first over planes that are row views of one (8, 187538) tensor -
-    # the layout serving uses (TpchTable's planes, put() shares them):
-    # a row is 750,152 bytes, so odd rows are not 16-byte aligned and the
-    # launch takes the kernel's scalar path - then over eight separate
-    # allocations, which take the 16-byte path
+    # over planes that are row views of one (8, 187538) tensor - the layout
+    # serving uses (TpchTable's planes, put() shares them; odd rows are 4
+    # bytes off a 16-byte boundary) - unmasked and with the table's
+    # 6,001,215-row tail mask, as serving launches it; then over eight
+    # separate allocations
     names = tuple(f"x{i}" for i in range(8))
     sexpr = scan_expr(8, 37, 200, prefix="x")
     sprog = kbw.lower(sexpr, names)
     served = _rand_words(torch, rng, (8, 187538))
-    for layout, planes in (
-            ("row views, scalar path (served)", list(served.unbind(0))),
-            ("separate, 16-byte path",
-             [_rand_words(torch, rng, (187538,)) for _ in names])):
-        out[f"scan {layout}"] = row(
+    for layout, planes, n_bits in (
+            ("row views (served layout)", list(served.unbind(0)), None),
+            ("row views, TPC-H tail mask (served launch)",
+             list(served.unbind(0)), 6_001_215),
+            ("separate planes",
+             [_rand_words(torch, rng, (187538,)) for _ in names], None)):
+        more.append(row(
             "fused_bitwise", f"scan_expr(8) (187538,) {layout}",
-            lambda p=planes: kbw.fused_bitwise(sexpr, names, p, sprog),
-            lambda p=planes: kbw.fused_bitwise_plain(sexpr, names, p), None,
-            (len(sprog.loads) + 1) * 4 * 187538,
-            (sprog.code.shape[0] - len(sprog.loads)) * 187538)
+            lambda p=planes, b=n_bits: kbw.fused_bitwise(sexpr, names, p,
+                                                         sprog, n_bits=b),
+            lambda p=planes, b=n_bits: kbw.fused_bitwise_plain(sexpr, names,
+                                                               p, b),
+            None, (len(sprog.loads) + 1) * 4 * 187538,
+            (sprog.code.shape[0] - len(sprog.loads)) * 187538))
+    out["fused_bitwise"]["more"] = more
     # fused_bitwise_stacked: one epoch of 16 bitmap queries
     q = 16
     operands = [[_rand_words(torch, rng, shape) for _ in range(2)]
@@ -396,6 +512,24 @@ def time_kernels(torch, timer):
     log(f"time fused_bitwise_stacked 16 x x&y pointer table, 3 alternated "
         f"rounds of (device ms, host-path ms): by value {by_value}, "
         f"device table {table}")
+    # the small parameter block (at most SMALL_PTRS pointers and
+    # SMALL_INSTR instructions, 896 bytes) against the 5,120-byte one that
+    # any launch fits, alternated: single x & y, then the epoch
+    small, large = [], []
+    for fn in (lambda: kbw.fused_bitwise(X & Y, ("x", "y"), [x, y], prog),
+               stacked):
+        small.append([])
+        large.append([])
+        for _ in range(3):
+            small[-1].append(timer(fn))
+            kept, kbw.SMALL_PARAMS = kbw.SMALL_PARAMS, False
+            try:
+                large[-1].append(timer(fn))
+            finally:
+                kbw.SMALL_PARAMS = kept
+    out["param block"] = {"small": small, "large": large}
+    log(f"time fused_bitwise parameter block, x&y then 16 x x&y, 3 rounds "
+        f"each of (device ms, host-path ms): small {small}, large {large}")
     # popcount_rows: the resident popcount of one 2^24-bit bitmap
     out["popcount_rows"] = row(
         "popcount_rows", "(1,524288)", lambda: kpc.popcount_rows(x),

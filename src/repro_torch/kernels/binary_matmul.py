@@ -2,23 +2,75 @@
 the paper's ML application of bulk bitwise operations (Section 8.4.5).
 
 For {-1,+1} vectors packed as bits (1 = +1) the dot product is
-``K - 2 * popcount(a XOR b)``. ``binary_matmul`` launches the kernel for
-CUDA tensors and counts the launch in ``binary_matmul.launches``; CPU
+``K - 2 * popcount(a XOR b)``. The kernel expands the bits to int8 +-1 and
+takes the product on the int8 tensor cores; ``plan`` picks its tile,
+split of K and grid from the shape. ``binary_matmul`` launches the kernel
+for CUDA tensors and counts the launch in ``binary_matmul.launches``; CPU
 tensors take the plain PyTorch version beside it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build, ref
 
-# Grid y of the launch walks N in tiles of 64 (CUDA caps grid y at 65,535).
-MAX_N = 65535 * 64
+# Output tiles go on grid x (at most 2^31 - 1 of them) and the splits of K
+# on grid z; N itself only has to be an int32.
+MAX_N = 2 ** 31 - 1
+MAX_TILES = 2 ** 31 - 1
 # Largest row length in words: 32 * Kw and k_bits - 2 * popcount stay in int32.
 MAX_KW = 1 << 25
+# csrc/binary_matmul.cu's output tiles (rows, columns), by config number:
+# 128x256 on wgmma (two warpgroups of 64x256), 64x64 on mma.sync (four
+# warps of 32x32), 128x8 on mma.sync (four warps of 32x8, for N <= 8).
+TILES = ((128, 256), (64, 64), (128, 8))
+KC = 8                  # packed words of K a stage of the kernel
+SMS = 132               # the H100 SXM's streaming multiprocessors
+FILL_BLOCKS = 2 * SMS   # blocks a split K aims at
+MIN_SPLIT_CHUNKS = 4    # the least chunks of K a split of K walks
+
+
+class Plan(NamedTuple):
+    config: int             # index into TILES
+    tiles_m: int
+    tiles_n: int
+    splits: int             # grid z; > 1 lands partial sums with atomics
+    chunks_per_split: int   # chunks of KC words each split walks
+
+
+def plan(m: int, n: int, kw: int) -> Plan:
+    """The launch for an (m, kw) x (n, kw) product: 128x8 tiles for N <= 8,
+    else the 128x256 wgmma tiles where they alone give every SM a block,
+    else 64x64; then K split across grid z until about FILL_BLOCKS blocks
+    run, each split walking at least MIN_SPLIT_CHUNKS chunks. Raises past
+    the grid's limits."""
+    if m < 1 or n < 1 or kw < 0:
+        raise ValueError(f"binary_matmul plans m, n >= 1, kw >= 0, got "
+                         f"{m}, {n}, {kw}")
+    if n > MAX_N:
+        raise ValueError(f"binary_matmul takes N <= {MAX_N}, got {n}")
+
+    def tiles(config):
+        tm, tn = TILES[config]
+        return -(-m // tm), -(-n // tn)
+
+    if n <= 8:
+        config = 2
+    else:
+        gm, gn = tiles(0)
+        config = 0 if gm * gn >= SMS else 1
+    gm, gn = tiles(config)
+    if gm * gn > MAX_TILES:
+        raise ValueError(f"binary_matmul takes at most {MAX_TILES} output "
+                         f"tiles, {m}x{n} needs {gm * gn}")
+    chunks = max(1, -(-kw // KC))
+    splits = max(1, min(FILL_BLOCKS // (gm * gn), chunks // MIN_SPLIT_CHUNKS))
+    per = -(-chunks // splits)
+    return Plan(config, gm, gn, -(-chunks // per), per)
 
 
 def binary_matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -34,7 +86,9 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -68,14 +122,16 @@ def binary_matmul(a: torch.Tensor, b: torch.Tensor,
         raise ValueError("binary_matmul takes contiguous operands")
     m, kw = a.shape
     n = b.shape[0]
-    if n > MAX_N:
-        raise ValueError(f"binary_matmul takes N <= {MAX_N}, got {n}")
-    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
-        return out
+        return torch.empty((m, n), dtype=torch.int32, device=a.device)
+    p = plan(m, n, kw)
+    # split K lands its partial sums with atomics: start from zero
+    out = (torch.zeros if p.splits > 1 else torch.empty)(
+        (m, n), dtype=torch.int32, device=a.device)
     lib = _lib()
     rc = lib.binary_matmul_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, kw, k_bits,
+        p.config, p.tiles_m, p.tiles_n, p.splits, p.chunks_per_split,
         torch.cuda.current_stream(a.device).cuda_stream)
     build.check(lib, rc, "binary_matmul launch")
     binary_matmul.launches += 1

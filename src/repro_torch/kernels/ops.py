@@ -47,8 +47,8 @@ def fused_dispatch_reset() -> None:
 
 @functools.lru_cache(maxsize=256)
 def _lowered(expression: E.Expr, names: tuple) -> _bitwise.Program:
-    """The one lowering of each ``(expression, names)``; the program keeps
-    its own copy on the card (``bitwise.program_on``)."""
+    """The one lowering of each ``(expression, names)``; every launch
+    passes it to the kernel by value."""
     return _bitwise.lower(expression, names)
 
 

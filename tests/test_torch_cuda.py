@@ -22,6 +22,7 @@ import torch
 
 from benchmarks.serve_closed_loop import _obs_tokens, _zipf_pairs
 from repro_torch.apps import binary_lm
+from repro_torch.apps.bitweaving_db import scan_expr
 from repro_torch.core import BitVector, Expr
 from repro_torch.core import expr as E
 from repro_torch.kernels import binary_matmul as kbmm
@@ -173,6 +174,91 @@ def test_binary_matmul_matches_plain_on_card(cuda, m, n, k):
     assert kbmm.binary_matmul.launches == launches + 1
     torch.cuda.synchronize()
     assert torch.equal(got, kbmm.binary_matmul_plain(a, b, k))
+
+
+# M, N and Kw one short of, on and one past each of binary_matmul's tiles
+# (128x256 wgmma from 132 tiles up, 64x64, 128x8 for N <= 8; K in chunks
+# of 8 words), k_bits off a multiple of 32, and split K on each tile
+@pytest.mark.parametrize("m,n,k", [
+    (1536, 2816, 256), (1535, 2815, 224), (1537, 2817, 289),
+    (1536, 2816, 4100), (63, 65, 288), (64, 64, 256), (65, 63, 225),
+    (127, 129, 4101), (300, 200, 100000), (127, 8, 31), (129, 7, 257),
+    (2048, 8, 256), (300, 1, 40000)])
+def test_binary_matmul_tile_edges_on_card(cuda, m, n, k):
+    rng = np.random.default_rng(m * 7 + n + k)
+    kw = (k + 31) // 32
+    a, b = words(rng, (m, kw), cuda), words(rng, (n, kw), cuda)
+    if k % 32:
+        keep = (1 << (k % 32)) - 1
+        a[:, -1] &= keep
+        b[:, -1] &= keep
+    got = kbmm.binary_matmul(a, b, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kbmm.binary_matmul_plain(a, b, k))
+
+
+def test_binary_matmul_plans_cover_every_tile_and_split():
+    """The shapes above reach every tile of the kernel, split and not."""
+    seen = {(p.config, p.splits > 1) for p in (
+        kbmm.plan(m, n, (k + 31) // 32) for m, n, k in (
+            (1536, 2816, 256), (1536, 2816, 4100), (64, 64, 256),
+            (127, 129, 4101), (2048, 8, 256), (300, 1, 40000)))}
+    assert seen == {(c, s) for c in range(3) for s in (False, True)}
+
+
+def regs64_expr():
+    """Pairwise xors of 12 operands, consumed by an and-chain in one order
+    and an or-chain in the other: 64 live registers."""
+    leaves = [E.Expr.var(f"v{i}") for i in range(12)]
+    mids = [leaves[i] ^ leaves[j] for i in range(12)
+            for j in range(i + 1, 12)][:61]
+    chain1, chain2 = mids[0], mids[-1]
+    for m in mids[1:]:
+        chain1 = chain1 & m
+    for m in reversed(mids[:-1]):
+        chain2 = chain2 | m
+    return chain1 ^ chain2, tuple(f"v{i}" for i in range(12))
+
+
+@pytest.mark.parametrize("ename", ["maj", "lit", "scan", "regs64"])
+def test_fused_bitwise_tpch_layout_on_card(cuda, ename):
+    """As TPC-H serving launches it: operands are row views of one
+    (planes, 187538) tensor (odd rows 4 bytes off a 16-byte boundary), the
+    result masked to the table's 6,001,215 rows."""
+    if ename == "scan":
+        expr = scan_expr(8, 37, 200, prefix="x")
+        names = tuple(f"x{i}" for i in range(8))
+    elif ename == "regs64":
+        expr, names = regs64_expr()
+    else:
+        expr, names = EXPRS[ename], ("x", "y", "z")
+    prog = kbw.lower(expr, names)
+    if ename == "regs64":
+        assert prog.n_regs == kbw.MAX_REGS
+    rng = np.random.default_rng(len(names))
+    views = list(words(rng, (len(names), 187538), cuda).unbind(0))
+    for n_bits in (6_001_215, 6_001_215 - 31, None):
+        got = kbw.fused_bitwise(expr, names, views, prog, n_bits=n_bits)
+        assert torch.equal(got, kbw.fused_bitwise_plain(expr, names, views,
+                                                        n_bits))
+
+
+def test_tpch_epoch_past_the_parameter_table_on_card(cuda):
+    """An epoch of 8-plane scans on row views, masked to the TPC-H rows,
+    with more pointers than travel by value: one launch, exact."""
+    expr = scan_expr(8, 37, 200, prefix="x")
+    names = tuple(f"x{i}" for i in range(8))
+    prog = kbw.lower(expr, names)
+    rng = np.random.default_rng(45)
+    q = kbw.PARAM_PTRS // (len(names) + 1) + 3
+    operands = [list(words(rng, (8, 187538), cuda).unbind(0))
+                for _ in range(q)]
+    launches = kbw.fused_bitwise_stacked.launches
+    outs = kbw.fused_bitwise_stacked(expr, names, operands, prog,
+                                     n_bits=6_001_215)
+    assert kbw.fused_bitwise_stacked.launches == launches + 1
+    wants = kbw.fused_bitwise_stacked_plain(expr, names, operands, 6_001_215)
+    assert all(torch.equal(g, w) for g, w in zip(outs, wants))
 
 
 def test_binary_matmul_raises_on_what_it_does_not_take(cuda):
