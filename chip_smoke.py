@@ -7,12 +7,17 @@ Phases, in order (any failed check raises and the script exits non-zero
 without printing the result line):
 
 1. environment: the card's name and power limit, and the build of every
-   CUDA kernel from ``src/repro_torch/kernels/csrc``;
+   CUDA kernel from ``src/repro_torch/kernels/csrc`` (ptxas must report
+   no stack frame and no spill for the popcount and scan kernels,
+   ``binary_matmul``'s SASS must hold tensor-core products, and the
+   scan's SASS order of loads and compares is reported);
 2. every kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged ones, exactly; then each kernel's
-   time per launch (CUDA events, median, L2 flushed before each launch)
+   main path's shapes and at ragged ones (views off a 16-byte boundary,
+   short and split rows, tail masks), exactly; then each kernel's time
+   per launch (CUDA events, median, L2 flushed before each launch)
    beside its plain version's, a one-call PyTorch yardstick where one
-   exists, and the least time the card could take;
+   exists (for the popcount and the scan, which have none, a call that
+   moves the same bytes), and the least time the card could take;
 3. the serving main path at full width on backend "cuda": a 2^24-user
    bitmap index served to 1024 Zipfian tenants through QueryFrontend,
    the weekly-active query, and the TPC-H lineitem table at scale factor
@@ -22,7 +27,12 @@ without printing the result line):
    (``repro_torch.apps.binary_lm.main``: 150 STE steps of a 256-to-8
    BitLinear, then packed XNOR-popcount inference over 2048 examples),
    accuracy above 0.5; launch counts are read for this phase alone;
-5. one ``{"kernels": [...]}`` JSON line, then the result line.
+5. ``torch.profiler`` over one popcount, one served popcount and one
+   ``count_between``: the CUDA kernels each ran, by name (a popcount
+   must be its one kernel, with no fill and no sum; a kernel the tracer
+   dropped is reported, not failed, since the launch counts show it);
+6. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
+   ``{"kernels": [...]}`` JSON line, then the result line.
 
 Each path must launch its own kernels: the four serving kernels on
 phase 3, ``binary_matmul`` on phase 4.
@@ -80,16 +90,24 @@ def environment(torch):
     log(f"build: {len(logs)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in sorted(logs.items()):
-        for entry in ptxas_summary(text):
-            log(f"  ptxas[{name}] {entry}")
+        entries = ptxas_summary(text)
+        for line in ptxas_lines(entries):
+            log(f"  ptxas[{name}] {line}")
+        # the two kernels that keep every load in registers: no stack
+        # frame, no spill in any instantiation
+        if name in ("popcount", "bitweaving"):
+            bad = [e for e in entries if e[2] or e[3] or e[4]]
+            if bad or not entries:
+                fail(f"ptxas[{name}]: stack frame or spills in {bad}")
     tensor_core_check(build)
+    scan_load_order(build)
     return card
 
 
 def ptxas_summary(text: str):
-    """One line an entry point of ``nvcc -Xptxas -v`` output: registers,
-    stack frame, spills and shared memory."""
-    out, name, props = [], None, ""
+    """One (name, registers, stack frame B, spill stores B, spill loads B,
+    static shared B) an entry point of ``nvcc -Xptxas -v`` output."""
+    out, name, props = [], None, (0, 0, 0)
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
@@ -97,38 +115,130 @@ def ptxas_summary(text: str):
             k = re.search(r"\d+((?:fused_bitwise|binary_matmul|popcount|"
                           r"bitweaving)[a-z_]*)(I.*?E+(?=v))?", mangled)
             name = mangled if not k else k.group(1) + (
-                "<" + ",".join(re.findall(r"Li(\d+)E", k.group(2))) + ">"
+                "<" + ",".join(re.findall(r"L[ib](\d+)E", k.group(2))) + ">"
                 if k.group(2) else "")
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
-            props = (f"stack frame {m.group(1)} B, spills {m.group(2)}/"
-                     f"{m.group(3)} B")
+            props = tuple(int(g) for g in m.groups())
             continue
         m = re.search(r"Used (\d+) registers(.*)", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", m.group(2))
-            out.append(f"{name}: {m.group(1)} registers, {props}, static "
-                       f"shared {smem.group(1) if smem else 0} B")
+            out.append((name, int(m.group(1)), *props,
+                        int(smem.group(1)) if smem else 0))
             name = None
     return out
+
+
+def ptxas_lines(entries):
+    """A line an entry point; a kernel of more than 8 instantiations (the
+    scan's 96) as one line of ranges."""
+    by_kernel = {}
+    for e in entries:
+        by_kernel.setdefault(e[0].split("<")[0], []).append(e)
+    lines = []
+    for kernel, group in by_kernel.items():
+        if len(group) <= 8:
+            lines += [f"{n}: {r} registers, stack frame {st} B, spills "
+                      f"{ss}/{sl} B, static shared {sm} B"
+                      for n, r, st, ss, sl, sm in group]
+            continue
+        regs = [e[1] for e in group]
+        worst = max(group, key=lambda e: e[1])
+        lines.append(
+            f"{kernel}: {len(group)} instantiations, {min(regs)}-{max(regs)} "
+            f"registers (most: {worst[0]}), stack frame at most "
+            f"{max(e[2] for e in group)} B, spills at most "
+            f"{max(e[3] for e in group)}/{max(e[4] for e in group)} B")
+    return lines
+
+
+def sass_of(build, name):
+    """``cuobjdump -sass`` of the built ``csrc/<name>.cu``, or None (with
+    a log line) where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log(f"  sass[{name}]: cuobjdump not found, not checked")
+        return None
+    return subprocess.run([tool, "-sass", str(build._target(name))],
+                          capture_output=True, text=True, timeout=120).stdout
 
 
 def tensor_core_check(build):
     """binary_matmul's SASS must hold tensor-core products (wgmma is
     GMMA in SASS, mma.sync IMMA) and no popcount loop."""
-    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        log("  sass[binary_matmul]: cuobjdump not found, not checked")
+    sass = sass_of(build, "binary_matmul")
+    if sass is None:
         return
-    sass = subprocess.run([tool, "-sass", str(build._target("binary_matmul"))],
-                          capture_output=True, text=True, timeout=120).stdout
     gmma, imma = sass.count("GMMA."), sass.count("IMMA.")
     log(f"  sass[binary_matmul]: {gmma} GMMA (wgmma), {imma} IMMA (mma.sync), "
         f"{sass.count('POPC')} POPC instructions")
     if not gmma or not imma:
         fail("binary_matmul's SASS lacks its tensor-core products")
+
+
+def sass_functions(sass: str):
+    """``cuobjdump -sass`` text -> {mangled name: [instruction, ...]}."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and name:
+            out[name].append(m.group(1))
+    return out
+
+
+def loads_before_use(code):
+    """(global loads issued before the first instruction that reads a
+    loaded register, global loads in all) of one function's SASS."""
+    loaded, before, total, used = set(), 0, 0, False
+    for ins in code:
+        ins = re.sub(r"^@!?U?P\w+\s+", "", ins)      # the predicate
+        op, _, rest = ins.partition(" ")
+        regs = [re.findall(r"\bR(\d+)\b", a) for a in rest.split(",")]
+        if op.split(".")[0] == "LDG":
+            total += 1
+            before += not used
+            n = 4 if ".128" in op else 2 if ".64" in op else 1
+            loaded.update(int(regs[0][0]) + i for i in range(n))
+            continue
+        srcs = regs if op.startswith(("ST", "RED", "ATOM")) else regs[1:]
+        if any(int(r) in loaded for a in srcs for r in a):
+            used = True
+    return before, total
+
+
+def scan_load_order(build):
+    """Report bitweaving_scan's SASS: how many of each instantiation's
+    plane loads are issued before the recurrence first reads a loaded
+    word. The source issues every plane's load first; in most
+    instantiations of 8 planes or more, the served ones among them, ptxas
+    (sm_90a) starts the recurrence after the first few loads whatever the
+    source order (volatile asm loads and fences did not change it), and
+    staging the planes through shared memory with cp.async, which issues
+    every load first, was slower on the card. So this is a report, not a
+    gate."""
+    sass = sass_of(build, "bitweaving")
+    if sass is None:
+        return
+    order = {}
+    for name, code in sass_functions(sass).items():
+        m = re.match(r"_Z22bitweaving_scan_kernelILi(\d+)ELi(\d+)EE", name)
+        if m:
+            order[int(m.group(1)), int(m.group(2))] = loads_before_use(code)
+    first = sum(1 for b, t in order.values() if t and b == t)
+    served = {f"<{b},{n}>": order.get((b, n)) for b, n in ((8, 2), (8, 4))}
+    least = min((b for b, t in order.values() if t), default=None)
+    log(f"  sass[bitweaving]: (plane loads before the first compare, plane "
+        f"loads) {served} (the served 8-plane scans); every load first in "
+        f"{first} of {len(order)} instantiations, at least {least} first "
+        f"in all")
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -297,6 +407,77 @@ def check_tpch_layout(torch, rng, exprs, stats):
               "fused_bitwise_stacked", stats)
 
 
+def _offset_view(torch, rng, shape, offset):
+    """Random words of ``shape`` whose first word lies ``offset`` bytes
+    past a 16-byte boundary (a view into a larger allocation)."""
+    n = int(np.prod(shape))
+    base = _rand_words(torch, rng, (n + 4,))
+    view = base[offset // 4:offset // 4 + n].reshape(shape)
+    assert view.data_ptr() % 16 == offset
+    return view
+
+
+def check_popcount(torch, rng, stats):
+    """popcount_rows at the served and ragged shapes, short rows, rows
+    of several splits and passes, views 0, 4, 8 and 12 bytes off a
+    16-byte boundary; one launch a call, ticket words back at 0."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import popcount as kpc
+    shapes = [(1, 524288), (1, 7), (1, 129), (6, 40), (257, 8), (70000, 3),
+              (1, 187538), (3, 1000), (2, 524289), (5, 40000), (600, 300),
+              (200, 5000), (1, 257), (1, 1 << 22)]
+    for shape in shapes:
+        for offset in (0, 4, 8, 12):
+            x = _offset_view(torch, rng, shape, offset)
+            launches = kpc.popcount_rows.launches
+            got = kpc.popcount_rows(x)
+            if kpc.popcount_rows.launches != launches + 1:
+                fail("popcount_rows: not one launch a call")
+            _same(torch, got, kpc.popcount_rows_plain(x),
+                  f"popcount_rows {shape} +{offset} B "
+                  f"{kpc.plan(*shape, build.sm_count(x.device))}",
+                  "popcount_rows", stats)
+    if any(t.any() for t in kpc._TICKETS.values()):
+        fail("popcount_rows left a ticket word standing")
+
+
+def check_bitweaving(torch, rng, stats):
+    """bitweaving_scan at every plane count's edge, the served shapes,
+    planes 4, 8 and 12 bytes off a 16-byte boundary, and the tail mask at
+    every remainder mod 32 and at the TPC-H table's 6,001,215 rows."""
+    from repro_torch.kernels import bitweaving as kbv
+    for b in (1, 4, 8, 12, 32):
+        for words in (187538, 524288, 7):
+            planes = _rand_words(torch, rng, (b, words))
+            top = (1 << b) - 1
+            for c1, c2 in ((0, top), (0, 0), (top, top), (1, top - 1),
+                           (top // 3, 2 * top // 3)):
+                _same(torch, kbv.bitweaving_scan(planes, c1, c2),
+                      kbv.bitweaving_scan_plain(planes, c1, c2),
+                      f"bitweaving_scan b={b} words={words} [{c1},{c2}]",
+                      "bitweaving_scan", stats)
+    for b, words in ((8, 187538), (8, 524288), (32, 42), (3, 41)):
+        for offset in (4, 8, 12):
+            planes = _offset_view(torch, rng, (b, words), offset)
+            for n_bits in (None, 32 * words - 7, 6_001_215):
+                launches = kbv.bitweaving_scan.launches
+                got = kbv.bitweaving_scan(planes, 37, 200, n_bits)
+                if kbv.bitweaving_scan.launches != launches + 1:
+                    fail("bitweaving_scan: not one launch a call")
+                _same(torch, got,
+                      kbv.bitweaving_scan_plain(planes, 37, 200, n_bits),
+                      f"bitweaving_scan ({b},{words}) +{offset} B n_bits="
+                      f"{n_bits} {kbv.plan(b, words, planes.data_ptr())}",
+                      "bitweaving_scan", stats)
+    planes = _rand_words(torch, rng, (8, 187538))
+    for rem in range(32):
+        n_bits = 32 * 187537 - 32 * rem + rem
+        _same(torch, kbv.bitweaving_scan(planes, 37, 200, n_bits),
+              kbv.bitweaving_scan_plain(planes, 37, 200, n_bits),
+              f"bitweaving_scan (8,187538) n_bits={n_bits}",
+              "bitweaving_scan", stats)
+
+
 def check_kernels(torch):
     """Every kernel against its plain version on the card, exactly.
     Returns kernel name -> {"checks", "max_abs_err"} (0 when all agree)."""
@@ -305,9 +486,8 @@ def check_kernels(torch):
     from repro_torch.core.engine import BulkBitwiseEngine
     from repro_torch.core.bitvector import BitVector
     from repro_torch.kernels import binary_matmul as kbmm
-    from repro_torch.kernels import bitweaving as kbv
     from repro_torch.kernels import bitwise as kbw
-    from repro_torch.kernels import popcount as kpc
+    from repro_torch.kernels import build
 
     rng = np.random.default_rng(SEED)
     X, Y, Z = E.Expr.var("x"), E.Expr.var("y"), E.Expr.var("z")
@@ -364,25 +544,12 @@ def check_kernels(torch):
                 _same(torch, g, w, f"fused_bitwise_stacked {ename} q{k}",
                       fbs, stats)
     check_tpch_layout(torch, rng, exprs, stats)
-    for shape in ((1, 524288), (1, 7), (1, 129), (6, 40), (257, 8),
-                  (70000, 3)):
-        x = _rand_words(torch, rng, shape)
-        _same(torch, kpc.popcount_rows(x), kpc.popcount_rows_plain(x),
-              f"popcount_rows {shape}", "popcount_rows", stats)
-    for b in (1, 4, 8, 12, 32):
-        for words in (187538, 524288, 7):
-            planes = _rand_words(torch, rng, (b, words))
-            top = (1 << b) - 1
-            for c1, c2 in ((0, top), (0, 0), (top, top), (1, top - 1),
-                           (top // 3, 2 * top // 3)):
-                _same(torch, kbv.bitweaving_scan(planes, c1, c2),
-                      kbv.bitweaving_scan_plain(planes, c1, c2),
-                      f"bitweaving_scan b={b} words={words} [{c1},{c2}]",
-                      "bitweaving_scan", stats)
+    check_popcount(torch, rng, stats)
+    check_bitweaving(torch, rng, stats)
     plans = set()
     for m, n, k in BMM_CHECK_SHAPES + BMM_TIME_SHAPES + BMM_EDGE_SHAPES:
         a, b = _packed_pm1(torch, rng, m, k), _packed_pm1(torch, rng, n, k)
-        p = kbmm.plan(m, n, a.shape[1])
+        p = kbmm.plan(m, n, a.shape[1], build.sm_count(a.device))
         plans.add((p.config, p.splits > 1))
         _same(torch, kbmm.binary_matmul(a, b, k),
               kbmm.binary_matmul_plain(a, b, k),
@@ -412,9 +579,7 @@ def time_kernels(torch, timer):
     """Each kernel at the main path's shapes. Returns name -> numbers."""
     from repro_torch.apps.bitweaving_db import scan_expr
     from repro_torch.core import expr as E
-    from repro_torch.kernels import bitweaving as kbv
     from repro_torch.kernels import bitwise as kbw
-    from repro_torch.kernels import popcount as kpc
 
     rng = np.random.default_rng(SEED + 1)
     X, Y = E.Expr.var("x"), E.Expr.var("y")
@@ -530,18 +695,60 @@ def time_kernels(torch, timer):
     out["param block"] = {"small": small, "large": large}
     log(f"time fused_bitwise parameter block, x&y then 16 x x&y, 3 rounds "
         f"each of (device ms, host-path ms): small {small}, large {large}")
-    # popcount_rows: the resident popcount of one 2^24-bit bitmap
-    out["popcount_rows"] = row(
-        "popcount_rows", "(1,524288)", lambda: kpc.popcount_rows(x),
-        lambda: kpc.popcount_rows_plain(x), None, 4 * n + 4, 2 * n)
-    # bitweaving_scan: count_between on the 8-bit TPC-H column
-    bplanes = _rand_words(torch, rng, (8, 187538))
-    out["bitweaving_scan"] = row(
-        "bitweaving_scan", "(8,187538)",
-        lambda: kbv.bitweaving_scan(bplanes, 37, 200),
-        lambda: kbv.bitweaving_scan_plain(bplanes, 37, 200), None,
-        9 * 4 * 187538, 8 * 6 * 187538)
+    out.update(time_popcount_and_scan(torch, rng, timer, row, x))
     out["binary_matmul"] = time_binary_matmul(torch, rng, row)
+    return out
+
+
+def time_popcount_and_scan(torch, rng, timer, row, x):
+    """popcount_rows on the served 2^24-bit row and bitweaving_scan on the
+    8-bit TPC-H column, each beside a one-call yardstick that moves the
+    same bytes but computes another function (``torch.sum`` of the row's
+    words, ``torch.amax`` over the planes: torch has no popcount and no
+    BitWeaving predicate, so ``library_ms`` stays null), and an empty
+    kernel, the least a launch measures."""
+    from repro_torch.kernels import bitweaving as kbv
+    from repro_torch.kernels import popcount as kpc
+    out = {}
+    n = x.numel()
+    # the timer's floor: a kernel that does nothing
+    empty = timer(lambda: torch.cuda._sleep(0))[0]
+    log(f"time an empty kernel (torch.cuda._sleep(0)): {empty:.6f} ms on "
+        f"the device, the least any launch measures here")
+    r = row("popcount_rows", "(1,524288)", lambda: kpc.popcount_rows(x),
+            lambda: kpc.popcount_rows_plain(x), None, 4 * n + 4, 2 * n)
+    r["yardstick_ms"] = timer(
+        lambda: torch.sum(x, dim=1, dtype=torch.int32))[0]
+    r["empty_kernel_ms"] = empty
+    v = _offset_view(torch, rng, (1, 187538), 4)
+    r["more"] = [row(
+        "popcount_rows", "(1,187538) 4-byte offset (count_between's row)",
+        lambda: kpc.popcount_rows(v), lambda: kpc.popcount_rows_plain(v),
+        None, 4 * 187538 + 4, 2 * 187538)]
+    log(f"time popcount_rows (1,524288) yardstick torch.sum(dim=1, int32) "
+        f"{r['yardstick_ms']:.6f} ms")
+    out["popcount_rows"] = r
+    bplanes = _rand_words(torch, rng, (8, 187538))
+    r = row("bitweaving_scan", "(8,187538)",
+            lambda: kbv.bitweaving_scan(bplanes, 37, 200),
+            lambda: kbv.bitweaving_scan_plain(bplanes, 37, 200), None,
+            9 * 4 * 187538, 8 * 6 * 187538)
+    r["yardstick_ms"] = timer(lambda: torch.amax(bplanes, dim=0))[0]
+    r["empty_kernel_ms"] = empty
+    r["more"] = [row(
+        "bitweaving_scan", "(8,187538) TPC-H tail mask (count_between)",
+        lambda: kbv.bitweaving_scan(bplanes, 37, 200, 6_001_215),
+        lambda: kbv.bitweaving_scan_plain(bplanes, 37, 200, 6_001_215),
+        None, 9 * 4 * 187538, 8 * 6 * 187538)]
+    wide = _rand_words(torch, rng, (8, 524288))
+    r["more"].append(row(
+        "bitweaving_scan", "(8,524288)",
+        lambda: kbv.bitweaving_scan(wide, 37, 200),
+        lambda: kbv.bitweaving_scan_plain(wide, 37, 200), None,
+        9 * 4 * 524288, 8 * 6 * 524288))
+    log(f"time bitweaving_scan (8,187538) yardstick torch.amax(dim=0) "
+        f"{r['yardstick_ms']:.6f} ms")
+    out["bitweaving_scan"] = r
     return out
 
 
@@ -579,6 +786,98 @@ def time_binary_matmul(torch, rng, row):
     first = dict(rows[0])
     first["more"] = rows[1:]
     return first
+
+
+def profile_phase(torch):
+    """``torch.profiler`` over one ``popcount_rows`` call, one served
+    ``DeviceStore.popcount`` (through ``AmbitRuntime.popcount``) and one
+    ``count_between``, each after a warm-up: the CUDA kernels each ran,
+    by name. Each call must launch through the wrappers exactly the
+    kernels it wants (the launch counts), and its trace must hold no
+    other kernel: the first two the popcount kernel alone (no fill, no
+    sum), ``count_between`` the scan and the popcount. A trace that holds
+    fewer (the tracer dropped a record) is taken again, at most twice,
+    and then reported as incomplete, not failed: the launch counts have
+    already shown what ran. Returns what -> {"kernels", "traces",
+    "complete"}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.apps.bitweaving_db import BitWeavingColumn
+    from repro_torch.core import BitVector
+    from repro_torch.kernels import bitweaving as kbv
+    from repro_torch.kernels import popcount as kpc
+    from repro_torch.pim import AmbitRuntime
+
+    rng = np.random.default_rng(SEED + 3)
+    x = _rand_words(torch, rng, (1, 524288))
+    rt = AmbitRuntime(backend="cuda", device="cuda")
+    h = rt.put(BitVector.from_bits(
+        rng.integers(0, 2, 1 << 24).astype(bool), device="cuda"))
+    col = BitWeavingColumn.from_values(
+        rng.integers(0, 256, 6_001_215).astype(np.uint32), 8, device="cuda")
+    pc = ("popcount_long_kernel", "popcount_short_kernel")
+    scan = ("bitweaving_scan_kernel",)
+    calls = (("popcount_rows (1,524288)", lambda: kpc.popcount_rows(x),
+              [pc]),
+             ("served DeviceStore.popcount (2^24 bits)",
+              lambda: rt.popcount(h), [pc]),
+             ("count_between (TPC-H SF1, 8-bit column)",
+              lambda: col.count_between(37, 200), [scan, pc]))
+    wrappers = {pc: kpc.popcount_rows, scan: kbv.bitweaving_scan}
+
+    def launched(fn, what, want):
+        """Call ``fn`` once; fail unless it launched ``want``."""
+        before = {k: w.launches for k, w in wrappers.items()}
+        fn()
+        torch.cuda.synchronize()
+        got = {k: w.launches - before[k] for k, w in wrappers.items()}
+        if got != {k: want.count(k) for k in wrappers}:
+            fail(f"profile {what}: launched {got}, want one of each of "
+                 f"{want}")
+
+    def kernels(fn, what, want):
+        """The CUDA kernels of one call to ``fn``, traced in the second of
+        two profiler steps (the first warms the tracer up)."""
+        got = []
+
+        def ready(prof):
+            got.extend(e.name for e in prof.events()    # kernels and
+                       if e.device_type == DeviceType.CUDA    # memsets
+                       and not e.name.startswith(("Memcpy", "ProfilerStep")))
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(
+                         wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(2):
+                launched(fn, what, want)
+                prof.step()
+        return got
+
+    seen = {}
+    for what, fn, want in calls:
+        launched(fn, what, want)
+        for traces in range(1, 4):
+            names = kernels(fn, what, want)
+            stray = [n for n in names
+                     if not any(k in n for ks in want for k in ks)]
+            if stray or len(names) > len(want):
+                fail(f"profile {what}: ran {names}, want one kernel of "
+                     f"each of {want} in order")
+            if len(names) == len(want):
+                break
+        complete = len(names) == len(want)
+        if complete and not all(any(k in n for k in ks)
+                                for n, ks in zip(names, want)):
+            fail(f"profile {what}: ran {names}, want one kernel of each of "
+                 f"{want} in order")
+        seen[what] = {"kernels": names, "traces": traces,
+                      "complete": complete}
+        gap = "" if complete else ", incomplete: the tracer dropped a kernel"
+        log(f"profile {what}: CUDA kernels {names} ({traces} trace(s){gap})")
+    return seen
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -867,6 +1166,10 @@ def main() -> int:
     launches["binary_lm"] = _path_launches(
         wrappers, "binary_lm", lambda: binary_lm_phase(torch, card))[1]
 
+    log("== phase 5: what the popcount and scan paths run on the card "
+        "(torch.profiler)")
+    profiled = profile_phase(torch)
+
     kernels = []
     for name, _, source, replaces in KERNELS:
         t = times[name]
@@ -879,8 +1182,10 @@ def main() -> int:
             "launch_ms": t["launch_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"],
-            **({"more": t["more"]} if "more" in t else {})})
+            **{k: t[k] for k in ("yardstick_ms", "empty_kernel_ms",
+                                 "more") if k in t}})
     log(f"total_s={time.perf_counter() - t_start:.1f} card: {card}")
+    print(json.dumps({"profile": profiled}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,8 @@ import numpy as np
 import torch
 
 from ..core import BitVector
-from ..core.bitvector import _mask_tail
 from ..core.engine import resolve_device
+from ..kernels import bitweaving as kbv
 from ..kernels import ops, ref
 
 
@@ -44,10 +44,12 @@ class BitWeavingColumn:
 
     def count_between(self, c1: int, c2: int,
                       use_kernel: bool = True) -> int:
-        sel = self.scan_between(c1, c2, use_kernel)
-        sel = _mask_tail(sel, self.n_rows)      # tail rows beyond n_rows
-        return int((ops.popcount(sel[None, :]) if use_kernel
-                    else ref.popcount(sel[None, :])).sum())
+        """Rows with c1 <= v <= c2: the scan masked to ``n_rows`` (in the
+        kernel's store) and one row's popcount, read as it is."""
+        scan = ops.bitweaving_scan if use_kernel else kbv.bitweaving_scan_plain
+        sel = scan(self.planes, int(c1), int(c2), n_bits=self.n_rows)
+        count = ops.popcount if use_kernel else ref.popcount
+        return int(count(sel[None, :]))
 
     def oracle_count(self, values: np.ndarray, c1: int, c2: int) -> int:
         return int(((values >= c1) & (values <= c2)).sum())

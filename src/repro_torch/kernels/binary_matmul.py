@@ -29,8 +29,7 @@ MAX_KW = 1 << 25
 # warps of 32x32), 128x8 on mma.sync (four warps of 32x8, for N <= 8).
 TILES = ((128, 256), (64, 64), (128, 8))
 KC = 8                  # packed words of K a stage of the kernel
-SMS = 132               # the H100 SXM's streaming multiprocessors
-FILL_BLOCKS = 2 * SMS   # blocks a split K aims at
+FILL_WAVES = 2          # blocks an SM a split K aims at
 MIN_SPLIT_CHUNKS = 4    # the least chunks of K a split of K walks
 
 
@@ -42,12 +41,12 @@ class Plan(NamedTuple):
     chunks_per_split: int   # chunks of KC words each split walks
 
 
-def plan(m: int, n: int, kw: int) -> Plan:
-    """The launch for an (m, kw) x (n, kw) product: 128x8 tiles for N <= 8,
-    else the 128x256 wgmma tiles where they alone give every SM a block,
-    else 64x64; then K split across grid z until about FILL_BLOCKS blocks
-    run, each split walking at least MIN_SPLIT_CHUNKS chunks. Raises past
-    the grid's limits."""
+def plan(m: int, n: int, kw: int, sms: int) -> Plan:
+    """The launch for an (m, kw) x (n, kw) product on a card of ``sms``
+    SMs: 128x8 tiles for N <= 8, else the 128x256 wgmma tiles where they
+    alone give every SM a block, else 64x64; then K split across grid z
+    until about FILL_WAVES blocks an SM run, each split walking at least
+    MIN_SPLIT_CHUNKS chunks. Raises past the grid's limits."""
     if m < 1 or n < 1 or kw < 0:
         raise ValueError(f"binary_matmul plans m, n >= 1, kw >= 0, got "
                          f"{m}, {n}, {kw}")
@@ -62,13 +61,14 @@ def plan(m: int, n: int, kw: int) -> Plan:
         config = 2
     else:
         gm, gn = tiles(0)
-        config = 0 if gm * gn >= SMS else 1
+        config = 0 if gm * gn >= sms else 1
     gm, gn = tiles(config)
     if gm * gn > MAX_TILES:
         raise ValueError(f"binary_matmul takes at most {MAX_TILES} output "
                          f"tiles, {m}x{n} needs {gm * gn}")
     chunks = max(1, -(-kw // KC))
-    splits = max(1, min(FILL_BLOCKS // (gm * gn), chunks // MIN_SPLIT_CHUNKS))
+    splits = max(1, min(FILL_WAVES * sms // (gm * gn),
+                        chunks // MIN_SPLIT_CHUNKS))
     per = -(-chunks // splits)
     return Plan(config, gm, gn, -(-chunks // per), per)
 
@@ -124,7 +124,7 @@ def binary_matmul(a: torch.Tensor, b: torch.Tensor,
     n = b.shape[0]
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=torch.int32, device=a.device)
-    p = plan(m, n, kw)
+    p = plan(m, n, kw, build.sm_count(a.device))
     # split K lands its partial sums with atomics: start from zero
     out = (torch.zeros if p.splits > 1 else torch.empty)(
         (m, n), dtype=torch.int32, device=a.device)

@@ -11,6 +11,7 @@ no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -18,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
@@ -107,3 +110,10 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         lib.repro_error_string.argtypes = [ctypes.c_int]
         msg = lib.repro_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA ``device``, read from the card
+    once: the plans size their grids by it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

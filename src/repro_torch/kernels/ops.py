@@ -104,9 +104,11 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(lead) if lead else out[0]
 
 
-def bitweaving_scan(planes: torch.Tensor, c1: int, c2: int) -> torch.Tensor:
-    """(b, words) bit-sliced planes -> packed (words,) predicate bitvector."""
-    return _bw.bitweaving_scan(planes.contiguous(), int(c1), int(c2))
+def bitweaving_scan(planes: torch.Tensor, c1: int, c2: int,
+                    n_bits: Optional[int] = None) -> torch.Tensor:
+    """(b, words) bit-sliced planes -> packed (words,) predicate bitvector,
+    its bits from ``n_bits`` on zero when given (masked in the store)."""
+    return _bw.bitweaving_scan(planes.contiguous(), int(c1), int(c2), n_bits)
 
 
 def binary_matmul(a_packed: torch.Tensor, b_packed: torch.Tensor,

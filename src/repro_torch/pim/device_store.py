@@ -245,7 +245,9 @@ class DeviceStore(LruSpillBase):
         dev = rbv._dev.reshape(-1, rbv.words32)
         if self.backend == "cuda":
             from ..kernels import ops as kops
-            total = int(kops.popcount(dev).sum())
+            counts = kops.popcount(dev)
+            # one row (every 1-D handle): read its count, no sum launch
+            total = int(counts[0] if counts.numel() == 1 else counts.sum())
         else:
             total = int(BitVector(dev, rbv.n_bits).popcount().sum())
         self._charge_io("from_device", "popcount", 4)   # one int32 scalar

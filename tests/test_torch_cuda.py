@@ -26,6 +26,7 @@ from repro_torch.apps.bitweaving_db import scan_expr
 from repro_torch.core import BitVector, Expr
 from repro_torch.core import expr as E
 from repro_torch.kernels import binary_matmul as kbmm
+from repro_torch.kernels import build
 from repro_torch.kernels import bitweaving as kbv
 from repro_torch.kernels import bitwise as kbw
 from repro_torch.kernels import popcount as kpc
@@ -147,6 +148,65 @@ def test_popcount_rows_matches_plain_on_card(cuda, shape):
     assert torch.equal(kpc.popcount_rows(x), kpc.popcount_rows_plain(x))
 
 
+def offset_view(rng, shape, offset, device):
+    """Words of ``shape`` starting ``offset`` bytes past a 16-byte
+    boundary: a view into a larger allocation."""
+    n = int(np.prod(shape))
+    view = words(rng, (n + 4,), device)[offset // 4:offset // 4 + n]
+    assert view.data_ptr() % 16 == offset
+    return view.reshape(shape)
+
+
+def one_popcount(x):
+    """popcount_rows: exactly one launch, exact, and every ticket word back
+    at 0 afterwards."""
+    launches = kpc.popcount_rows.launches
+    got = kpc.popcount_rows(x)
+    assert kpc.popcount_rows.launches == launches + 1
+    assert torch.equal(got, kpc.popcount_rows_plain(x))
+    assert not any(t.any() for t in kpc._TICKETS.values())
+
+
+@pytest.mark.parametrize("offset", [4, 8, 12])
+@pytest.mark.parametrize("shape", [(1, 524288), (1, 187538), (3, 1000),
+                                   (2, 7), (5, 259)])
+def test_popcount_rows_off_a_16_byte_boundary_on_card(cuda, shape, offset):
+    """Views 4, 8 and 12 bytes off: the head and tail words are peeled and
+    the body still takes 16-byte loads."""
+    x = offset_view(np.random.default_rng(offset), shape, offset, cuda)
+    one_popcount(x)
+
+
+@pytest.mark.parametrize("shape", [(1, 524288), (2, 524289), (1, 1 << 22),
+                                   (3, 40000), (200, 5000)])
+def test_popcount_rows_split_rows_on_card(cuda, shape):
+    """Rows over several blocks, meeting by ticket: at the served length,
+    past it, over several passes a block and several rows a launch."""
+    x = words(np.random.default_rng(shape[1]), shape, cuda)
+    assert kpc.plan(*shape, build.sm_count(x.device)).splits > 1
+    one_popcount(x)
+    one_popcount(x[:, 1:].contiguous())
+    one_popcount(x)                 # the ticket words were left at 0
+
+
+@pytest.mark.parametrize("shape", [(70000, 3), (257, 8), (6, 40), (1, 256),
+                                   (33, 255), (1000, 1)])
+def test_popcount_rows_short_rows_on_card(cuda, shape):
+    x = words(np.random.default_rng(shape[0]), shape, cuda)
+    assert kpc.plan(*shape, build.sm_count(x.device)).route == \
+        kpc.ROUTE_SHORT
+    one_popcount(x)
+    one_popcount(offset_view(np.random.default_rng(1), shape, 4, cuda))
+
+
+def test_popcount_rows_empty_on_card(cuda):
+    launches = kpc.popcount_rows.launches
+    x = torch.empty((3, 0), dtype=torch.int32, device=cuda)
+    assert torch.equal(kpc.popcount_rows(x),
+                       torch.zeros(3, dtype=torch.int32, device=cuda))
+    assert kpc.popcount_rows.launches == launches
+
+
 @pytest.mark.parametrize("b", [1, 4, 12, 32])
 def test_bitweaving_scan_matches_plain_on_card(cuda, b):
     rng = np.random.default_rng(b)
@@ -156,6 +216,53 @@ def test_bitweaving_scan_matches_plain_on_card(cuda, b):
         for c1, c2 in ((0, top), (0, 0), (top, top), (top // 3, top // 2)):
             assert torch.equal(kbv.bitweaving_scan(planes, c1, c2),
                                kbv.bitweaving_scan_plain(planes, c1, c2))
+
+
+def one_scan(planes, c1, c2, n_bits=None):
+    launches = kbv.bitweaving_scan.launches
+    got = kbv.bitweaving_scan(planes, c1, c2, n_bits)
+    assert kbv.bitweaving_scan.launches == launches + 1
+    assert torch.equal(got, kbv.bitweaving_scan_plain(planes, c1, c2,
+                                                      n_bits))
+
+
+@pytest.mark.parametrize("words_", [187538, 524288, 41])
+def test_bitweaving_scan_tail_mask_every_remainder_on_card(cuda, words_):
+    planes = words(np.random.default_rng(words_), (8, words_), cuda)
+    for rem in range(32):
+        one_scan(planes, 37, 200, 32 * (words_ - 2) + rem)
+    for n_bits in (0, 6_001_215, 32 * words_, 32 * words_ + 5, None):
+        one_scan(planes, 37, 200, n_bits)
+
+
+@pytest.mark.parametrize("offset", [4, 8, 12])
+@pytest.mark.parametrize("b,words_", [(8, 187538), (8, 524288), (32, 42),
+                                      (3, 41)])
+def test_bitweaving_scan_planes_off_a_16_byte_boundary_on_card(
+        cuda, b, words_, offset):
+    rng = np.random.default_rng(b + offset)
+    planes = offset_view(rng, (b, words_), offset, cuda)
+    top = (1 << b) - 1
+    for c1, c2 in ((0, top), (top // 3, 2 * top // 3), (top, top)):
+        one_scan(planes, c1, c2)
+        one_scan(planes, c1, c2, 32 * words_ - 9)
+
+
+def test_count_between_at_tpch_rows_on_card(cuda):
+    """The served count: the scan masked in its store, one row's popcount
+    read without a sum, equal to numpy."""
+    from repro_torch.apps.bitweaving_db import BitWeavingColumn
+    rng = np.random.default_rng(6)
+    for n_rows in (6_001_215, 6_001_184, 1000):
+        values = rng.integers(0, 256, n_rows).astype(np.uint32)
+        col = BitWeavingColumn.from_values(values, 8, device=cuda)
+        for c1, c2 in ((37, 200), (0, 255), (5, 5)):
+            scans = kbv.bitweaving_scan.launches
+            pcs = kpc.popcount_rows.launches
+            assert col.count_between(c1, c2) == col.oracle_count(values, c1,
+                                                                 c2)
+            assert kbv.bitweaving_scan.launches == scans + 1
+            assert kpc.popcount_rows.launches == pcs + 1
 
 
 @pytest.mark.parametrize("m,n,k", [
@@ -198,9 +305,10 @@ def test_binary_matmul_tile_edges_on_card(cuda, m, n, k):
 
 
 def test_binary_matmul_plans_cover_every_tile_and_split():
-    """The shapes above reach every tile of the kernel, split and not."""
+    """The shapes above reach every tile of the kernel, split and not, on
+    the H100 SXM's 132 SMs."""
     seen = {(p.config, p.splits > 1) for p in (
-        kbmm.plan(m, n, (k + 31) // 32) for m, n, k in (
+        kbmm.plan(m, n, (k + 31) // 32, 132) for m, n, k in (
             (1536, 2816, 256), (1536, 2816, 4100), (64, 64, 256),
             (127, 129, 4101), (2048, 8, 256), (300, 1, 40000)))}
     assert seen == {(c, s) for c in range(3) for s in (False, True)}

@@ -1,11 +1,13 @@
-"""The host-side logic of the port's two tensor-shaped kernels, on the CPU.
+"""The host-side logic of the port's kernels, on the CPU.
 
-``csrc/bitwise.cu`` and ``csrc/binary_matmul.cu`` run only on the card,
-so what the wrappers decide for them - the loads-first register program,
-its packed words, the register-file bucket, the tail mask's division, and
-binary_matmul's tile, split of K and grid - is held here against the
-reference package (``repro.kernels.ops``, Pallas in interpret mode) and
-against numpy models of the kernels' arithmetic. Exact equality
+The ``csrc/*.cu`` kernels run only on the card, so what the wrappers
+decide for them - the loads-first register program, its packed words, the
+register-file bucket, the tail mask's division, binary_matmul's tile,
+split of K and grid, popcount_rows' route, head/body/tail cut and how a
+row's blocks meet, and bitweaving_scan's common vector width and masked
+store - is held here against the reference package
+(``repro.kernels.ops``, Pallas in interpret mode) and against numpy
+models of the kernels' arithmetic. Exact equality
 throughout: integer bit arithmetic has no tolerance. The kernels
 themselves are checked on the card by ``tests/test_torch_cuda.py``.
 """
@@ -20,7 +22,11 @@ from repro_torch.apps.bitweaving_db import scan_expr
 from repro_torch.convert import from_numpy_u32, to_numpy_u32
 from repro_torch.core import expr as E
 from repro_torch.kernels import binary_matmul as kbmm
+from repro_torch.kernels import bitweaving as kbv
 from repro_torch.kernels import bitwise as kbw
+from repro_torch.kernels import popcount as kpc
+
+SMS = 132       # the H100 SXM's streaming multiprocessors, the plans' card
 
 
 def words(rng, shape):
@@ -219,22 +225,22 @@ def test_program_of_a_single_operand_or_literal():
 def test_plan_picks_tiles_splits_and_grid():
     P = kbmm.Plan
     # qwen2.5-3b's MLP width: 128x256 wgmma tiles fill the card, no split
-    assert kbmm.plan(2048, 11008, 64) == P(0, 16, 43, 1, 8)
+    assert kbmm.plan(2048, 11008, 64, SMS) == P(0, 16, 43, 1, 8)
     # the reference benchmark's 256x256x4096: 16 tiles of 64x64, K split
-    assert kbmm.plan(256, 256, 128) == P(1, 4, 4, 4, 4)
+    assert kbmm.plan(256, 256, 128, SMS) == P(1, 4, 4, 4, 4)
     # the example's inference: N = 8 takes the 128x8 tile
-    assert kbmm.plan(2048, 8, 8) == P(2, 16, 1, 1, 1)
-    assert kbmm.plan(1, 1, 0) == P(2, 1, 1, 1, 1)
+    assert kbmm.plan(2048, 8, 8, SMS) == P(2, 16, 1, 1, 1)
+    assert kbmm.plan(1, 1, 0, SMS) == P(2, 1, 1, 1, 1)
     # one past and one short of each tile edge
-    assert kbmm.plan(129, 9, 9)[:3] == (1, 3, 1)
-    assert kbmm.plan(127, 8, 7)[:3] == (2, 1, 1)
+    assert kbmm.plan(129, 9, 9, SMS)[:3] == (1, 3, 1)
+    assert kbmm.plan(127, 8, 7, SMS)[:3] == (2, 1, 1)
     # the wgmma tiles from one a streaming multiprocessor up
-    assert kbmm.plan(1536, 2816, 2) == P(0, 12, 11, 1, 1)
-    assert kbmm.plan(1535, 2815, 2) == P(0, 12, 11, 1, 1)
-    assert kbmm.plan(1408, 2816, 2)[:3] == (1, 22, 44)
+    assert kbmm.plan(1536, 2816, 2, SMS) == P(0, 12, 11, 1, 1)
+    assert kbmm.plan(1535, 2815, 2, SMS) == P(0, 12, 11, 1, 1)
+    assert kbmm.plan(1408, 2816, 2, SMS)[:3] == (1, 22, 44)
     for m, n, kw in [(3, 5, 1250), (65, 67, 513), (40, 70, 32), (1, 9, 17),
                      (8, 128, 128), (2048, 11008, 64), (300, 300, 100000)]:
-        p = kbmm.plan(m, n, kw)
+        p = kbmm.plan(m, n, kw, SMS)
         tm, tn = kbmm.TILES[p.config]
         assert (p.tiles_m, p.tiles_n) == (-(-m // tm), -(-n // tn))
         chunks = max(1, -(-kw // kbmm.KC))
@@ -244,17 +250,17 @@ def test_plan_picks_tiles_splits_and_grid():
         assert 1 <= p.splits <= 65535             # grid z
         assert p.splits == 1 or p.chunks_per_split >= kbmm.MIN_SPLIT_CHUNKS
         assert p.tiles_m * p.tiles_n * p.splits <= max(
-            kbmm.FILL_BLOCKS, p.tiles_m * p.tiles_n)
+            kbmm.FILL_WAVES * SMS, p.tiles_m * p.tiles_n)
 
 
 def test_plan_raises_past_the_grid():
     assert kbmm.MAX_N == 2**31 - 1
     with pytest.raises(ValueError, match="N <="):
-        kbmm.plan(1, kbmm.MAX_N + 1, 1)
+        kbmm.plan(1, kbmm.MAX_N + 1, 1, SMS)
     with pytest.raises(ValueError, match="tiles"):
-        kbmm.plan(2**40, 2**20, 1)
+        kbmm.plan(2**40, 2**20, 1, SMS)
     with pytest.raises(ValueError):
-        kbmm.plan(0, 5, 1)
+        kbmm.plan(0, 5, 1, SMS)
 
 
 def expand(w: np.ndarray, lane: int, half: int) -> np.ndarray:
@@ -273,7 +279,7 @@ def run_bmm(a: np.ndarray, b: np.ndarray, k_bits: int) -> np.ndarray:
     atomics' sum over splits."""
     m, kw = a.shape
     n = b.shape[0]
-    p = kbmm.plan(m, n, kw)
+    p = kbmm.plan(m, n, kw, SMS)
     walked = p.splits * p.chunks_per_split * kbmm.KC
     ap = np.zeros((m, walked), np.uint32)
     bp = np.zeros((n, walked), np.uint32)
@@ -324,3 +330,250 @@ def test_kernel_arithmetic_matches_reference(m, n, k):
     if kw:
         ref = np.asarray(jops.binary_matmul(jnp.asarray(a), jnp.asarray(b), k))
         np.testing.assert_array_equal(got, ref)
+
+
+# -- popcount_rows ------------------------------------------------------------
+
+BASE = 1 << 20          # a 16-byte-aligned stand-in address for row 0
+
+
+def run_popcount(x: np.ndarray, ptr: int) -> np.ndarray:
+    """numpy model of csrc/popcount.cu at ``kpc.plan(rows, words, SMS)``
+    with row 0 at address ``ptr``:
+    which words each thread loads (every word of every row exactly once,
+    asserted), the block sums, the 64-bit ticket words that carry them
+    (tickets above bit 40, the running sum below), and one store a row by
+    the block that draws the last ticket."""
+    rows, row_words = x.shape
+    p = kpc.plan(rows, row_words, SMS)
+    flat = x.reshape(-1).astype(np.int64)
+    pc = np.array([bin(int(w)).count("1") for w in range(256)], np.int64)
+    bits = sum(pc[(flat >> (8 * k)) & 255] for k in range(4))
+    seen = np.zeros(flat.size, np.int64)
+    out = np.full(rows, -1, np.int64)
+    stores = np.zeros(rows, np.int64)
+    if p.route == kpc.ROUTE_SHORT:
+        assert row_words <= p.group * kpc.SHORT_LOADS and p.group <= 32
+        t = np.arange(p.blocks * kpc.THREADS)
+        row, j = t // p.group, t % p.group
+        acc = np.zeros(t.size, np.int64)
+        for u in range(kpc.SHORT_LOADS):
+            i = j + u * p.group
+            ok = (row < rows) & (i < row_words)
+            idx = row[ok] * row_words + i[ok]
+            np.add.at(seen, idx, 1)
+            acc[ok] += bits[idx]
+        sums = acc.reshape(-1, p.group).sum(1)     # the group's shuffles
+        first = np.arange(0, t.size, p.group)
+        keep = row[first] < rows
+        out[row[first][keep]] = sums[keep]
+        np.add.at(stores, row[first][keep], 1)
+    else:
+        assert p.blocks == rows * p.splits and p.splits < 2**24
+        tid = np.arange(kpc.THREADS)
+        for r in range(rows):
+            head, nv, tail = kpc.row_parts(row_words, ptr + 4 * r * row_words)
+            assert (ptr + 4 * (r * row_words + head)) % 16 == 0 or nv == 0
+            base = r * row_words
+            ticket = 0
+            for s in range(p.splits):
+                lo, hi = s * p.per, min(s * p.per + p.per, nv)
+                part = 0
+                for start in range(lo, max(lo, hi), kpc.THREADS * kpc.UNROLL):
+                    for u in range(kpc.UNROLL):
+                        i = start + tid + u * kpc.THREADS
+                        i = i[i < hi]
+                        idx = (base + head + 4 * i[:, None]
+                               + np.arange(4)).reshape(-1)
+                        np.add.at(seen, idx, 1)
+                        part += bits[idx].sum()
+                if s == 0:
+                    idx = base + np.arange(head)
+                    np.add.at(seen, idx, 1)
+                    part += bits[idx].sum()
+                if s == p.splits - 1:
+                    idx = base + head + 4 * nv + np.arange(tail)
+                    np.add.at(seen, idx, 1)
+                    part += bits[idx].sum()
+                if p.splits == 1:
+                    out[r] = part
+                    stores[r] += 1
+                    continue
+                old, ticket = ticket, ticket + (1 << 40 | int(part))
+                if old >> 40 == p.splits - 1:      # the last ticket
+                    out[r] = (old & ((1 << 40) - 1)) + part
+                    stores[r] += 1
+                    ticket = 0
+            assert ticket == 0                      # left for the next launch
+    assert (seen == 1).all(), "a word was counted twice or never"
+    assert (stores == 1).all(), "a row was stored twice or never"
+    return out.astype(np.int32)
+
+
+POPCOUNT_SHAPES = [(r, w) for r in (1, 3) for w in range(1, 10)] + [
+    (1, 187538), (2, 187538), (1, 524288), (3, 524288), (70000, 3),
+    (257, 8), (6, 40), (1, 256), (1, 257), (5, 1000), (600, 300),
+    (1, 40000)]
+
+
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+@pytest.mark.parametrize("shape", POPCOUNT_SHAPES)
+def test_popcount_partition_counts_every_word_once(shape, offset):
+    """Head, body and tail together take every word of every row once, at
+    every 4-byte offset mod 16 and for any row length; the counts equal
+    the reference's popcount (Pallas, interpret mode)."""
+    rng = np.random.default_rng(shape[1] + offset)
+    x = words(rng, shape)
+    np.testing.assert_array_equal(run_popcount(x, BASE + offset),
+                                  np.asarray(jops.popcount(x)))
+
+
+def test_popcount_plan_routes_and_grids():
+    P, S, L = kpc.Plan, kpc.ROUTE_SHORT, kpc.ROUTE_LONG
+    # the served 2^24-bit row: 132 blocks, one pass of <= 4 vectors each,
+    # no head and no tail words
+    assert kpc.plan(1, 524288, SMS) == P(L, 1, 132, 993, 132)
+    assert kpc.row_parts(524288, BASE) == (0, 131072, 0)
+    # count_between's TPC-H row, 4 bytes off: 3 head words, 3 tail words
+    assert kpc.plan(1, 187538, SMS) == P(L, 1, 132, 356, 132)
+    assert kpc.row_parts(187538, BASE + 4) == (3, 46883, 3)
+    assert kpc.plan(1, 1000, SMS).splits == 1
+    # short rows: a group of threads a row, each with at most 8 words
+    assert kpc.plan(70000, 3, SMS) == P(S, 1, 1, 0, 274)
+    assert kpc.row_parts(3, BASE) == (0, 0, 3)
+    assert kpc.plan(257, 8, SMS) == P(S, 1, 1, 0, 2)
+    assert kpc.plan(6, 40, SMS).group == 8
+    assert kpc.plan(1, kpc.SHORT_WORDS, SMS).group == 32
+    assert kpc.plan(1, kpc.SHORT_WORDS + 1, SMS).route == L
+    # many long rows: a block a row, no tickets
+    assert kpc.plan(600, 300, SMS)[2:5] == (1, 75, 600)
+    # a card of fewer SMs (an H100 PCIe has 114) gets a grid of its own
+    assert kpc.plan(1, 1 << 22, SMS)[2] == 4 * SMS
+    assert kpc.plan(1, 1 << 22, 114)[2] == 4 * 114
+    for sms in (SMS, 114):
+        for rows, n in [(1, 257), (2, 524288), (7, 187538), (600, 300),
+                        (1, 40000), (1, 1 << 26)]:
+            p = kpc.plan(rows, n, sms)
+            assert p.splits * p.per >= n // 4 > (p.splits - 1) * p.per
+            assert p.blocks == rows * p.splits
+            assert p.per <= kpc.THREADS * kpc.UNROLL or \
+                rows * p.splits >= kpc.FILL_WAVES * sms
+            assert rows * p.splits >= min(sms, -(-n // 4 // kpc.THREADS))
+
+
+def test_popcount_plan_raises():
+    with pytest.raises(ValueError, match="aligned"):
+        kpc.row_parts(8, BASE + 2)
+    with pytest.raises(ValueError):
+        kpc.plan(0, 8, SMS)
+
+
+# -- bitweaving_scan ----------------------------------------------------------
+
+
+def test_bitweaving_plan_picks_the_common_width():
+    """The widest of 16, 8 and 4 bytes dividing both the planes' address
+    and 4 * words, for every (words mod 4, offset) pair."""
+    want = {0: {0: 16, 4: 4, 8: 8, 12: 4}, 1: {0: 4, 4: 4, 8: 4, 12: 4},
+            2: {0: 8, 4: 4, 8: 8, 12: 4}, 3: {0: 4, 4: 4, 8: 4, 12: 4}}
+    for rem, by_offset in want.items():
+        for offset, width in by_offset.items():
+            n = 40 + rem
+            p = kbv.plan(8, n, BASE + offset)
+            assert p.width == width, (rem, offset)
+            assert p.blocks == -(-(4 * n // width) // kbv.THREADS)
+    assert kbv.plan(8, 187538, BASE) == kbv.Plan(8, 367)   # TPC-H SF1
+    assert kbv.plan(8, 524288, BASE) == kbv.Plan(16, 512)  # 2^24 rows
+    assert kbv.plan(8, 187538, BASE + 4).width == 4        # a row view
+    with pytest.raises(ValueError):
+        kbv.plan(33, 8, BASE)
+    with pytest.raises(ValueError, match="aligned"):
+        kbv.plan(8, 8, BASE + 2)
+
+
+def run_scan(planes: np.ndarray, c1: int, c2: int, ptr: int,
+             n_bits=None) -> np.ndarray:
+    """numpy model of bitweaving_scan_kernel at ``kbv.plan``: every plane's
+    vector at a thread's position, the branch-free recurrence on the
+    constants' bit masks, and the tail mask in the store."""
+    b, n = planes.shape
+    p = kbv.plan(b, n, ptr)
+    lanes = p.width // 4
+    i = np.arange(p.blocks * kbv.THREADS)
+    w = (i[:, None] * lanes + np.arange(lanes)).reshape(-1)
+    w = w[w < n]
+    assert np.array_equal(w, np.arange(n))      # each word once, in order
+    ones = np.uint32(0xFFFFFFFF)
+    gt1 = np.zeros(n, np.uint32)
+    lt2 = np.zeros(n, np.uint32)
+    eq1, eq2 = np.full(n, ones), np.full(n, ones)
+    for k in range(b):
+        sh = b - 1 - k
+        m1 = np.uint32((0 - ((c1 >> sh) & 1)) & 0xFFFFFFFF)
+        m2 = np.uint32((0 - ((c2 >> sh) & 1)) & 0xFFFFFFFF)
+        v = planes[k]
+        gt1 |= eq1 & v & ~m1
+        eq1 &= ~(v ^ m1)
+        lt2 |= eq2 & ~v & m2
+        eq2 &= ~(v ^ m2)
+    full, partial = kbv.tail_mask(n_bits, n)
+    keep = np.where(w < full, ones, np.where(w == full, partial, 0)).astype(
+        np.uint32)
+    return (gt1 | eq1) & (lt2 | eq2) & keep
+
+
+@pytest.mark.parametrize("offset", [0, 4, 8])
+def test_masked_scan_store_matches_reference(offset):
+    """The kernel's store at every n_bits % 32 equals the reference's scan
+    ANDed with the packed n-row mask of its count_between."""
+    from repro.core.bitvector import pack_bits as jpack
+    rng = np.random.default_rng(offset)
+    b, n = 8, 42
+    planes = words(rng, (b, n))
+    for c1, c2 in ((37, 200), (0, 255), (255, 0), (5, 5)):
+        scan = np.asarray(jops.bitweaving_scan(planes, c1, c2))
+        np.testing.assert_array_equal(run_scan(planes, c1, c2, BASE + offset),
+                                      scan)
+        for rem in range(32):
+            n_bits = 32 * 37 + rem
+            mask = np.zeros(n * 32, bool)
+            mask[:n_bits] = True
+            want = scan & np.asarray(jpack(jnp.asarray(mask)))[:n]
+            got = run_scan(planes, c1, c2, BASE + offset, n_bits)
+            np.testing.assert_array_equal(got, want, err_msg=f"rem {rem}")
+            plain = kbv.bitweaving_scan_plain(from_numpy_u32(planes), c1, c2,
+                                              n_bits)
+            np.testing.assert_array_equal(to_numpy_u32(plain), want)
+
+
+@pytest.mark.parametrize("b", [1, 12, 32])
+def test_scan_model_every_width_matches_reference(b):
+    rng = np.random.default_rng(b)
+    top = (1 << b) - 1
+    for n, offset in ((40, 0), (42, 8), (43, 4)):
+        planes = words(rng, (b, n))
+        for c1, c2 in ((0, top), (top // 3, 2 * top // 3), (top, top)):
+            np.testing.assert_array_equal(
+                run_scan(planes, c1, c2, BASE + offset, 32 * n - 3),
+                np.asarray(jops.bitweaving_scan(planes, c1, c2))
+                & np.array([0xFFFFFFFF] * (n - 1) + [0x1FFFFFFF], np.uint32))
+
+
+@pytest.mark.parametrize("n_rows", [6_001_215, 1000, 191, 64, 33])
+def test_count_between_matches_reference_at_tpch_rows(n_rows):
+    """count_between through the port's CPU path (the kernels' plain
+    versions, the mask passed as n_bits) equals the reference's at TPC-H
+    SF1's 6,001,215 rows and at row counts on and off a word edge."""
+    from repro.apps import bitweaving_db as jbw
+    from repro_torch.apps.bitweaving_db import BitWeavingColumn
+    rng = np.random.default_rng(n_rows)
+    values = rng.integers(0, 256, n_rows).astype(np.uint32)
+    jcol = jbw.BitWeavingColumn.from_values(values, 8)
+    pcol = BitWeavingColumn.from_values(values, 8, device="cpu")
+    np.testing.assert_array_equal(to_numpy_u32(pcol.planes),
+                                  np.asarray(jcol.planes))
+    for c1, c2 in ((37, 200), (0, 255), (200, 37)):
+        want = jcol.count_between(c1, c2)
+        assert pcol.count_between(c1, c2) == want
+        assert pcol.count_between(c1, c2, use_kernel=False) == want
+        assert want == pcol.oracle_count(values, c1, c2)
