@@ -31,7 +31,16 @@ without printing the result line):
    ``count_between``: the CUDA kernels each ran, by name (a popcount
    must be its one kernel, with no fill and no sum; a kernel the tracer
    dropped is reported, not failed, since the launch counts show it);
-6. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
+6. the DRAM model (backend "ambit_sim") with its row state on the card:
+   the four Figure-20 expressions of ``fig20b_batched`` over 256 rows of
+   65,536 bits, whose bits must equal the "cuda" backend's and whose
+   DRAM ledger must equal the same engine's on the CPU (and, with
+   ``batch_rows=False`` on 8 rows, the batched ledger scaled to 8 rows),
+   the weekly-active query over 2^24 users against numpy, a TMR scrub of
+   a 2^24-bit vector and the timing oracle; wall ms on the card and on
+   the CPU are printed, and the kernel launch counts of this phase
+   (none expected) are printed, not required;
+7. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
    ``{"kernels": [...]}`` JSON line, then the result line.
 
 Each path must launch its own kernels: the four serving kernels on
@@ -1126,6 +1135,197 @@ def binary_lm_phase(torch, card):
     return {"accuracy": acc, "wall_s": wall}
 
 
+def _wall_ms(torch, fn, device, reps=3):
+    """``fn()``'s result and the median wall ms of ``reps`` calls, each
+    ended by a synchronise when it ran on the card."""
+    times, out = [], None
+    for _ in range(reps):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(torch, device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def _cuda_events(torch, fn) -> dict:
+    """The CUDA kernels and memory copies/sets of one call to ``fn``,
+    counted by ``torch.profiler`` in the second of two steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    counts = {}
+
+    def ready(prof):
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA
+                    and not e.name.startswith("ProfilerStep")):
+                kind = ("copies" if e.name.startswith(("Memcpy", "Memset"))
+                        else "kernels")
+                counts[kind] = counts.get(kind, 0) + 1
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(
+                     wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return counts
+
+
+# The DRAM ledger (aap_count, ns, energy_nj, bytes_touched) of each
+# fig20b_batched expression over 256 rows of 65,536 bits on the default
+# geometry and timing: the reference package's values at this shape,
+# which tests/test_torch_simulator.py holds against the reference and
+# against the port on the CPU. The ledger depends on the program and the
+# shape, not on the bits.
+FIG20B_LEDGER = {
+    "and": (1024, 50176.0, 6633.1648, 8388608),
+    "xor": (1280, 88320.0, 10987.1616, 8388608),
+    "xnor": (1536, 108800.0, 12559.0016, 8388608),
+    "maj_xor_or": (3584, 209152.0, 25825.331199999993, 8388608),
+}
+
+
+def dram_model_phase(torch, card, wrappers):
+    """The DRAM model (``ambit_sim``) with its row state on the card, at
+    full width: the Figure-20 expressions over 256 rows of 65,536 bits
+    (one full 8 KB row in each of the default geometry's 8 x 32
+    subarrays), the weekly-active query over 2^24 users, a TMR scrub of a
+    2^24-bit vector and the timing oracle. The bits must equal the "cuda"
+    backend's, exactly, and the DRAM ledger on the card and on the CPU
+    ``FIG20B_LEDGER``, the reference's at this shape. The reference has no
+    kernel on this path, so the phase launches none of the hand-written
+    kernels: their counts are printed, not required."""
+    from repro_torch.apps.bitmap_index import BitmapIndex
+    from repro_torch.core import (AmbitSubarray, BitVector,
+                                  BulkBitwiseEngine, Expr, maj)
+    from repro_torch.core import timing_checker
+    from repro_torch.core.ecc import TMRCodec
+
+    rng = np.random.default_rng(SEED + 6)
+    X, Y, Z = Expr.var("x"), Expr.var("y"), Expr.var("z")
+    exprs = {"and": X & Y, "xor": X ^ Y, "xnor": ~(X ^ Y),
+             "maj_xor_or": maj(X, Y, Z) ^ (X | ~Z)}   # fig20b_batched's
+    rows, n_bits = 256, 65536
+    bits = rng.integers(0, 2, (3, rows, n_bits)).astype(bool)
+    env = {dev: {k: BitVector.from_bits(b, device=dev)
+                 for k, b in zip("xyz", bits)} for dev in ("cuda", "cpu")}
+    # the "cuda" backend's bits, launched before the counted run
+    kernel_bits = {name: BulkBitwiseEngine("cuda", device="cuda").eval(
+        e, env["cuda"]).data for name, e in exprs.items()}
+    torch.cuda.synchronize()
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    sim = {dev: BulkBitwiseEngine("ambit_sim", device=dev)
+           for dev in ("cuda", "cpu")}
+    per_row = BulkBitwiseEngine("ambit_sim", device="cuda", batch_rows=False)
+    env8 = {k: BitVector(v.data[:8], n_bits) for k, v in env["cuda"].items()}
+    report = {}
+    for name, e in exprs.items():
+        out, card_ms = _wall_ms(
+            torch, lambda: sim["cuda"].eval(e, env["cuda"]), "cuda")
+        st = sim["cuda"].last_stats
+        out_cpu, cpu_ms = _wall_ms(
+            torch, lambda: sim["cpu"].eval(e, env["cpu"]), "cpu")
+        st_cpu = sim["cpu"].last_stats
+        if not torch.equal(out.data, kernel_bits[name]):
+            fail(f"ambit_sim {name} on the card != the 'cuda' backend")
+        if not torch.equal(out_cpu.data, kernel_bits[name].cpu()):
+            fail(f"ambit_sim {name} on the CPU != the 'cuda' backend")
+        for where, got in (("card", st), ("CPU", st_cpu)):
+            ledger = (got.aap_count, got.ns, got.energy_nj,
+                      got.bytes_touched)
+            if ledger != FIG20B_LEDGER[name]:
+                fail(f"ambit_sim {name} ledger on the {where} {ledger} != "
+                     f"the reference's {FIG20B_LEDGER[name]}")
+        out8 = per_row.eval(e, env8)
+        st8 = per_row.last_stats
+        if not torch.equal(out8.data, out.data[:8]):
+            fail(f"ambit_sim {name} batch_rows=False bits differ")
+        # the per-row loop sums the same costs in another order: the
+        # counts exactly, the float ns/energy to rel 1e-12
+        if (st8.aap_count * rows != st.aap_count * 8
+                or not np.isclose(st8.ns * rows, st.ns * 8, rtol=1e-12,
+                                  atol=0)
+                or not np.isclose(st8.energy_nj * rows, st.energy_nj * 8,
+                                  rtol=1e-12, atol=0)):
+            fail(f"ambit_sim {name} batch_rows=False ledger {st8} is not "
+                 f"the batched {st} scaled to 8 rows")
+        report[name] = {"card_ms": card_ms, "cpu_ms": cpu_ms,
+                        "aap_count": st.aap_count, "ns": st.ns,
+                        "energy_nj": st.energy_nj}
+        log(f"ambit_sim {name} rows={rows} bits_per_row={n_bits} "
+            f"aaps={st.aap_count} dram_ns={st.ns} energy_nj={st.energy_nj} "
+            f"(DRAM model) wall_ms card={card_ms:.3f} cpu={cpu_ms:.3f} "
+            f"(median of 3, measured on {card} and its host)")
+
+    # what one eval runs on the card: CUDA kernels and copies, by
+    # torch.profiler over the second of two steps (the first warms the
+    # tracer up; a tracer that drops a record gives a lower count)
+    report["cuda_events"] = {
+        name: _cuda_events(torch, lambda: sim["cuda"].eval(e, env["cuda"]))
+        for name, e in exprs.items()}
+    log(f"ambit_sim cuda events an eval (torch.profiler): "
+        f"{json.dumps(report['cuda_events'])}")
+
+    # the share of an eval spent building its subarray: six 2 MiB rows
+    # of boot content drawn with numpy on the host, moved to the device
+    boot = {dev: _wall_ms(torch, lambda: AmbitSubarray(
+        words=n_bits // 64, n_rows=rows, device=dev), dev)[1]
+        for dev in ("cuda", "cpu")}
+    report["boot_ms"] = boot
+    log(f"ambit_sim subarray boot rows={rows} words={n_bits // 64} wall_ms "
+        f"card={boot['cuda']:.3f} cpu={boot['cpu']:.3f} (median of 3)")
+
+    n_users = 1 << 24
+    idx = BitmapIndex(n_users, BulkBitwiseEngine("ambit_sim", device="cuda"))
+    weeks = [f"w{i}" for i in range(4)]
+    masks = {}
+    for nm in weeks + ["male"]:
+        members = rng.choice(n_users, n_users // 2, replace=False)
+        masks[nm] = np.zeros(n_users, bool)
+        masks[nm][members] = True
+        idx.add(nm, members)
+    (got_u, got_pw, st), weekly_ms = _wall_ms(
+        torch, lambda: idx.weekly_active_query(weeks, "male"), "cuda",
+        reps=1)
+    want_u = int(np.logical_and.reduce([masks[w] for w in weeks]).sum())
+    want_pw = [int((masks[w] & masks["male"]).sum()) for w in weeks]
+    if (got_u, got_pw) != (want_u, want_pw) or not (
+            st.ns > 0 and st.energy_nj > 0):
+        fail(f"ambit_sim weekly_active {got_u},{got_pw},{st} != "
+             f"{want_u},{want_pw}")
+    log(f"ambit_sim weekly_active users={n_users} unique={got_u} "
+        f"per_week={got_pw} dram_ns={st.ns} energy_nj={st.energy_nj} "
+        f"mismatches=0 wall_ms={weekly_ms:.3f} on {card}")
+
+    codec = TMRCodec(BulkBitwiseEngine("ambit_sim", device="cuda"))
+    vec = BitVector.from_bits(bits[0].reshape(-1), device="cuda")
+    replicas = codec.encode(vec)
+    k = 4096
+    flip = rng.choice(n_users, k, replace=False)
+    bad = bits[0].reshape(-1).copy()
+    bad[flip] ^= True
+    replicas[1] = BitVector.from_bits(bad, device="cuda")
+    if not torch.equal(codec.decode(replicas).data, vec.data):
+        fail("TMR decode did not restore the vector")
+    clean, corrected = codec.scrub(replicas)
+    if corrected != k or not all(torch.equal(r.data, vec.data)
+                                 for r in clean):
+        fail(f"TMR scrub corrected {corrected} bits, flipped {k}")
+    log(f"ambit_sim tmr bits={n_users} flipped={k} corrected={corrected}")
+
+    if timing_checker.main([]) != 0:
+        fail("timing oracle: violations")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"launches on the dram_model path (none expected: the reference "
+        f"runs no kernel here): {launches}")
+    return report
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(here, "src")
@@ -1169,6 +1369,13 @@ def main() -> int:
     log("== phase 5: what the popcount and scan paths run on the card "
         "(torch.profiler)")
     profiled = profile_phase(torch)
+    torch.cuda.empty_cache()
+
+    log("== phase 6: the DRAM model on the card (backend 'ambit_sim')")
+    t_phase = time.perf_counter()
+    dram = dram_model_phase(torch, card, wrappers)
+    log(f"dram_model phase_s={time.perf_counter() - t_phase:.1f} "
+        f"wall_ms={json.dumps(dram)} card: {card}")
 
     kernels = []
     for name, _, source, replaces in KERNELS:

@@ -51,7 +51,8 @@ class BitmapIndex:
             self.resident[name] = self.runtime.put(
                 bv, name=name, pin=self.pin_bitmaps)
         else:
-            self.bitmaps[name] = BitVector.from_bits(bits)
+            self.bitmaps[name] = BitVector.from_bits(
+                bits, device=self.engine.device)
 
     @staticmethod
     def _and_tree(names: List[str]) -> Expr:

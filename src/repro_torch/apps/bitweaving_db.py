@@ -8,11 +8,12 @@ with bulk bitwise ops + a popcount - the exact query of Fig. 23.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from ..core import BitVector
+from ..core import BitVector, BulkBitwiseEngine
 from ..core.engine import resolve_device
 from ..kernels import bitweaving as kbv
 from ..kernels import ops, ref
@@ -284,3 +285,22 @@ def zipf_tenant_queries(table: TpchTable, n_tenants: int, n_queries: int,
     probs = ranks / ranks.sum()
     return [(int(t), templates[int(t)])
             for t in rng.choice(n_tenants, size=n_queries, p=probs)]
+
+
+def ambit_scan_stats(col: BitWeavingColumn, c1: int, c2: int,
+                     engine: BulkBitwiseEngine) -> Tuple[int, float]:
+    """Run the BitWeaving predicate THROUGH the Ambit device model to get
+    paper-units timing: each plane op is a row-wide bulk bitwise op.
+
+    The predicate needs ~6 bulk ops per bit-plane (gt/lt/eq updates for
+    both constants) + 1 final AND; we model rows of 65,536 bits."""
+    # count through the scan and popcount kernels; no n_bits, so the
+    # padding rows count as the reference counts them
+    sel = ops.bitweaving_scan(col.planes, c1, c2)
+    count = int(ops.popcount(sel[None, :]))
+    # DRAM-time model: ops per plane from the BitWeaving recurrence
+    n_ops = 6 * col.bits + 1
+    rows = max(1, (col.n_rows + 65535) // 65536)
+    # each bulk op = one Figure-20 'and'-class program (4 AAPs) per row
+    ns = n_ops * rows * 4 * 49.0
+    return count, ns

@@ -5,11 +5,8 @@ same bit patterns as ``torch.int32``. These helpers move numpy arrays
 (the reference's arrays after ``np.asarray``) into the port's tensors and
 back with every bit preserved.
 
-Raw words and bitvectors land on the CPU unless ``device`` says
-otherwise: the runtime and the engine move them to their own device.
-Columns, tables and BitLinear layers compute where their tensors lie, so,
-like every entry point of the port, they land on the card unless the
-caller names another.
+Like every entry point of the port, each helper lands its result on the
+card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -21,14 +18,14 @@ import torch
 
 from .apps.binary_lm import BitLinear
 from .apps.bitweaving_db import TPCH_COLUMNS, BitWeavingColumn, TpchTable
-from .core.bitvector import BitVector
-from .core.engine import resolve_device
+from .core.bitvector import BitVector, resolve_device
 
 
-def from_numpy_u32(words_u32: np.ndarray, device="cpu") -> torch.Tensor:
+def from_numpy_u32(words_u32: np.ndarray, device=None) -> torch.Tensor:
     """uint32 words -> int32 tensor on ``device`` (same bits)."""
     arr = np.ascontiguousarray(words_u32, dtype=np.uint32)
-    return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+    return torch.from_numpy(arr.view(np.int32).copy()).to(
+        resolve_device(device))
 
 
 def to_numpy_u32(tensor: torch.Tensor) -> np.ndarray:
@@ -37,7 +34,7 @@ def to_numpy_u32(tensor: torch.Tensor) -> np.ndarray:
 
 
 def bitvector_from_numpy(words_u32: np.ndarray, n_bits: int,
-                         device="cpu") -> BitVector:
+                         device=None) -> BitVector:
     """A reference BitVector's packed words -> the port's BitVector."""
     return BitVector(from_numpy_u32(words_u32, device), int(n_bits))
 
@@ -46,7 +43,7 @@ def column_from_numpy(planes_u32: np.ndarray, n_rows: int, bits: int,
                       device=None) -> BitWeavingColumn:
     """A reference BitWeavingColumn's (b, words) planes -> the port's."""
     return BitWeavingColumn(
-        from_numpy_u32(planes_u32, resolve_device(device)), int(n_rows),
+        from_numpy_u32(planes_u32, device), int(n_rows),
         int(bits))
 
 

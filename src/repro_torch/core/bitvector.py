@@ -30,6 +30,17 @@ LANE_WORDS = 128
 Array = Union[np.ndarray, torch.Tensor]
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless ``device``
+    names another. Raises when the card is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU")
+    return dev
+
+
 def padded_words(n_bits: int) -> int:
     words = (n_bits + WORD - 1) // WORD
     return ((words + LANE_WORDS - 1) // LANE_WORDS) * LANE_WORDS
@@ -39,13 +50,13 @@ def _as_tensor(x: Array, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
     return torch.from_numpy(np.ascontiguousarray(x)).to(
-        "cpu" if device is None else device)
+        resolve_device(device))
 
 
 def pack_bits(bits: Array, device=None) -> torch.Tensor:
     """bool (..., n) -> packed int32 (..., padded_words(n)). Bit i of word
     w holds element w*32+i (little-endian within word). Runs on
-    ``device`` (default: where ``bits`` lies; numpy input: the CPU)."""
+    ``device`` (default: where ``bits`` lies; numpy input: the card)."""
     bits = _as_tensor(bits, device).to(torch.int32)
     n = bits.shape[-1]
     words = padded_words(n)
@@ -94,16 +105,16 @@ class BitVector:
         return BitVector(pack_bits(bits, device), bits.shape[-1])
 
     @staticmethod
-    def zeros(n_bits: int, rows: tuple = (), device="cpu") -> "BitVector":
+    def zeros(n_bits: int, rows: tuple = (), device=None) -> "BitVector":
         return BitVector(
             torch.zeros(rows + (padded_words(n_bits),), dtype=torch.int32,
-                        device=device), n_bits)
+                        device=resolve_device(device)), n_bits)
 
     @staticmethod
-    def ones(n_bits: int, rows: tuple = (), device="cpu") -> "BitVector":
+    def ones(n_bits: int, rows: tuple = (), device=None) -> "BitVector":
         words = padded_words(n_bits)
         data = torch.full(rows + (words,), -1, dtype=torch.int32,
-                          device=device)
+                          device=resolve_device(device))
         return BitVector(_mask_tail(data, n_bits), n_bits)
 
     def bits(self) -> torch.Tensor:

@@ -1,18 +1,37 @@
 """BulkBitwiseEngine: the `bbop` execution model exposed to applications.
 
-Two interchangeable backends compute identical results:
+Three interchangeable backends compute identical results:
 
-  * "torch" - plain PyTorch tensor code over packed int32 words, on any
-              device (the twin of the reference's "jnp").
-  * "cuda"  - the hand-written CUDA kernels through ``kernels.ops`` (the
-              twin of the reference's "pallas"): one fused launch per
-              expression. On a CPU tensor the kernels' plain versions run.
-
-The reference's third backend, "ambit_sim" (the bit-accurate DRAM device
-model), is not ported yet (ROADMAP queue 1 item 8).
+  * "torch"     - plain PyTorch tensor code over packed int32 words, on any
+                  device (the twin of the reference's "jnp").
+  * "cuda"      - the hand-written CUDA kernels through ``kernels.ops``
+                  (the twin of the reference's "pallas"): one fused launch
+                  per expression. On a CPU tensor the kernels' plain
+                  versions run.
+  * "ambit_sim" - the bit-accurate DRAM device model (core/simulator.py),
+                  which also returns the paper's DRAM timing/energy ledger.
+                  Its row state lives on the engine's device.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device`` defaults to "cuda" and raises when no card is present.
+
+ambit_sim execution model (batched + cached)
+--------------------------------------------
+An eval call maps every row of the packed operands to one D-group row of a
+simulated subarray (the Section 5.2 co-location contract). Two levers make
+this fast enough for paper-table workloads at realistic bitvector sizes:
+
+  * **Compiled-program cache.** ``compile_expr`` output depends only on
+    ``(expression, sorted variable names, optimize, geometry.data_rows,
+    timing)`` - expressions are hash-consed (expr.py), so an LRU keyed on
+    those fields compiles each expression shape exactly once per process.
+    Inspect/reset with ``compile_cache_info()`` / ``compile_cache_clear()``.
+  * **Batched device execution.** All operand rows are written into one
+    ``AmbitSubarray(n_rows=N)`` and the AAP program runs **once** over the
+    whole batch instead of once per row (the per-row loop stays available
+    as ``BulkBitwiseEngine(..., batch_rows=False)`` for differential
+    testing and benchmarks). Stats are scaled per row-batch, so the
+    reported DRAM ledger is identical to the per-row loop's.
 """
 
 from __future__ import annotations
@@ -24,29 +43,24 @@ from typing import Dict, Optional
 import torch
 
 from . import expr as E
-from .bitvector import BitVector, _mask_tail
+from .bitvector import BitVector, _mask_tail, resolve_device
+from .compiler import CompiledProgram, compile_expr
+from .geometry import DEFAULT_GEOMETRY, DRAMGeometry
+from .simulator import AmbitSubarray
+from .timing import DEFAULT_TIMING, CommandStats, TimingParams
 from ..obs import NULL_TRACER, MetricsRegistry, Tracer
 
+# The resident-path backends (DeviceStore, AmbitRuntime); the engine also
+# takes "ambit_sim".
 BACKENDS = ("torch", "cuda")
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless ``device``
-    names another. Raises when the card is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the "
-            "CPU")
-    return dev
-
-
 def check_backend(backend: str) -> None:
+    """Backends of the resident path (``AmbitRuntime``, ``DeviceStore``)."""
     if backend == "ambit_sim":
         raise NotImplementedError(
-            "backend 'ambit_sim' (the DRAM device model) is not ported yet: "
-            "ROADMAP queue 1 item 8 (DRAM model) and item 9 (PIM runtime "
-            "on ambit_sim)")
+            "the PIM runtime on backend 'ambit_sim' (PimStore on the DRAM "
+            "model) is not ported yet: ROADMAP queue 1 item 9")
     if backend not in BACKENDS:
         raise ValueError(backend)
 
@@ -91,6 +105,29 @@ class OpStats:
 
     def __iadd__(self, other: "OpStats") -> "OpStats":
         return self.merge(other)
+
+
+@functools.lru_cache(maxsize=256)
+def _compile_cached(expression: E.Expr, names: tuple, optimize: bool,
+                    data_rows: int, timing: TimingParams) -> CompiledProgram:
+    """Process-wide compiled-program cache.
+
+    Valid because Expr nodes are interned (identity == structural equality),
+    TimingParams is frozen, and CompiledProgram is immutable: the program
+    depends only on the expression shape, the variable-name order (row
+    assignment), the optimize flag and the D-group size."""
+    var_rows = {nm: i for i, nm in enumerate(names)}
+    return compile_expr(expression, var_rows, len(names), data_rows,
+                        optimize, timing)
+
+
+def compile_cache_info():
+    """functools cache statistics for the ambit_sim compile cache."""
+    return _compile_cached.cache_info()
+
+
+def compile_cache_clear() -> None:
+    _compile_cached.cache_clear()
 
 
 @functools.lru_cache(maxsize=256)
@@ -151,11 +188,21 @@ def binop_expr(op: str) -> E.Expr:
 
 class BulkBitwiseEngine:
     def __init__(self, backend: str = "torch", device=None,
+                 geometry: DRAMGeometry = DEFAULT_GEOMETRY,
+                 timing: TimingParams = DEFAULT_TIMING,
+                 optimize: bool = True, batch_rows: bool = True,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None):
-        check_backend(backend)
+        if backend not in BACKENDS + ("ambit_sim",):
+            raise ValueError(backend)
         self.backend = backend
         self.device = resolve_device(device)
+        self.geometry = geometry
+        self.timing = timing
+        self.optimize = optimize
+        # batch_rows=False forces the one-subarray-per-row loop
+        # (differential-testing / benchmark baseline; ambit_sim only).
+        self.batch_rows = batch_rows
         self.last_stats: Optional[OpStats] = None
         # Observability: metrics are always on (cheap counter adds);
         # span tracing is opt-in via a live Tracer (zero overhead off).
@@ -172,6 +219,8 @@ class BulkBitwiseEngine:
             if v.n_bits != n_bits or v.data.shape != some.data.shape:
                 raise ValueError("bbop operands must be row-aligned and "
                                  "equal-sized (Section 5.3)")
+        if self.backend == "ambit_sim":
+            return self._eval_sim(expression, env, n_bits)
         arrays = {k: v.data.to(self.device) for k, v in env.items()}
         if self.backend == "cuda":
             from ..kernels import ops as kops
@@ -270,3 +319,88 @@ class BulkBitwiseEngine:
                 carry = torch.where(idx == nw - 1, 0, carry)
                 x = hi | carry
         return BitVector(_mask_tail(x, n), n)
+
+    # -- ambit_sim backend ---------------------------------------------------
+
+    def _eval_sim(self, expression: E.Expr, env: Dict[str, BitVector],
+                  n_bits: int) -> BitVector:
+        """Execute the compiled AAP program on the device model.
+
+        Each 'row' of the operand bitvectors maps to one D-group row of a
+        simulated subarray (the Section 5.2 driver's co-location contract:
+        corresponding rows of all operands share a subarray). The program
+        is fetched from the process-wide compile cache and - unless
+        ``batch_rows=False`` - executed once over a batch-``n_rows``
+        subarray on the engine's device: one write / one run / one read."""
+        names = sorted(env.keys())
+        var_rows = {nm: i for i, nm in enumerate(names)}
+        dst_row = len(names)
+        compiled = _compile_cached(expression, tuple(names), self.optimize,
+                                   self.geometry.data_rows, self.timing)
+        # Pack to 64-bit words for the simulator.
+        packed = {nm: _to_u64(env[nm].data.to(self.device)) for nm in names}
+        some = packed[names[0]]
+        lead = tuple(some.shape[:-1])
+        flat = {nm: a.reshape(-1, a.shape[-1]) for nm, a in packed.items()}
+        n_rows, words = next(iter(flat.values())).shape
+
+        if n_rows == 0:  # zero-row operands: nothing to execute
+            out_rows = torch.empty((0, words), dtype=torch.int64,
+                                   device=self.device)
+            total = CommandStats()
+        elif self.batch_rows:
+            sub = AmbitSubarray(self.geometry, self.timing, words=words,
+                                n_rows=n_rows, device=self.device)
+            for nm in names:
+                sub.write_row(var_rows[nm], flat[nm])
+            sub.run(compiled.program)
+            out_rows = sub.read_row(dst_row).reshape(n_rows, words)
+            total = sub.stats
+        else:  # the per-row loop (differential baseline)
+            out_rows = torch.empty((n_rows, words), dtype=torch.int64,
+                                   device=self.device)
+            total = CommandStats()
+            sub = AmbitSubarray(self.geometry, self.timing, words=words,
+                                device=self.device)
+            for r in range(n_rows):
+                for nm in names:
+                    sub.write_row(var_rows[nm], flat[nm][r])
+                sub.stats = CommandStats()
+                sub.run(compiled.program)
+                out_rows[r] = sub.read_row(dst_row)
+                total.merge(sub.stats)
+
+        out32 = _to_u32(out_rows.reshape(lead + (words,)))
+        # bytes_touched is host<->device traffic: every operand is written
+        # to the subarray and the result is read back (same accounting as
+        # the torch path's inputs + output).
+        self.last_stats = OpStats(ns=total.ns, energy_nj=total.energy_nj,
+                                  aap_count=total.aap_count,
+                                  bytes_touched=out32.nbytes +
+                                  sum(v.nbytes for v in env.values()))
+        self.metrics.counter("engine_evals").inc(1, backend=self.backend)
+        self.metrics.counter("engine_bytes_touched").inc(
+            self.last_stats.bytes_touched, backend=self.backend)
+        self.metrics.counter("engine_aap_macros").inc(total.aap_count)
+        self.metrics.counter("engine_ns").inc(total.ns)
+        if self.tracer.enabled:
+            # AAP macro batch: one span per compiled-program execution on
+            # the engine's busy-time track.
+            self.tracer.tick(("engine", "ambit_sim"), "aap_batch", "engine",
+                             total.ns, args={"aaps": total.aap_count,
+                                             "rows": n_rows,
+                                             "vars": len(names)})
+        # Padding rows beyond n_bits may be garbage from scratch state: mask.
+        return BitVector(_mask_tail(out32, n_bits), n_bits)
+
+
+def _to_u64(a32: torch.Tensor) -> torch.Tensor:
+    """int32 words -> int64 words with the same bytes (little-endian, as
+    numpy's uint32 -> uint64 view): an odd word count gains a zero word."""
+    if a32.shape[-1] % 2:
+        a32 = torch.cat([a32, a32.new_zeros(a32.shape[:-1] + (1,))], -1)
+    return a32.contiguous().view(torch.int64)
+
+
+def _to_u32(a64: torch.Tensor) -> torch.Tensor:
+    return a64.contiguous().view(torch.int32)

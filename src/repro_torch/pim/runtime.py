@@ -18,9 +18,11 @@ win the paper is about. Spilled operands (LRU eviction under
 ``capacity_bytes``) fault back in transparently at eval time; the
 re-upload is charged to the call.
 
-The reference's DRAM-model backend (``"ambit_sim"``: single device,
-``PimCluster`` sharding, fault injection and TMR protection) is not
-ported yet (ROADMAP queue 1 items 8-9).
+The reference's DRAM-model runtime (``"ambit_sim"``: ``PimStore`` on one
+device, ``PimCluster`` sharding, fault injection and TMR protection) is not
+ported yet (ROADMAP queue 1 item 9); the DRAM model itself and the
+engine's ``"ambit_sim"`` backend are (``core/simulator.py``,
+``core/engine.py``).
 """
 
 from __future__ import annotations

@@ -65,7 +65,8 @@ def test_binary_matmul_matches_reference(m, n, k):
     ap, bp = packed_u32(abits), packed_u32(bbits)
     want = np.asarray(jops.binary_matmul(jnp.asarray(ap), jnp.asarray(bp),
                                          k))
-    ta, tb = from_numpy_u32(ap), from_numpy_u32(bp)
+    ta = from_numpy_u32(ap, device="cpu")
+    tb = from_numpy_u32(bp, device="cpu")
     launches = kbmm.binary_matmul.launches
     got = ops.binary_matmul(ta, tb, k)
     assert kbmm.binary_matmul.launches == launches   # plain path on the CPU
@@ -86,9 +87,9 @@ def test_plain_version_chunks_rows(monkeypatch):
     from repro_torch.kernels import ref
     rng = np.random.default_rng(7)
     a = from_numpy_u32(rng.integers(0, 2**32, (37, 6), dtype=np.uint64)
-                       .astype(np.uint32))
+                       .astype(np.uint32), device="cpu")
     b = from_numpy_u32(rng.integers(0, 2**32, (11, 6), dtype=np.uint64)
-                       .astype(np.uint32))
+                       .astype(np.uint32), device="cpu")
     whole = ref.binary_matmul(a, b, 192)
     monkeypatch.setattr(ref, "BMM_CHUNK_ELEMS", 5 * 11 * 6)
     assert torch.equal(ref.binary_matmul(a, b, 192), whole)

@@ -52,7 +52,8 @@ def port_serve_bitmaps(n_tenants, n_queries, n_users, n_items, max_batch,
     rt = AmbitRuntime(backend="cuda", device=device, tracer=tracer)
     raw = {f"m{i}": rng.integers(0, 2, n_users).astype(np.uint8)
            for i in range(n_items)}
-    hs = {k: rt.put(BitVector.from_bits(v), name=k) for k, v in raw.items()}
+    hs = {k: rt.put(BitVector.from_bits(v, device=device), name=k)
+          for k, v in raw.items()}
     expr = Expr.var("x") & Expr.var("y")
     tenants = [f"t{i}" for i in range(n_tenants)]
     pair_of = dict(zip(tenants, _zipf_pairs(rng, n_items, n_tenants)))
@@ -413,3 +414,66 @@ def test_runtime_backends_agree_on_card(cuda):
                      [rt.get(x.result).data.tolist() for x in t],
                      rt.metrics_snapshot()))
     assert seen[0] == seen[1]
+
+
+def test_dram_model_on_card_equals_cpu(cuda):
+    """The DRAM model's row state lives on the card: one random AAP/AP
+    program over a batch-64 subarray, boot content included, and one
+    ambit_sim eval leave the same bits and ledger as on the CPU."""
+    import dataclasses
+    from repro_torch.core import AmbitError, AmbitSubarray, BulkBitwiseEngine
+    from repro_torch.core import commands as cmd
+    from repro_torch.core.geometry import DRAMGeometry
+
+    geom = DRAMGeometry(rows_per_subarray=32)
+    rng = np.random.default_rng(21)
+    srcs = [cmd.D(i) for i in range(geom.data_rows)] + [cmd.C(0), cmd.C(1)]
+    dsts = [cmd.B(i) for i in range(16)] + srcs[:geom.data_rows]
+    prog = [cmd.AP(cmd.B(12)) if rng.integers(5) == 0 else
+            cmd.AAP(srcs[rng.integers(len(srcs))],
+                    dsts[rng.integers(len(dsts))]) for _ in range(40)]
+    seen = []
+    for dev in ("cpu", cuda):
+        sub = AmbitSubarray(geom, words=256, n_rows=64, seed=3, device=dev)
+        errors = 0
+        for m in prog:      # an undefined macro raises alike on both
+            try:
+                sub.run([m])
+            except AmbitError:
+                errors += 1
+                sub._precharge()
+        cells = [sub._d_row(d) for d in range(geom.data_rows)]
+        cells += list(sub.t_rows.values()) + list(sub.dcc.values())
+        seen.append((errors, dataclasses.astuple(sub.stats),
+                     [c.cpu().tolist() for c in cells]))
+    assert seen[0] == seen[1]
+    bits = rng.integers(0, 2, (3, 16, 4000)).astype(bool)
+    out = []
+    for dev in ("cpu", cuda):
+        eng = BulkBitwiseEngine("ambit_sim", device=dev)
+        env = {k: BitVector.from_bits(b, device=dev)
+               for k, b in zip("xyz", bits)}
+        got = eng.eval(E.maj(X, Y, Z) ^ (X | ~Z), env)
+        out.append((got.data.cpu().tolist(),
+                    dataclasses.astuple(eng.last_stats)))
+    assert out[0] == out[1]
+
+
+def test_ambit_scan_stats_on_card_counts_through_the_kernels(cuda):
+    """``ambit_scan_stats`` on a column on the card launches the scan and
+    the popcount once each and gives the CPU's count and DRAM time."""
+    from repro_torch.apps.bitweaving_db import (BitWeavingColumn,
+                                                ambit_scan_stats)
+    from repro_torch.core import BulkBitwiseEngine
+    values = np.random.default_rng(8).integers(0, 256, 100_003)
+    out = []
+    for dev in ("cpu", cuda):
+        col = BitWeavingColumn.from_values(values, 8, device=dev)
+        eng = BulkBitwiseEngine("ambit_sim", device=dev)
+        before = (kbv.bitweaving_scan.launches, kpc.popcount_rows.launches)
+        out.append(ambit_scan_stats(col, 37, 200, eng))
+        after = (kbv.bitweaving_scan.launches, kpc.popcount_rows.launches)
+        assert [a - b for a, b in zip(after, before)] == (
+            [1, 1] if dev == cuda else [0, 0])
+    assert out[0] == out[1]
+    assert out[1][0] == int(((values >= 37) & (values <= 200)).sum())

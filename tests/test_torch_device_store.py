@@ -26,6 +26,15 @@ from repro_torch.pim import AmbitRuntime, DeviceStore
 PAIRS = [("jnp", "torch"), ("pallas", "cuda")]
 
 
+class CpuBitVector:
+    """The port's ``BitVector`` packed on the CPU, where this file's
+    runtimes keep their data."""
+
+    @staticmethod
+    def from_bits(bits):
+        return BitVector.from_bits(bits, device="cpu")
+
+
 def runtimes(ref_backend, backend, **kw):
     return (JRuntime(backend=ref_backend, **kw),
             AmbitRuntime(backend=backend, device="cpu", **kw))
@@ -85,7 +94,7 @@ def test_session_matches_reference(ref_backend, backend, capacity_rows):
     cap = None if capacity_rows is None else capacity_rows * nb
     jrt, rt = runtimes(ref_backend, backend, capacity_bytes=cap)
     want = scenario(jrt, JBitVector, JE, bits)
-    got = scenario(rt, BitVector, E, bits)
+    got = scenario(rt, CpuBitVector, E, bits)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g == w, g[0]
@@ -97,11 +106,11 @@ def test_held_operand_spills_last_and_faults_back(ref_backend, backend):
     last resort and faults back in at drain, charged to its ticket."""
     rng = np.random.default_rng(5)
     bits = rng.integers(0, 2, (3, 1024)).astype(bool)
-    nb = BitVector.from_bits(bits[0]).nbytes
+    nb = BitVector.from_bits(bits[0], device="cpu").nbytes
     results = []
     for rt, BV, Ex in zip(runtimes(ref_backend, backend,
                                    capacity_bytes=2 * nb),
-                          (JBitVector, BitVector), (JE, E)):
+                          (JBitVector, CpuBitVector), (JE, E)):
         a = rt.put(BV.from_bits(bits[0]), pin=True)
         b = rt.put(BV.from_bits(bits[1]))
         t = rt.submit(~Ex.Expr.var("x"), {"x": b})
@@ -115,9 +124,9 @@ def test_held_operand_spills_last_and_faults_back(ref_backend, backend):
     assert results[0] == results[1]
     assert results[1][1] == (~bits[1]).tolist()
     rt = AmbitRuntime(backend=backend, device="cpu", capacity_bytes=nb)
-    rt.put(BitVector.from_bits(bits[0]), pin=True)
+    rt.put(BitVector.from_bits(bits[0], device="cpu"), pin=True)
     with pytest.raises(AmbitError, match="pinned or in use"):
-        rt.put(BitVector.from_bits(bits[1]))
+        rt.put(BitVector.from_bits(bits[1], device="cpu"))
 
 
 def test_one_dispatch_per_epoch_like_reference():
@@ -125,7 +134,7 @@ def test_one_dispatch_per_epoch_like_reference():
     bits = rng.integers(0, 2, (4, 2, 300)).astype(bool)
     counts = []
     for rt, BV, Ex, probe in zip(runtimes("pallas", "cuda"),
-                                 (JBitVector, BitVector), (JE, E),
+                                 (JBitVector, CpuBitVector), (JE, E),
                                  (jops, kops)):
         X, Y = Ex.Expr.var("x"), Ex.Expr.var("y")
         envs = [{"x": rt.put(BV.from_bits(bits[q, 0])),
@@ -148,10 +157,10 @@ def test_out_rebind_writes_in_place_only_into_private_buffers():
     bits = rng.integers(0, 2, (2, 300)).astype(bool)
     X, Y = E.Expr.var("x"), E.Expr.var("y")
     rt = AmbitRuntime(backend="cuda", device="cpu")
-    bv_a = BitVector.from_bits(bits[0])
+    bv_a = BitVector.from_bits(bits[0], device="cpu")
     caller_copy = bv_a.data.clone()
     a = rt.put(bv_a)
-    w = rt.put(BitVector.from_bits(bits[1]))
+    w = rt.put(BitVector.from_bits(bits[1], device="cpu"))
     assert not a._private
     assert rt.eval(X & Y, {"x": a, "y": w}, out=a) is a
     assert rt.planner.last_report.donated == 0
@@ -177,8 +186,8 @@ def test_spill_leaves_host_copies_that_share_nothing():
     rng = np.random.default_rng(4)
     bits = rng.integers(0, 2, (2, 1024)).astype(bool)
     rt = AmbitRuntime(backend="cuda", device="cpu")
-    a = rt.put(BitVector.from_bits(bits[0]))
-    b = rt.put(BitVector.from_bits(bits[1]))
+    a = rt.put(BitVector.from_bits(bits[0], device="cpu"))
+    b = rt.put(BitVector.from_bits(bits[1], device="cpu"))
     out = rt.and_(a, b)
     dev_ptr = out._dev.data_ptr()
     rt.store.spill(out)                              # dirty: read back
@@ -196,14 +205,14 @@ def test_store_rejects_sim_backend_and_foreign_handles():
         AmbitRuntime(backend="ambit_sim", device="cpu")
     rt1 = AmbitRuntime(backend="torch", device="cpu")
     rt2 = AmbitRuntime(backend="torch", device="cpu")
-    a = rt1.put(BitVector.from_bits(np.ones(64, bool)))
+    a = rt1.put(BitVector.from_bits(np.ones(64, bool), device="cpu"))
     with pytest.raises(AmbitError, match="another store"):
         rt2.get(a)
 
 
 def test_optimizer_drain_is_not_ported():
     rt = AmbitRuntime(backend="cuda", device="cpu")
-    a = rt.put(BitVector.from_bits(np.ones(64, bool)))
+    a = rt.put(BitVector.from_bits(np.ones(64, bool), device="cpu"))
     t = rt.submit(~E.Expr.var("x"), {"x": a})
     with pytest.raises(NotImplementedError, match="optimizer"):
         rt.drain(optimize=True)

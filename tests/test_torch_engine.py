@@ -6,6 +6,8 @@ numpy bits go into both, and the packed words, popcounts and
 ``last_stats.bytes_touched`` must be equal.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -30,7 +32,7 @@ def to_ref(e):
 def vectors(rng, n_bits, rows=()):
     bits = rng.integers(0, 2, (3,) + rows + (n_bits,)).astype(bool)
     return ([JBitVector.from_bits(b) for b in bits],
-            [BitVector.from_bits(b) for b in bits])
+            [BitVector.from_bits(b, device="cpu") for b in bits])
 
 
 def same_bv(port: BitVector, ref: JBitVector):
@@ -43,15 +45,18 @@ def same_bv(port: BitVector, ref: JBitVector):
 def test_bitvector_packing_matches_reference(n_bits):
     rng = np.random.default_rng(n_bits)
     bits = rng.integers(0, 2, (2, n_bits)).astype(bool)
-    ref, port = JBitVector.from_bits(bits), BitVector.from_bits(bits)
+    ref = JBitVector.from_bits(bits)
+    port = BitVector.from_bits(bits, device="cpu")
     same_bv(port, ref)
-    carried = bitvector_from_numpy(np.asarray(ref.data), ref.n_bits)
+    carried = bitvector_from_numpy(np.asarray(ref.data), ref.n_bits,
+                                   device="cpu")
     assert carried.data.dtype == port.data.dtype
     same_bv(carried, ref)
     same_bv(~port, ~ref)
     same_bv(port.andnot(port), ref.andnot(ref))
-    same_bv(BitVector.ones(n_bits, (3,)), JBitVector.ones(n_bits, (3,)))
-    same_bv(BitVector.zeros(n_bits), JBitVector.zeros(n_bits))
+    same_bv(BitVector.ones(n_bits, (3,), device="cpu"),
+            JBitVector.ones(n_bits, (3,)))
+    same_bv(BitVector.zeros(n_bits, device="cpu"), JBitVector.zeros(n_bits))
     np.testing.assert_array_equal(port.bits().numpy(), bits)
     np.testing.assert_array_equal(port.popcount().numpy(),
                                   np.asarray(ref.popcount()))
@@ -112,7 +117,18 @@ def test_shift_matches_reference(ref_backend, backend, n_bits):
 
 
 def test_unported_backend_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BulkBitwiseEngine("ambit_sim", device="cpu")
+    """The engine runs "ambit_sim" (the DRAM model); the PIM runtime on it
+    is not ported yet and says where it is queued; "jnp" is no backend of
+    the port."""
+    from repro_torch.pim import AmbitRuntime
+    jv, pv = vectors(np.random.default_rng(0), 70)
+    eng, jeng = BulkBitwiseEngine("ambit_sim", device="cpu"), \
+        JEngine("ambit_sim")
+    same_bv(eng.and_(pv[0], pv[1]), jeng.and_(jv[0], jv[1]))
+    assert eng.last_stats.aap_count > 0 and eng.last_stats.ns > 0
+    assert dataclasses.astuple(eng.last_stats) == \
+        dataclasses.astuple(jeng.last_stats)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        AmbitRuntime(backend="ambit_sim", device="cpu")
     with pytest.raises(ValueError):
         BulkBitwiseEngine("jnp", device="cpu")

@@ -63,7 +63,7 @@ def test_bitwise_eval_matches_reference(ename, shape):
     expr = EXPRS[ename]
     env = env_for(rng, shape)
     want = np.asarray(jops.bitwise_eval(to_ref(expr), env))
-    got = ops.bitwise_eval(expr, {k: from_numpy_u32(v)
+    got = ops.bitwise_eval(expr, {k: from_numpy_u32(v, device="cpu")
                                   for k, v in env.items()})
     assert got.dtype == torch.int32 and tuple(got.shape) == shape
     np.testing.assert_array_equal(to_numpy_u32(got), want)
@@ -77,7 +77,8 @@ def test_bitwise_eval_stacked_matches_reference(shape):
     want = jops.bitwise_eval_stacked(to_ref(expr), ("x", "y", "z"), envs)
     got = ops.bitwise_eval_stacked(
         expr, ("x", "y", "z"),
-        [{k: from_numpy_u32(v) for k, v in env.items()} for env in envs])
+        [{k: from_numpy_u32(v, device="cpu") for k, v in env.items()}
+         for env in envs])
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         np.testing.assert_array_equal(to_numpy_u32(g), np.asarray(w))
@@ -85,7 +86,8 @@ def test_bitwise_eval_stacked_matches_reference(shape):
 
 def test_fused_dispatch_probe_counts_wrapper_calls():
     rng = np.random.default_rng(1)
-    env = {k: from_numpy_u32(v) for k, v in env_for(rng, (2, 40)).items()}
+    env = {k: from_numpy_u32(v, device="cpu")
+           for k, v in env_for(rng, (2, 40)).items()}
     ops.fused_dispatch_reset()
     ops.bitwise_eval(EXPRS["maj"], env)
     ops.bitwise_eval_stacked(EXPRS["maj"], ("x", "y", "z"), [env, env])
@@ -99,7 +101,7 @@ def test_popcount_matches_reference(shape):
     rng = np.random.default_rng(11)
     x = words(rng, shape)
     want = np.asarray(jops.popcount(x))
-    got = ops.popcount(from_numpy_u32(x))
+    got = ops.popcount(from_numpy_u32(x, device="cpu"))
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -110,7 +112,7 @@ def test_bitweaving_scan_matches_reference(b):
     top = (1 << b) - 1
     n_words = {1: 7, 4: 40, 12: 7, 32: 40}[b]
     planes = words(rng, (b, n_words))
-    tp = from_numpy_u32(planes)
+    tp = from_numpy_u32(planes, device="cpu")
     for c1, c2 in ((0, top), (0, 0), (top, top), (top // 3, 2 * top // 3)):
         want = np.asarray(jops.bitweaving_scan(planes, c1, c2))
         got = ops.bitweaving_scan(tp, c1, c2)
@@ -209,7 +211,8 @@ def test_lowering_reuses_registers_and_masks_in_plain_version():
     prog = kbw.lower(expr, ("x", "y", "z"))
     assert prog.code.shape[0] == 6 and prog.n_regs == 3
     rng = np.random.default_rng(3)
-    arrays = [from_numpy_u32(words(rng, (2, 5))) for _ in range(3)]
+    arrays = [from_numpy_u32(words(rng, (2, 5)), device="cpu")
+              for _ in range(3)]
     out = kbw.fused_bitwise(expr, ("x", "y", "z"), arrays, prog, n_bits=70)
     want = E.eval_expr(expr, dict(zip("xyz", arrays)))
     np.testing.assert_array_equal(out[:, :2].numpy(), want[:, :2].numpy())
@@ -225,7 +228,8 @@ def test_operand_limit_raises():
         expr = expr & E.Expr.var(nm)
     with pytest.raises(ValueError, match="operands"):
         kbw.lower(expr, names)
-    env ={nm: from_numpy_u32(np.zeros(4, np.uint32)) for nm in names}
+    env ={nm: from_numpy_u32(np.zeros(4, np.uint32), device="cpu")
+          for nm in names}
     with pytest.raises(ValueError, match="operands"):
         ops.bitwise_eval(expr, env)
 

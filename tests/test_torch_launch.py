@@ -162,7 +162,8 @@ def test_kernel_tail_mask_matches_plain(shape, n_bits):
     arrays = [words(rng, shape) for _ in names]
     got = run_kernel(prog, arrays, n_bits)
     want = kbw.fused_bitwise_plain(expr, names,
-                                   [from_numpy_u32(a) for a in arrays],
+                                   [from_numpy_u32(a, device="cpu")
+                                    for a in arrays],
                                    n_bits)
     np.testing.assert_array_equal(got, to_numpy_u32(want))
 
@@ -325,7 +326,8 @@ def test_kernel_arithmetic_matches_reference(m, n, k):
         a[:, -1] &= (1 << (k % 32)) - 1
         b[:, -1] &= (1 << (k % 32)) - 1
     got = run_bmm(a, b, k)
-    want = kbmm.binary_matmul_plain(from_numpy_u32(a), from_numpy_u32(b), k)
+    want = kbmm.binary_matmul_plain(from_numpy_u32(a, device="cpu"),
+                                    from_numpy_u32(b, device="cpu"), k)
     np.testing.assert_array_equal(got, want.numpy())
     if kw:
         ref = np.asarray(jops.binary_matmul(jnp.asarray(a), jnp.asarray(b), k))
@@ -541,8 +543,8 @@ def test_masked_scan_store_matches_reference(offset):
             want = scan & np.asarray(jpack(jnp.asarray(mask)))[:n]
             got = run_scan(planes, c1, c2, BASE + offset, n_bits)
             np.testing.assert_array_equal(got, want, err_msg=f"rem {rem}")
-            plain = kbv.bitweaving_scan_plain(from_numpy_u32(planes), c1, c2,
-                                              n_bits)
+            plain = kbv.bitweaving_scan_plain(
+                from_numpy_u32(planes, device="cpu"), c1, c2, n_bits)
             np.testing.assert_array_equal(to_numpy_u32(plain), want)
 
 

@@ -53,7 +53,11 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch, repro_torch.core, "
             "repro_torch.pim, repro_torch.serve, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.apps.bitmap_index, "
-            "repro_torch.apps.bitweaving_db, repro_torch.apps.binary_lm; "
+            "repro_torch.apps.bitweaving_db, repro_torch.apps.binary_lm, "
+            "repro_torch.apps.bitfunnel, repro_torch.apps.bitsets, "
+            "repro_torch.apps.masked_init, repro_torch.core.analog, "
+            "repro_torch.core.ecc, repro_torch.core.timing_checker, "
+            "repro_torch.pim.allocator; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -74,6 +78,42 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AmbitRuntime(backend="torch")
     assert AmbitRuntime(backend="cuda", device="cpu").device.type == "cpu"
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.apps.bitfunnel import BitFunnelIndex
+    from repro_torch.core import (AmbitDevice, AmbitSubarray, BitVector,
+                                  pack_bits)
+    from repro_torch.core.analog import tra_failure_rate
+    from repro_torch.core.simulator import AmbitBank
+    words = np.zeros(4, np.uint32)
+    made = {  # entry point -> where its result lies
+        "BitVector.zeros": lambda **kw: BitVector.zeros(40, **kw).data,
+        "BitVector.ones": lambda **kw: BitVector.ones(40, **kw).data,
+        "BitVector.from_bits": lambda **kw: BitVector.from_bits(
+            np.ones(40, bool), **kw).data,
+        "pack_bits": lambda **kw: pack_bits(np.ones(40, bool), **kw),
+        "from_numpy_u32": lambda **kw: convert.from_numpy_u32(words, **kw),
+        "bitvector_from_numpy": lambda **kw: convert.bitvector_from_numpy(
+            words, 100, **kw).data,
+        "AmbitSubarray": lambda **kw: AmbitSubarray(words=2, **kw).c_rows[1],
+        "AmbitBank": lambda **kw: AmbitBank(
+            subarrays=1, words=2, **kw).subarrays[0].c_rows[0],
+        "AmbitDevice": lambda **kw: AmbitDevice(
+            banks=1, subarrays=1, words=2, **kw).banks[0].subarrays[0]
+        .t_rows["T0"],
+        "ambit_sim engine": lambda **kw: BulkBitwiseEngine(
+            "ambit_sim", **kw).and_(BitVector.ones(40, device="cpu"),
+                                    BitVector.ones(40, device="cpu")).data,
+        "BitFunnelIndex": lambda **kw: BitFunnelIndex(4, **kw).engine,
+        "tra_failure_rate": lambda **kw: tra_failure_rate(
+            0.1, n_trials=10, **kw),
+    }
+    for name, make in made.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        out = make(device="cpu")
+        if hasattr(out, "device"):
+            assert torch.device(out.device).type == "cpu", name
 
 
 @pytest.mark.parametrize("entry", ["synthesize", "from_values",
