@@ -40,7 +40,24 @@ without printing the result line):
    a 2^24-bit vector and the timing oracle; wall ms on the card and on
    the CPU are printed, and the kernel launch counts of this phase
    (none expected) are printed, not required;
-7. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
+7. the PIM runtime on the DRAM model (``AmbitRuntime(backend=
+   "ambit_sim", device="cuda")``) with its row state on the card: (a) the
+   resident chain of ``kern_pim_resident_chain`` (6 ANDs over 128 rows of
+   65,536 bits; one host read, the session ledger equal to the
+   reference's), (b) ``kern_pim_sharded_scan`` on 4 devices (the measured
+   inter-device rows, bytes and channel ns equal to the reference's), (c)
+   ``kern_pim_optimizer``'s mix drained with ``optimize=True`` (the
+   rewrites and AAP counts equal to the reference's), then on backend
+   "cuda", where the optimized drains must launch ``fused_bitwise`` and
+   ``fused_bitwise_stacked``, (d) ``faults_tmr_overhead`` and
+   ``faults_serve_r001``/``r010`` (every answer equal to numpy, the fault
+   ledgers equal to the reference's) and a host fallback after a device
+   loss, which must launch ``fused_bitwise``, (e) the phase-3 bitmap mix
+   at full width (2^24 users, 12 bitmaps, the default geometry) as
+   closed-loop queries for about 20 s, every count against numpy, with
+   the wall ms a query, the DRAM model's p50/p99 and one query's CUDA
+   kernels and copies;
+8. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
    ``{"kernels": [...]}`` JSON line, then the result line.
 
 Each path must launch its own kernels: the four serving kernels on
@@ -1188,6 +1205,44 @@ FIG20B_LEDGER = {
 }
 
 
+# The reference package's session OpStats (ns, energy_nj, aap_count,
+# bytes_touched, channel_ns, channel_bytes, refresh_stolen_ns) of
+# ``kern_pim_resident_chain`` (benchmarks/kernels_micro.py): 6 resident
+# ANDs over 128 rows of 65,536 bits on banks=8, subarrays=4, seed=1.
+# tests/test_torch_pim.py holds it against the reference.
+PIM_CHAIN_LEDGER = (18816.0, 19899.4944, 3072, 8388608, 0.0, 0,
+                    7071.785234899329)
+# ``kern_pim_sharded_scan``'s measured inter-device rows, bytes and
+# channel ns on devices=4 after its mis-placed operand (the reference's).
+PIM_SHARDED_LEDGER = (48, 393216, 53952.0)
+# ``kern_pim_optimizer``'s (cse_hits, cse_materialized, cache_hits of the
+# second optimized round, and the AAPs of the unoptimized, optimized and
+# cached drains): the reference's.
+PIM_OPT_LEDGER = (51, 152, 24, 3072, 685, 0)
+# ``faults_tmr_overhead``'s upload bytes, session OpStats and (empty)
+# fault ledger, plain and TMR-protected: the reference's, as
+# ``tmr_overhead_session`` prints them.
+FAULTS_TMR_LEDGER = (
+    "plain upload=256 OpStats(ns=4310.0, energy_nj=2060.0927999999994, "
+    "aap_count=240, bytes_touched=1024, channel_ns=0.0, channel_bytes=0, "
+    "refresh_stolen_ns=809.9328859060402) faults=[]; tmr upload=768 "
+    "OpStats(ns=22230.0, energy_nj=10300.463999999996, aap_count=1200, "
+    "bytes_touched=1536, channel_ns=0.0, channel_bytes=0, "
+    "refresh_stolen_ns=4177.449664429531) faults=[]")
+# ``faults_serve_r001``/``r010``'s fault ledgers (injected stuck rows and
+# the quarantines that answered them): the reference's.
+FAULTS_SERVE_LEDGER = {
+    0.001: ("stuck_row dev=0 slot=(1, 1, 45) op=compute; "
+            "quarantine dev=0 slot=(1, 1, 45)"),
+    0.01: ("stuck_row dev=0 slot=(3, 0, 26) op=compute; "
+           "quarantine dev=0 slot=(3, 0, 26); "
+           "stuck_row dev=0 slot=(0, 0, 29) op=compute; "
+           "quarantine dev=0 slot=(0, 0, 29); "
+           "stuck_row dev=0 slot=(1, 1, 45) op=compute; "
+           "quarantine dev=0 slot=(1, 1, 45)"),
+}
+
+
 def dram_model_phase(torch, card, wrappers):
     """The DRAM model (``ambit_sim``) with its row state on the card, at
     full width: the Figure-20 expressions over 256 rows of 65,536 bits
@@ -1325,6 +1380,469 @@ def dram_model_phase(torch, card, wrappers):
         f"runs no kernel here): {launches}")
     return report
 
+# -- phase 7 ------------------------------------------------------------------
+#
+# The PIM runtime on the DRAM model (``AmbitRuntime(backend="ambit_sim")``)
+# with its row state on the card. Each session below is written against a
+# package's entry points through ``PimApi``, so tests/test_torch_pim.py and
+# tests/test_torch_faults.py run the same sessions on the reference package
+# and on the port on the CPU, and hold them to the constants pinned here.
+
+class PimApi:
+    """The PIM runtime entry points of one package on one device
+    (``device=None`` leaves the package's default: the reference's)."""
+
+    def __init__(self, core, pim, faults, serve, device):
+        import importlib
+        self.core, self.pim, self.faults, self.serve = core, pim, faults, \
+            serve
+        self.Expr = core.Expr
+        self.kw = {} if device is None else {"device": device}
+        top = core.__name__.split(".")[0]
+        self.bitweaving = importlib.import_module(
+            top + ".apps.bitweaving_db")
+        self.bitmap_index = importlib.import_module(
+            top + ".apps.bitmap_index")
+
+    def runtime(self, **kw):
+        return self.pim.AmbitRuntime(**kw, **self.kw)
+
+    def bv(self, bits):
+        return self.core.BitVector.from_bits(bits, **self.kw)
+
+    def injector(self, **cfg):
+        return self.faults.FaultInjector(self.faults.FaultConfig(**cfg),
+                                         **self.kw)
+
+    @staticmethod
+    def bits(bv):
+        b = bv.bits()
+        return b.cpu().numpy() if hasattr(b, "cpu") else np.asarray(b)
+
+    @staticmethod
+    def words(data):
+        d = data.cpu().numpy() if hasattr(data, "cpu") else np.asarray(data)
+        return d.view(np.uint32)
+
+
+def _astuple(st):
+    import dataclasses
+    return dataclasses.astuple(st)
+
+
+def _resident_and_chain(api, rt, bits):
+    """put every vector ``near=`` the first, AND them in a chain freeing
+    the intermediates in-DRAM, read back only the result."""
+    rs = []
+    for b in bits:
+        rs.append(rt.put(api.bv(b), near=rs[0].slots if rs else None))
+    acc = rs[0]
+    for r in rs[1:]:
+        prev = acc
+        acc = rt.and_(acc, r)
+        if prev is not rs[0]:
+            rt.free(prev)
+    return acc, rt.get(acc)
+
+
+def resident_chain_session(api, rows=128, n_ops=6, n_bits=65536):
+    """``kern_pim_resident_chain`` (benchmarks/kernels_micro.py): 6
+    resident ANDs over ``rows`` rows of 65,536 bits on banks=8,
+    subarrays=4, seed=1."""
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 2, (n_ops + 1, rows, n_bits)).astype(bool)
+    rt = api.runtime(banks=8, subarrays=4, seed=1)
+    _, got = _resident_and_chain(api, rt, bits)
+    want = np.bitwise_and.reduce(bits, axis=0)
+    return {"mismatches": int((api.bits(got) != want).any()),
+            "host_reads": rt.host_reads,
+            "session": _astuple(rt.session_stats),
+            "metrics": rt.metrics_snapshot()}
+
+
+def sharded_scan_session(api, rows=64, n_ops=6, n_bits=65536):
+    """``kern_pim_sharded_scan``: the same chain over 4 devices with
+    round-robin chunks (no transfers), then an AND with an operand
+    packed onto device 0, whose chunks the cluster moves."""
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 2, (n_ops + 1, rows, n_bits)).astype(bool)
+    rt = api.runtime(banks=4, subarrays=2, devices=4, seed=1)
+    acc, _ = _resident_and_chain(api, rt, bits)
+    aligned_bytes = rt.store.ledger.inter_device_bytes
+    mask = rt.store.put(api.bv(bits[0]), placement=api.pim.PACKED)
+    out = rt.get(rt.and_(acc, mask))
+    want = np.bitwise_and.reduce(bits, axis=0)
+    led = rt.store.ledger
+    return {"mismatches": int((api.bits(out) != want).any()),
+            "aligned_bytes": aligned_bytes,
+            "moved": (led.inter_device_rows, led.inter_device_bytes,
+                      led.inter_device_ns),
+            "ledger": _astuple(led), "session": _astuple(rt.session_stats),
+            "metrics": rt.metrics_snapshot()}
+
+
+def optimizer_session(api, backend="ambit_sim", n_tenants=6, n_queries=24):
+    """``kern_pim_optimizer``: the Zipfian TPC-H predicate mix drained
+    unoptimized, optimized (cross-ticket CSE) and optimized again (every
+    query from the result cache), every result against the table's
+    oracle. ``backend="cuda"`` runs the same mix on the accelerator
+    store, through the fused kernels."""
+    bw = api.bitweaving
+
+    def build():
+        if backend == "ambit_sim":
+            geom = api.core.DRAMGeometry(rows_per_subarray=64)
+            rt = api.runtime(geometry=geom, banks=4, devices=1,
+                             subarrays=4, words=4, seed=1)
+        else:
+            rt = api.runtime(backend=backend)
+        table = bw.TpchTable.synthesize(n_rows=4 * 64, seed=2, **api.kw)
+        return rt, table
+
+    def round_(rt, table, queries, optimize):
+        ts = [rt.submit(*bw.predicate_plan(table, specs, rt))
+              for _, specs in queries]
+        rt.drain(optimize=optimize)
+        bad = 0
+        for (_, specs), t in zip(queries, ts):
+            got = api.bits(rt.get(t.result)).ravel()[:table.n_rows]
+            bad += int(not np.array_equal(got.astype(bool),
+                                          table.oracle(specs)))
+        return bad, rt.last_drain
+
+    rt_u, table = build()
+    queries = bw.zipf_tenant_queries(table, n_tenants=n_tenants,
+                                     n_queries=n_queries, seed=3)
+    bad_u, du = round_(rt_u, table, queries, False)
+    rt_o, table_o = build()
+    bad_o, do = round_(rt_o, table_o, queries, True)
+    bad_c, dc = round_(rt_o, table_o, queries, True)
+    m = rt_o.store.metrics
+    return {"mismatches": bad_u + bad_o + bad_c,
+            "aap_unopt": du.stats.aap_count, "aap_opt": do.stats.aap_count,
+            "aap_cached": dc.stats.aap_count,
+            "ns_unopt": du.stats.ns, "ns_opt": do.stats.ns,
+            "opt": _astuple(do.opt), "cached": _astuple(dc.opt),
+            "cse_hits": do.opt.cse_hits, "cse_mat": do.opt.cse_materialized,
+            "cache_hits": dc.opt.cache_hits,
+            "counters_reconcile": (
+                m.counter("opt_cse_hits").total() == do.opt.cse_hits
+                and m.counter("opt_cache_hits").total()
+                == dc.opt.cache_hits),
+            "epochs": [len(e.tickets) for e in do.epochs]}
+
+
+def _counter(rt, name):
+    c = rt.metrics.snapshot()["counters"]
+    return int(sum(v for k, v in c.items()
+                   if k == name or k.startswith(name + "{")))
+
+
+def tmr_overhead_session(api, words=2):
+    """``faults_tmr_overhead`` (benchmarks/faults.py): the same 12 XORs
+    plain and over TMR-protected operands under an idle injector."""
+    X, Y = api.Expr.var("x"), api.Expr.var("y")
+    rng = np.random.default_rng(0)
+    raw = [rng.integers(0, 2, 512).astype(bool) for _ in range(4)]
+    mism, stats, lines = 0, {}, []
+    for tag, protect in (("plain", False), ("tmr", True)):
+        inj = api.injector(seed=0)
+        rt = api.runtime(fault_injector=inj, banks=4, subarrays=2,
+                         words=words)
+        up0 = rt.store.bytes_to_device
+        hs = [rt.put(api.bv(v), protect=protect) for v in raw]
+        upload = rt.store.bytes_to_device - up0
+        for k in range(12):
+            i, j = k % 4, (k + 1) % 4
+            r = rt.eval(X ^ Y, {"x": hs[i], "y": hs[j]})
+            mism += int(not np.array_equal(api.bits(rt.get(r)),
+                                           raw[i] ^ raw[j]))
+            rt.free(r)
+        st = rt.session_stats
+        stats[tag] = (upload, st.aap_count, st.ns)
+        lines.append(f"{tag} upload={upload} {st!r} "
+                     f"faults=[{inj.ledger()}]")
+    (up_p, aap_p, _), (up_t, aap_t, _) = stats["plain"], stats["tmr"]
+    return {"storage_x": up_t // up_p, "aap_plain": aap_p,
+            "aap_tmr": aap_t, "mismatches": mism, "ledger": "; ".join(lines)}
+
+
+def faulty_serve_session(api, rate, n_queries=1024, n_tenants=512,
+                         n_users=2048, n_items=12, max_batch=16,
+                         window_ns=5_000.0, words=2):
+    """``faults_serve_r001``/``r010`` (benchmarks/faults.py): the
+    closed-loop Zipfian bitmap mix under a fixed stuck-row rate, every
+    count against numpy."""
+    rng = np.random.default_rng(0)
+    inj = api.injector(seed=23, stuck_row_rate=rate)
+    rt = api.runtime(fault_injector=inj, banks=4, subarrays=2, words=words)
+    rt.reliability.max_retries = 8
+    raw = {f"m{i}": rng.integers(0, 2, n_users).astype(bool)
+           for i in range(n_items)}
+    hs = {k: rt.put(api.bv(v), name=k) for k, v in raw.items()}
+    expr = api.Expr.var("x") & api.Expr.var("y")
+    tenants = [f"t{i}" for i in range(n_tenants)]
+    pair_of = dict(zip(tenants, _zipf_pairs(rng, n_items, n_tenants)))
+    expected, state = {}, {"mism": 0, "max_ns": 0.0}
+
+    def next_query(tenant, k):
+        i, j = pair_of[tenant]
+        a, b = f"m{i}", f"m{j}"
+        expected[tenant] = int((raw[a] & raw[b]).sum())
+        return expr, {"x": hs[a], "y": hs[b]}
+
+    def check(q):
+        if not q.ok or rt.popcount(q.result) != expected[q.tenant]:
+            state["mism"] += 1
+        state["max_ns"] = max(state["max_ns"], q.latency_ns)
+        rt.free(q.result)
+
+    fe = api.serve.QueryFrontend(rt, window_ns=window_ns,
+                                 max_batch=max_batch)
+    done = api.serve.run_closed_loop(fe, tenants, next_query, n_queries,
+                                     on_complete=check)
+    rep = fe.report()
+    return {"queries": done, "errors": rep.errors,
+            "mismatches": state["mism"],
+            "faults": _counter(rt, "fault_injected"),
+            "retries": _counter(rt, "ticket_retries"),
+            "quarantined": _counter(rt, "quarantined_rows"),
+            "p50_ns": rep.p50_ns, "p99_ns": rep.p99_ns,
+            "max_ns": state["max_ns"], "qps": rep.qps,
+            "session": _astuple(rt.session_stats),
+            "ledger": inj.ledger()}
+
+
+def fallback_session(api):
+    """A device loss under the serving frontend (the shape of
+    tests/test_faults.py's host-fallback case): both queries are served
+    again by the frontend's fallback engine from the operands' host
+    copies, equal to numpy."""
+    X, Y = api.Expr.var("x"), api.Expr.var("y")
+    rng = np.random.default_rng(10)
+    raw = [rng.integers(0, 2, 512).astype(bool) for _ in range(4)]
+    inj = api.injector(seed=5)
+    rt = api.runtime(fault_injector=inj, banks=4, subarrays=2, words=2)
+    hs = [rt.put(api.bv(v)) for v in raw]
+    fe = api.serve.QueryFrontend(rt, window_ns=1e9, max_batch=2)
+    inj.fail_device(0)
+    fe.submit("a", X ^ Y, {"x": hs[0], "y": hs[1]})
+    fe.submit("b", X & Y, {"x": hs[2], "y": hs[3]})
+    done = fe.take_completed()
+    want = [raw[0] ^ raw[1], raw[2] & raw[3]]
+    mism = sum(int(not (q.ok and q.fallback and np.array_equal(
+        api.bits(q.result), w))) for q, w in zip(done, want))
+    eng = fe._host_engine
+    return {"fallbacks": fe.report().fallbacks, "mismatches": mism,
+            "engine": (eng.backend,
+                       str(getattr(getattr(eng, "device", None), "type",
+                                   ""))),
+            "ledger": inj.ledger()}
+
+
+def _port_api(device):
+    import repro_torch.core as core
+    import repro_torch.pim as pim
+    import repro_torch.pim.faults as faults
+    import repro_torch.serve as serve
+    return PimApi(core, pim, faults, serve, device=device)
+
+
+def _launch_counts(wrappers):
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def _zero(wrappers):
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def pim_serving_full_width(torch, card, api, seconds=20.0, min_queries=16,
+                           n_users=1 << 24, n_items=12, n_tenants=64):
+    """The bitmap mix of phase 3 on the DRAM model at the default geometry
+    (8 banks x 32 subarrays of 8 KB rows): 12 bitmaps of 2^24 users
+    resident, Zipfian tenants issuing closed-loop ``x & y`` queries, as
+    many as fit in about ``seconds`` (at least ``min_queries``), every
+    count against numpy. One query's CUDA kernels and copies are listed
+    by torch.profiler; the simulated-clock percentiles are the DRAM
+    model's."""
+    rng = np.random.default_rng(SEED + 7)
+    t0 = time.perf_counter()
+    rt = api.runtime()
+    raw = {f"m{i}": rng.integers(0, 2, n_users).astype(bool)
+           for i in range(n_items)}
+    hs = {k: rt.put(api.bv(v), name=k) for k, v in raw.items()}
+    _sync(torch, "cuda")
+    load_s = time.perf_counter() - t0
+    expr = api.Expr.var("x") & api.Expr.var("y")
+    tenants = [f"t{i}" for i in range(n_tenants)]
+    pair_of = dict(zip(tenants, _zipf_pairs(rng, n_items, n_tenants)))
+    counts = {}
+
+    def expected(pair):
+        if pair not in counts:
+            counts[pair] = int((raw[f"m{pair[0]}"]
+                                & raw[f"m{pair[1]}"]).sum())
+        return counts[pair]
+
+    env0 = {"x": hs["m0"], "y": hs["m1"]}
+
+    def one_query():
+        r = rt.eval(expr, env0)
+        n = rt.popcount(r)
+        rt.free(r)
+        return n
+
+    got, warm_ms = _wall_ms(torch, one_query, "cuda", reps=3)
+    if got != expected((0, 1)):
+        fail(f"pim full width: m0 & m1 counted {got} != "
+             f"{expected((0, 1))}")
+    events = _cuda_events(torch, one_query)
+    n_queries = max(min_queries, min(4096, int(seconds * 1e3 / warm_ms)))
+
+    state = {"mism": 0, "checked": 0}
+
+    def next_query(tenant, k):
+        i, j = pair_of[tenant]
+        return expr, {"x": hs[f"m{i}"], "y": hs[f"m{j}"]}
+
+    def check(q):
+        if not q.ok or rt.popcount(q.result) != expected(pair_of[q.tenant]):
+            state["mism"] += 1
+        state["checked"] += 1
+        rt.free(q.result)
+
+    fe = api.serve.QueryFrontend(rt, window_ns=50_000.0, max_batch=16)
+    _sync(torch, "cuda")
+    t0 = time.perf_counter()
+    done = api.serve.run_closed_loop(fe, tenants, next_query, n_queries,
+                                     on_complete=check)
+    _sync(torch, "cuda")
+    wall = time.perf_counter() - t0
+    rep = fe.report()
+    if state["mism"] or done != n_queries or state["checked"] != done:
+        fail(f"pim full width: mismatches={state['mism']} done={done}")
+    out = {"users": n_users, "bitmaps": n_items, "queries": done,
+           "wall_ms_per_query": wall * 1e3 / done,
+           "lone_query_ms": warm_ms, "load_s": load_s,
+           "model_p50_ns": rep.p50_ns, "model_p99_ns": rep.p99_ns,
+           "drains": rep.drains, "epochs": rep.epochs,
+           "cuda_events_per_query": events}
+    log(f"pim_full_width users={n_users} bitmaps={n_items} "
+        f"tenants={n_tenants} queries={done} mismatches=0 "
+        f"wall_ms_per_query={wall * 1e3 / done:.3f} (popcount read-back "
+        f"and check included; a lone query {warm_ms:.3f} ms, median of 3) "
+        f"model_p50_ns={rep.p50_ns} model_p99_ns={rep.p99_ns} (DRAM model "
+        f"clock, not the card) drains={rep.drains} epochs={rep.epochs} "
+        f"load_s={load_s:.2f} cuda events a query (torch.profiler): "
+        f"{json.dumps(events)} on {card}")
+    return out
+
+
+def pim_runtime_phase(torch, card, wrappers):
+    """The PIM runtime on the DRAM model with its row state on the card:
+    (a) the resident chain, (b) the sharded scan, (c) the optimizer mix
+    (and the same mix on backend "cuda", through the fused kernels), (d)
+    the reliability sessions and a host fallback after a device loss,
+    (e) the bitmap mix at full width. Every answer is checked against
+    numpy and every ledger against the reference's constants."""
+    api = _port_api("cuda")
+    report = {}
+
+    def timed(name, fn):
+        _sync(torch, "cuda")
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(torch, "cuda")
+        report[name + "_wall_s"] = time.perf_counter() - t0
+        return out
+
+    chain = timed("chain", lambda: resident_chain_session(api))
+    if chain["mismatches"] or chain["host_reads"] != 1 or \
+            chain["session"] != PIM_CHAIN_LEDGER:
+        fail(f"pim resident chain: {chain['mismatches']} mismatches, "
+             f"host_reads={chain['host_reads']}, session "
+             f"{chain['session']} != {PIM_CHAIN_LEDGER}")
+    log(f"pim resident_chain ops=6 rows=128 bits_per_row=65536 "
+        f"host_reads=1 session={chain['session']} (= the reference's) "
+        f"mismatches=0 wall_s={report['chain_wall_s']:.3f} on {card}")
+
+    shard = timed("sharded", lambda: sharded_scan_session(api))
+    if shard["mismatches"] or shard["aligned_bytes"] != 0 or \
+            shard["moved"] != PIM_SHARDED_LEDGER:
+        fail(f"pim sharded scan: {shard['mismatches']} mismatches, "
+             f"aligned bytes {shard['aligned_bytes']}, moved "
+             f"{shard['moved']} != {PIM_SHARDED_LEDGER}")
+    log(f"pim sharded_scan devices=4 rows=64 inter_dev_rows,bytes,"
+        f"channel_ns={shard['moved']} (measured; = the reference's) "
+        f"mismatches=0 wall_s={report['sharded_wall_s']:.3f} on {card}")
+
+    opt = timed("optimizer", lambda: optimizer_session(api))
+    got = (opt["cse_hits"], opt["cse_mat"], opt["cache_hits"],
+           opt["aap_unopt"], opt["aap_opt"], opt["aap_cached"])
+    if opt["mismatches"] or got != PIM_OPT_LEDGER or \
+            not opt["counters_reconcile"]:
+        fail(f"pim optimizer: {opt['mismatches']} mismatches, "
+             f"(cse_hits, cse_mat, cache_hits, aaps) {got} != "
+             f"{PIM_OPT_LEDGER}")
+    _zero(wrappers)
+    acc = timed("optimizer_cuda",
+                lambda: optimizer_session(api, backend="cuda"))
+    opt_launches = _launch_counts(wrappers)
+    if acc["mismatches"] or (acc["cse_hits"], acc["cse_mat"],
+                             acc["cache_hits"]) != PIM_OPT_LEDGER[:3]:
+        fail(f"pim optimizer on 'cuda': {acc['mismatches']} mismatches, "
+             f"rewrites {acc['cse_hits'], acc['cse_mat'], acc['cache_hits']}")
+    idle = [k for k in ("fused_bitwise", "fused_bitwise_stacked")
+            if opt_launches[k] <= 0]
+    if idle:
+        fail(f"optimized drains on 'cuda' never launched {idle}: "
+             f"{opt_launches}")
+    report["optimizer_cuda_launches"] = opt_launches
+    log(f"pim optimizer queries=24 cse_hits={opt['cse_hits']} "
+        f"cse_mat={opt['cse_mat']} cache_hits={opt['cache_hits']} "
+        f"aaps={opt['aap_unopt']}->{opt['aap_opt']}->{opt['aap_cached']} "
+        f"(= the reference's) mismatches=0; the same mix on 'cuda' "
+        f"mismatches=0, epoch sizes {acc['epochs']}, launches "
+        f"{opt_launches} on {card}")
+
+    tmr = timed("tmr", lambda: tmr_overhead_session(api))
+    if tmr["mismatches"] or tmr["ledger"] != FAULTS_TMR_LEDGER:
+        fail(f"faults_tmr_overhead: {tmr['mismatches']} mismatches, "
+             f"ledger {tmr['ledger']!r} != the reference's")
+    log(f"pim faults_tmr_overhead storage_x={tmr['storage_x']} "
+        f"aap_plain={tmr['aap_plain']} aap_tmr={tmr['aap_tmr']} "
+        f"mismatches=0 ledger = the reference's "
+        f"wall_s={report['tmr_wall_s']:.3f} on {card}")
+    for rate in (0.001, 0.01):
+        tag = f"r{int(round(rate * 1000)):03d}"
+        srv = timed(f"serve_{tag}", lambda: faulty_serve_session(api, rate))
+        if srv["mismatches"] or srv["errors"] or \
+                srv["ledger"] != FAULTS_SERVE_LEDGER[rate]:
+            fail(f"faults_serve_{tag}: {srv['mismatches']} mismatches, "
+                 f"{srv['errors']} errors, ledger {srv['ledger']!r} != "
+                 f"{FAULTS_SERVE_LEDGER[rate]!r}")
+        log(f"pim faults_serve_{tag} queries={srv['queries']} errors=0 "
+            f"mismatches=0 faults={srv['faults']} retries={srv['retries']} "
+            f"quarantined={srv['quarantined']} p50_ns={srv['p50_ns']} "
+            f"p99_ns={srv['p99_ns']} (DRAM model clock) ledger "
+            f"{srv['ledger']!r} (= the reference's) "
+            f"wall_s={report[f'serve_{tag}_wall_s']:.3f} on {card}")
+    _zero(wrappers)
+    fb = timed("fallback", lambda: fallback_session(api))
+    fb_launches = _launch_counts(wrappers)
+    if fb["mismatches"] or fb["fallbacks"] != 2 or \
+            fb["engine"] != ("cuda", "cuda") or \
+            fb_launches["fused_bitwise"] <= 0:
+        fail(f"host fallback: {fb} launches {fb_launches}")
+    report["fallback_launches"] = fb_launches
+    log(f"pim host_fallback after device loss: fallbacks=2 mismatches=0 "
+        f"engine={fb['engine']} launches {fb_launches}")
+
+    report["full_width"] = timed(
+        "full_width", lambda: pim_serving_full_width(torch, card, api))
+    return report
+
 
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1376,6 +1894,13 @@ def main() -> int:
     dram = dram_model_phase(torch, card, wrappers)
     log(f"dram_model phase_s={time.perf_counter() - t_phase:.1f} "
         f"wall_ms={json.dumps(dram)} card: {card}")
+    torch.cuda.empty_cache()
+
+    log("== phase 7: the PIM runtime on the card (backend 'ambit_sim')")
+    t_phase = time.perf_counter()
+    pim = pim_runtime_phase(torch, card, wrappers)
+    log(f"pim_runtime phase_s={time.perf_counter() - t_phase:.1f} "
+        f"report={json.dumps(pim)} card: {card}")
 
     kernels = []
     for name, _, source, replaces in KERNELS:

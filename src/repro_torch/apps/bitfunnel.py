@@ -73,7 +73,7 @@ class BitFunnelIndex:
         near = None
         for r in np.nonzero(self._rows.any(axis=1))[0]:
             bv = BitVector.from_bits(self._rows[r],
-                                     device=self.runtime.device)
+                                     device=self.runtime.tensor_device)
             rbv = self.runtime.put(bv, name=f"bloom{r}", near=near, pin=pin)
             self._resident[int(r)] = rbv
             near = rbv.slots if rbv.slots else near

@@ -13,7 +13,13 @@ Two execution paths:
   * resident - pass an ``AmbitRuntime``: bitmaps are packed on the
     runtime's device and uploaded once at ``add`` time, whole queries
     lower as one expression tree, and only the final popcount crosses
-    back. Weekly queries drain as fused launches.
+    back. The runtime's backend is transparent to this class: the DRAM
+    model (``ambit_sim``) measures paper-units ns/nJ, while
+    ``"torch"``/``"cuda"`` keep the bitmaps resident on the accelerator
+    and drain weekly queries as fused launches. On the DRAM model each
+    bitmap is put ``near=`` an already-loaded one, so corresponding
+    chunks of co-queried bitmaps share a subarray (or, sharded, a
+    device) and queries pay no migrations.
 """
 
 from __future__ import annotations
@@ -38,18 +44,22 @@ class BitmapIndex:
         self.runtime = runtime
         self.pin_bitmaps = pin_bitmaps
         self.bitmaps: Dict[str, BitVector] = {}
-        self.resident: Dict[str, object] = {}  # name -> DeviceBitVector
+        self.resident: Dict[str, object] = {}  # name -> resident handle
 
     def add(self, name: str, members: np.ndarray) -> None:
         bits = np.zeros(self.n_users, bool)
         bits[members] = True
         if self.runtime is not None:
-            if name in self.resident:
+            if name in self.resident:   # drop BEFORE picking a neighbor:
                 self.runtime.free(self.resident.pop(name))
+            # co-locate with already-loaded bitmaps: queries AND across
+            # them (spilled neighbors and accelerator handles hold no rows)
+            near = next((r.slots for r in self.resident.values()
+                         if r.slots), None)
             # pack where the runtime keeps its data: put() then shares it
-            bv = BitVector.from_bits(bits, device=self.runtime.device)
+            bv = BitVector.from_bits(bits, device=self.runtime.tensor_device)
             self.resident[name] = self.runtime.put(
-                bv, name=name, pin=self.pin_bitmaps)
+                bv, name=name, near=near, pin=self.pin_bitmaps)
         else:
             self.bitmaps[name] = BitVector.from_bits(
                 bits, device=self.engine.device)

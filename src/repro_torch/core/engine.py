@@ -50,18 +50,15 @@ from .simulator import AmbitSubarray
 from .timing import DEFAULT_TIMING, CommandStats, TimingParams
 from ..obs import NULL_TRACER, MetricsRegistry, Tracer
 
-# The resident-path backends (DeviceStore, AmbitRuntime); the engine also
-# takes "ambit_sim".
+# The accelerator backends of the resident path (DeviceStore); the engine
+# and AmbitRuntime also take "ambit_sim", the DRAM model.
 BACKENDS = ("torch", "cuda")
 
 
 def check_backend(backend: str) -> None:
-    """Backends of the resident path (``AmbitRuntime``, ``DeviceStore``)."""
-    if backend == "ambit_sim":
-        raise NotImplementedError(
-            "the PIM runtime on backend 'ambit_sim' (PimStore on the DRAM "
-            "model) is not ported yet: ROADMAP queue 1 item 9")
-    if backend not in BACKENDS:
+    """Backends of ``AmbitRuntime``: the accelerator ones and the DRAM
+    model (``DeviceStore`` rejects ``"ambit_sim"`` itself)."""
+    if backend not in BACKENDS + ("ambit_sim",):
         raise ValueError(backend)
 
 

@@ -1,27 +1,43 @@
-"""PIM runtime on the accelerator: resident bitvectors and batched
-query execution.
+"""PIM runtime: resident bitvectors, row allocation and placement-aware
+query planning over the Ambit device model, and its accelerator twin.
 
-  AsyncScheduler / Ticket      - submit/drain queue packing queries into
-                                 epochs, one kernel launch each
-  DeviceStore / DeviceBitVector- tensors resident on the card across calls
-                                 (LRU spill under a capacity budget)
-  DevicePlanner                - one fused launch per expression / epoch
-  AmbitRuntime                 - the session API applications use
   RowAllocator                 - free-list (bank, subarray, row) allocation
-                                 on the DRAM model (``AmbitDevice``)
+  PimStore / ResidentBitVector - bitvectors living in simulated DRAM
+                                 (LRU spill/eviction when the device fills)
+  QueryPlanner                 - whole-Expr batched AAP scheduling
+  PimCluster / ClusterBitVector- N devices behind one store API: sharded
+                                 placement, channel cost model, cross-device
+                                 colocation, per-device sub-plans
+  AsyncScheduler / Ticket      - submit/drain queue packing bank/device-
+                                 disjoint queries into concurrent epochs
+  DeviceStore / DeviceBitVector- the accelerator twin of PimStore: tensors
+                                 resident on the card across calls, one
+                                 fused (stacked) launch per epoch
+  AmbitRuntime                 - the session API applications use
+                                 (devices=N shards across a cluster;
+                                 backend="torch"/"cuda" runs resident on
+                                 the accelerator)
 
-The reference's DRAM-model runtime (PimStore, QueryPlanner, PimCluster,
-the optimizer and fault injection) is not ported yet (ROADMAP queue 1
-item 9).
+The DRAM model's row state lives on the session's torch device - the card
+unless the caller names another.
 """
 
 from .allocator import COLOCATED, POLICIES, RowAllocator, STRIPED, Slot
+from .cluster import (AFFINITY, ChannelLedger, ChannelModel, CLUSTER_POLICIES,
+                      ClusterBitVector, ClusterPlanner, ClusterReport,
+                      PACKED, PimCluster, ROUND_ROBIN)
 from .device_store import DeviceBitVector, DevicePlanner, DeviceStore
+from .planner import PlanReport, QueryPlanner
 from .runtime import AmbitRuntime
-from .scheduler import AsyncScheduler, DrainReport, EpochReport, Ticket
+from .scheduler import (AsyncScheduler, DrainReport, EpochReport, Ticket)
+from .store import PimStore, ResidentBitVector
 
 __all__ = [
-    "AmbitRuntime", "AsyncScheduler", "COLOCATED", "DeviceBitVector",
-    "DevicePlanner", "DeviceStore", "DrainReport", "EpochReport", "POLICIES",
-    "RowAllocator", "STRIPED", "Slot", "Ticket",
+    "AFFINITY", "AmbitRuntime", "AsyncScheduler", "COLOCATED",
+    "ChannelLedger", "ChannelModel", "CLUSTER_POLICIES", "ClusterBitVector",
+    "ClusterPlanner", "ClusterReport", "DeviceBitVector", "DevicePlanner",
+    "DeviceStore", "DrainReport", "EpochReport",
+    "PACKED", "PimCluster", "PimStore", "PlanReport", "POLICIES",
+    "QueryPlanner", "ResidentBitVector", "ROUND_ROBIN", "RowAllocator",
+    "STRIPED", "Slot", "Ticket",
 ]

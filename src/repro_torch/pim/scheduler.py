@@ -217,11 +217,12 @@ class AsyncScheduler:
 
     @property
     def optimizer(self):
-        """The drain-time query optimizer of the reference
-        (``pim/optimizer.py``) is not ported yet."""
-        raise NotImplementedError(
-            "drain(optimize=True) needs the query optimizer, which is not "
-            "ported yet (ROADMAP queue 1 item 9)")
+        """The drain-time query optimizer (created lazily on first use;
+        its result cache persists across drains)."""
+        if self._optimizer is None:
+            from .optimizer import QueryOptimizer
+            self._optimizer = QueryOptimizer(self)
+        return self._optimizer
 
     # -- submission ----------------------------------------------------------
 
@@ -460,8 +461,6 @@ class AsyncScheduler:
         are internal and their results are freed before drain returns.
         (Distinct from ``AmbitRuntime(optimize=True)``, which toggles
         the single-program AAP peephole inside the planner.)"""
-        if optimize:
-            self.optimizer     # raises: the optimizer is not ported yet
         submitted, self.pending = self.pending, []
         if not submitted:
             return []

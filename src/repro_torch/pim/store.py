@@ -1,34 +1,158 @@
-"""LRU bookkeeping and the spill lifecycle of resident bitvectors.
+"""Resident bitvectors: data that lives in the simulated DRAM across calls.
 
-Only ``LruSpillBase`` is ported so far (shared by the reference's
-PimStore and PimCluster; here by ``DeviceStore``). ``PimStore`` and its
-row layout come with the ``ambit_sim`` PIM runtime (ROADMAP queue 1
-item 9).
+The seed engine re-shipped every operand host -> subarray -> host on each
+eval - exactly the memory-channel round-trip Ambit exists to avoid. The
+store keeps bitvectors *in* the device model between operations:
+
+  * ``put``  - pack a host BitVector into device rows (one allocator slot
+    per row-sized chunk) and return a ResidentBitVector handle;
+  * ``get``  - read it back (counted as host traffic; skipped entirely when
+    the handle is clean, i.e. the host copy is already current);
+  * ``free`` - release the rows for reuse.
+
+The device model's rows are ``torch.int64`` tensors on the model's device
+(the card unless the caller names another), so the row layout helpers
+below pack and unpack on that device: a read-back is a BitVector on the
+device the rows live on, and nothing passes through numpy.
 
 Dirty tracking: a handle is *dirty* when the device content has never been
 read back (planner results are born dirty); ``get`` on a clean handle
 returns the cached host copy without touching the device, so the
-bytes-touched ledger only grows for real host<->device transfers.
+bytes-touched ledger only grows for real host<->DRAM transfers.
 
-LRU spill: when the device fills, ``put`` (and the planner's result
-allocation) evicts the least-recently-used unpinned resident bitvectors
-instead of failing. A *clean* victim's host copy is already current, so
-spilling it is free - zero ledger bytes; a *dirty* victim is read back
-through the ledger first. Spilled handles stay valid: ``get`` serves the
-host copy for free and ``ensure_resident`` faults them back in (charged
-as a fresh upload). ``pin=True`` at put time (or ``rbv.pinned = True``)
-exempts a handle from eviction, and operands of an in-flight call are
-protected for the duration of the call.
+LRU spill: when the device fills, ``put`` (and the planner's
+destination-row allocation) evicts the least-recently-used unpinned
+resident bitvectors instead of failing. A *clean* victim's host copy is
+already current, so spilling it is free - zero ledger bytes; a *dirty*
+victim is read back through the ledger first. Spilled handles stay valid:
+``get`` serves the host copy for free and ``ensure_resident`` faults the
+rows back in (charged as a fresh upload). ``pin=True`` at put time (or
+``rbv.pinned = True``) exempts a handle from eviction, and operands of an
+in-flight planner call are protected for the duration of the call.
+
+``LruSpillBase`` is shared by ``PimStore``, ``PimCluster`` and the
+accelerator's ``DeviceStore``.
+
+``colocate`` is the PSM/RowClone migration planner: operands of one op
+whose corresponding chunks landed in different subarrays are migrated
+(RowClone-PSM within a bank, channel copy across banks - both charged to
+the device ledger) so the op can run fully in-subarray.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from collections import OrderedDict
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-from ..core.bitvector import BitVector
-from ..core.simulator import AmbitError
+import torch
+
+from ..core.bitvector import BitVector, _mask_tail
+from ..core.engine import _to_u32, _to_u64
+from ..core.simulator import AmbitDevice, AmbitError
 from ..obs import NULL_TRACER, MetricsRegistry
+from .allocator import RowAllocator, Slot, STRIPED
+
+
+# -- host <-> device-row layout (shared with pim.cluster) ---------------------
+
+
+def _used32(n_bits: int, words32: int) -> int:
+    """Meaningful packed 32-bit words: BitVector pads the trailing dim
+    to a lane multiple (bitvector.py), but only ceil(n_bits/32) words
+    carry data - the lane padding is zero by construction and is not
+    worth device rows."""
+    return min(words32, -(-n_bits // 32))
+
+
+def chunk_rows(bv: BitVector, words: int,
+               device: torch.device) -> torch.Tensor:
+    """BitVector -> (n_chunks, words) int64 device-row chunks on
+    ``device``."""
+    data32 = bv.data.to(device)
+    flat = data32.reshape(-1, data32.shape[-1])
+    used = _used32(bv.n_bits, data32.shape[-1])
+    u64 = _to_u64(flat[:, :used])
+    pad = (-u64.shape[1]) % words
+    if pad:
+        u64 = torch.cat([u64, u64.new_zeros((u64.shape[0], pad))], dim=1)
+    return u64.reshape(-1, words)
+
+
+def unchunk_rows(rows: torch.Tensor, n_bits: int, shape: Tuple[int, ...],
+                 words32: int, words: int) -> BitVector:
+    """(n_chunks, words) int64 device rows -> the host BitVector layout,
+    on the rows' device."""
+    n_rows = math.prod(shape)
+    u64 = rows.reshape(n_rows, -1)
+    used = _used32(n_bits, words32)
+    u32 = _to_u32(u64)[:, :used]
+    if used < words32:              # restore the host lane padding
+        u32 = torch.cat([u32, u32.new_zeros((n_rows, words32 - used))],
+                        dim=1)
+    out = u32.reshape(tuple(shape) + (words32,))
+    return BitVector(_mask_tail(out, n_bits), n_bits)
+
+
+@dataclasses.dataclass(eq=False)
+class ResidentBitVector:
+    """Handle to a bitvector resident in device rows. Handles compare
+    (and hash) by identity.
+
+    ``slots`` is logical-row-major, chunk-minor: logical row r of the host
+    (rows, n_bits) layout occupies slots[r*chunks : (r+1)*chunks], each
+    holding one device-row-sized chunk of the packed words.
+
+    ``spilled`` handles hold no device rows (they were LRU-evicted) but
+    remain fully usable: the host copy is current, ``get`` is free, and
+    ``PimStore.ensure_resident`` re-uploads on demand. ``pinned`` handles
+    are never chosen as eviction victims."""
+
+    store: "PimStore"
+    n_bits: int
+    shape: Tuple[int, ...]       # leading (batch) dims of the host layout
+    words32: int                 # packed uint32 words per logical row
+    chunks: int                  # device rows per logical row
+    slots: List[Slot]
+    dirty: bool = False
+    pinned: bool = False
+    spilled: bool = False
+    name: Optional[str] = None
+    _host: Optional[BitVector] = None
+    # TMR protection (pim.faults): a protected primary carries two
+    # independently-placed replica handles; the reliability layer
+    # executes queries replica-wise and majority-votes divergences.
+    protected: bool = False
+    replicas: List = dataclasses.field(default_factory=list)
+    # Set when a device failure destroyed dirty, unspilled chunks: the
+    # data is gone and any use raises FaultError(kind="data_loss").
+    lost: bool = False
+
+    @property
+    def n_slots(self) -> int:
+        return len(self.slots)
+
+    @property
+    def device_bytes(self) -> int:
+        return self.n_slots * self.store.device.row_bytes
+
+    @property
+    def freed(self) -> bool:
+        return not self.slots and not self.spilled
+
+    def get(self) -> BitVector:
+        return self.store.get(self)
+
+    def free(self) -> None:
+        self.store.free(self)
+
+    def __repr__(self):
+        nm = f" {self.name!r}" if self.name else ""
+        flags = (" pinned" if self.pinned else "") + \
+            (" spilled" if self.spilled else "")
+        return (f"<ResidentBitVector{nm} n_bits={self.n_bits} "
+                f"slots={self.n_slots} dirty={self.dirty}{flags}>")
 
 
 class LruSpillBase:
@@ -47,7 +171,7 @@ class LruSpillBase:
     def _lru_init(self) -> None:
         self.evicted_clean = 0
         self.evicted_dirty = 0
-        # Observability (src/repro/obs): metrics are always on - every
+        # Observability (obs): metrics are always on - every
         # channel transfer is charged through ``_charge_io`` so the
         # registry reconciles bit-exactly with the legacy byte counters;
         # the tracer defaults to the disabled NULL_TRACER (the runtime
@@ -303,3 +427,262 @@ class LruSpillBase:
     def _check_live(self, rbv) -> None:
         """Valid for device-side ops: must actually hold rows."""
         self._check_handle(rbv)
+        if rbv.spilled:
+            raise AmbitError(
+                f"device-side use of spilled {rbv!r} "
+                "(ensure_resident re-uploads it)")
+
+    # subclass hooks ---------------------------------------------------------
+
+    def _read_back(self, rbv) -> BitVector:
+        raise NotImplementedError
+
+    def _release_rows(self, rbv) -> None:
+        raise NotImplementedError
+
+    def _owner_of(self, rbv):
+        raise NotImplementedError
+
+
+class PimStore(LruSpillBase):
+    """put/get/free lifecycle for resident bitvectors on one device."""
+
+    def __init__(self, device: AmbitDevice,
+                 allocator: Optional[RowAllocator] = None,
+                 policy: str = STRIPED, scratch_rows: int = 4):
+        self.device = device
+        if allocator is None:
+            # Share the device's allocator: resident rows and raw
+            # device.alloc_rows() calls must draw from ONE free list, or
+            # the two would hand out the same physical rows.
+            if device._allocator is None:
+                device._allocator = RowAllocator.for_device(
+                    device, scratch_rows=scratch_rows, policy=policy)
+            allocator = device._allocator
+        else:
+            if device._allocator is not None and \
+                    device._allocator is not allocator:
+                raise AmbitError(
+                    "device already has a different RowAllocator "
+                    "(two allocators over one device hand out the same "
+                    "physical rows)")
+            device._allocator = allocator
+        self.allocator = allocator
+        self.policy = policy
+        # Host-traffic ledger: only put/get move data over the channel.
+        self.host_writes = 0
+        self.host_reads = 0
+        self.bytes_to_device = 0
+        self.bytes_from_device = 0
+        self.migrated_rows = 0
+        # Eviction ledger + recency order (LruSpillBase): clean spills cost
+        # nothing; dirty spills show up in host_reads/bytes_from_device.
+        self._lru_init()
+        # When this store is one device of a PimCluster, handles live in
+        # the CLUSTER's LRU; the cluster installs a fallback here so a
+        # full device can still evict during per-device sub-plans.
+        self.spill_fallback = None
+
+    # -- layout --------------------------------------------------------------
+
+    def _chunk(self, bv: BitVector) -> torch.Tensor:
+        return chunk_rows(bv, self.device.words, self.device.device)
+
+    def _unchunk(self, rows: torch.Tensor,
+                 rbv: ResidentBitVector) -> BitVector:
+        return unchunk_rows(rows, rbv.n_bits, rbv.shape, rbv.words32,
+                            self.device.words)
+
+    # -- LRU / eviction (machinery in LruSpillBase) --------------------------
+
+    def _owner_of(self, rbv: ResidentBitVector):
+        return rbv.store
+
+    def _release_rows(self, rbv: ResidentBitVector) -> None:
+        if rbv.slots:
+            self.allocator.free(rbv.slots)
+        rbv.slots = []
+
+    def adopt(self, rbv: ResidentBitVector) -> ResidentBitVector:
+        """Track an externally-built handle (planner results) in the LRU so
+        it participates in spill like any put() handle."""
+        self._register(rbv)
+        return rbv
+
+    def disown(self, rbv: ResidentBitVector) -> ResidentBitVector:
+        """Stop tracking a handle without freeing its rows (the cluster
+        harvests per-device sub-results into cluster-level handles)."""
+        self._unregister(rbv)
+        return rbv
+
+    def _evict_one(self, protect: Iterable[ResidentBitVector]) -> bool:
+        """Spill the LRU evictable handle (loop in LruSpillBase); when
+        every registered handle is pinned or protected, give a
+        cluster-installed fallback the chance to evict at its scope."""
+        if self._evict_lru(protect):
+            return True
+        if self.spill_fallback is not None:
+            return self.spill_fallback()
+        return False
+
+    def alloc_slots(self, n_rows: int, policy: Optional[str] = None,
+                    near: Optional[Sequence[Slot]] = None,
+                    protect: Iterable[ResidentBitVector] = ()
+                    ) -> List[Slot]:
+        """Allocate rows, LRU-spilling unpinned resident bitvectors (not in
+        ``protect``) when the device is full. Raises AmbitError when the
+        request cannot fit even after evicting everything evictable."""
+        while self.allocator.shortfall(n_rows):
+            if not self._evict_one(protect):
+                raise AmbitError(
+                    f"device full ({self.allocator.live}/"
+                    f"{self.allocator.capacity} rows live) and every "
+                    f"resident bitvector is pinned or in use")
+        return self.allocator.alloc(n_rows, policy=policy, near=near)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def put(self, bv: BitVector, policy: Optional[str] = None,
+            near: Optional[Sequence[Slot]] = None,
+            name: Optional[str] = None,
+            pin: bool = False, protect: bool = False) -> ResidentBitVector:
+        chunks = self._chunk(bv)
+        if len(chunks) == 0:
+            raise AmbitError("cannot make a zero-row bitvector resident")
+        if near is not None and len(near) == len(chunks):
+            # chunk-aligned affinity: chunk k lands in the subarray that
+            # holds chunk k of the neighbor, so corresponding rows of
+            # co-operating bitvectors share a subarray (the Section 5.2
+            # co-location contract) without any later migration.
+            slots = []
+            try:
+                for k in range(len(chunks)):
+                    slots.extend(self.alloc_slots(
+                        1, policy=policy, near=[near[k]]))
+            except AmbitError:
+                self.allocator.free(slots)
+                raise
+        else:
+            slots = self.alloc_slots(len(chunks), policy=policy, near=near)
+        self.device.write(slots, chunks)
+        shape = tuple(bv.data.shape[:-1])
+        rbv = ResidentBitVector(
+            store=self, n_bits=bv.n_bits, shape=shape,
+            words32=int(bv.data.shape[-1]),
+            chunks=len(chunks) // max(1, math.prod(shape)),
+            slots=slots, dirty=False, name=name, _host=bv)
+        self._charge_io("to_device", "upload", rbv.device_bytes)
+        self._register(rbv)
+        if pin:
+            try:
+                self.pin(rbv)
+            except AmbitError:          # over budget: undo the upload
+                self.free(rbv)
+                raise
+        if protect:
+            # TMR encode-on-put: two more independently-placed planes,
+            # each a full honest upload (3x storage, 3x channel bytes -
+            # the paper's stated price for the only homomorphic code).
+            try:
+                for k in (1, 2):
+                    rbv.replicas.append(self.put(
+                        bv, policy=policy, pin=pin,
+                        name=f"{name}/plane{k}" if name else None))
+            except AmbitError:
+                self.free(rbv)
+                raise
+            rbv.protected = True
+        return rbv
+
+    def _read_back(self, rbv: ResidentBitVector) -> BitVector:
+        rows = self.device.read(rbv.slots)
+        out = self._unchunk(rows.reshape(len(rbv.slots), self.device.words),
+                            rbv)
+        rbv._host = out
+        rbv.dirty = False
+        self._charge_io("from_device", self._io_cause or "read_back",
+                        rbv.device_bytes)
+        return out
+
+    def ensure_resident(self, rbv: ResidentBitVector,
+                        protect: Iterable[ResidentBitVector] = ()
+                        ) -> ResidentBitVector:
+        """Fault a spilled handle back into device rows (charged as a fresh
+        host->device upload). Live handles just refresh recency."""
+        self._check_handle(rbv)
+        if not rbv.spilled:
+            self._touch(rbv)
+            return rbv
+        chunks = self._chunk(rbv._host)
+        slots = self.alloc_slots(len(chunks), protect=(rbv, *protect))
+        self.device.write(slots, chunks)
+        rbv.slots = slots
+        rbv.spilled = False
+        rbv.dirty = False
+        self._charge_io("to_device", "fault_in", rbv.device_bytes)
+        self._register(rbv)
+        self._invalidate(rbv)   # placement changed: generation bumps
+        return rbv
+
+    # -- migration planner ---------------------------------------------------
+
+    def plan_migrations(self, operands: Sequence[ResidentBitVector]
+                        ) -> List[Tuple[ResidentBitVector, int, Slot]]:
+        """For each chunk index where the operands span subarrays, pick the
+        plurality subarray as the target and list (rbv, slot_index,
+        target_subarray_slot=(bank, sub, -1)) moves. Pure planning - no
+        device mutation (``colocate`` executes the plan)."""
+        moves: List[Tuple[ResidentBitVector, int, Slot]] = []
+        if not operands:
+            return moves
+        n = operands[0].n_slots
+        for rbv in operands:
+            self._check_live(rbv)
+            if rbv.n_slots != n:
+                raise AmbitError("operands must be chunk-aligned "
+                                 "(same n_bits and shape)")
+        for i in range(n):
+            homes = [(r.slots[i][0], r.slots[i][1]) for r in operands]
+            if len(set(homes)) == 1:
+                continue
+            counts: Dict[Tuple[int, int], int] = {}
+            for h in homes:
+                counts[h] = counts.get(h, 0) + 1
+            best = max(counts.values())
+            # plurality target; ties break to the first operand's home
+            target = next(h for h in homes if counts[h] == best)
+            seen = set()    # an operand listed twice moves once
+            for rbv, h in zip(operands, homes):
+                if h != target and id(rbv) not in seen:
+                    seen.add(id(rbv))
+                    moves.append((rbv, i, (target[0], target[1], -1)))
+        return moves
+
+    def colocate(self, operands: Sequence[ResidentBitVector]) -> int:
+        """Execute the migration plan: move spanning chunks into the target
+        subarray via RowClone-PSM / channel copy (device-ledger cost).
+        Best-effort: a full target subarray leaves that chunk in place (the
+        planner will stage it through scratch at execution time). Returns
+        the number of rows migrated."""
+        moved = 0
+        try:
+            for rbv, i, (tb, ts, _) in self.plan_migrations(operands):
+                try:
+                    (new_slot,) = self.allocator.alloc_in(tb, ts, 1)
+                except AmbitError:
+                    continue
+                try:
+                    self.device.migrate_row(rbv.slots[i], new_slot)
+                except AmbitError:  # injected fault: don't leak the row
+                    self.allocator.free([new_slot])
+                    raise
+                self.allocator.free([rbv.slots[i]])
+                rbv.slots[i] = new_slot
+                moved += 1
+        finally:
+            # bill even when a migration faults mid-plan: the moved rows
+            # really moved
+            self.migrated_rows += moved
+            if moved:
+                self.metrics.counter("migrated_rows").inc(moved)
+        return moved

@@ -12,9 +12,10 @@ idiom from LLM serving, applied to in-DRAM analytics.
 Everything is measured, nothing is wall clock:
 
   * the simulated clock advances by the scheduler's **drain timeline** -
-    epochs laid end to end, each costing the reference's deterministic
-    epoch-cost model over measured bytes (``roofline_epoch_cost``: the
-    accelerator store's DRAM ledger is zero by design);
+    epochs laid end to end, each costing its measured DRAM-model ns
+    (``ambit_sim``) or the reference's deterministic epoch-cost model
+    over measured bytes (``roofline_epoch_cost``: the accelerator
+    store's DRAM ledger is zero by design);
   * per-query latency = completion time minus *arrival* time on that
     clock, so it includes backlog wait (quota), window wait (batching)
     and execution (epoch packing);
@@ -198,6 +199,7 @@ class QueryFrontend:
                 getattr(runtime, "backend", "ambit_sim") != "ambit_sim":
             epoch_cost = roofline_epoch_cost()
         self._epoch_cost = epoch_cost
+        self._host_engine = None    # lazy fallback engine
         self.clock_ns = 0.0
         self._first_arrival_ns: Optional[float] = None
         self._seq = 0
@@ -435,14 +437,39 @@ class QueryFrontend:
                                    "epochs": len(rep.epochs)})
 
     def _try_host_fallback(self, q: QueryRecord) -> bool:
-        """Degraded-mode execution after the PIM path failed belongs to
-        the reference's reliability layer (``ambit_sim`` fault injection),
-        which is not ported: accelerator tickets never fail that way, and
-        a failed one is never re-run on the CPU in its place."""
-        raise NotImplementedError(
-            f"ticket #{q.ticket.index} ended {q.ticket.state}: the host "
-            "fallback of the reliability layer is not ported yet (ROADMAP "
-            "queue 1 item 9)")
+        """Degraded-mode execution: when the PIM path failed, re-run the
+        query on the host engine from the operands' host copies. Only
+        possible for unprotected handles whose data still exists - a lost
+        handle (the failed device held the only copy) or a broken ticket
+        dependency cannot be served. Billed honestly: reading a
+        device-resident dirty operand back is a normal charged ``get``.
+        The engine is ``BulkBitwiseEngine("cuda")`` on the device the
+        session's rows live on: the ``fused_bitwise`` kernel on the card,
+        its plain version on the CPU."""
+        env: Dict[str, object] = {}
+        try:
+            for nm in sorted(q.env):
+                v = q.env[nm]
+                if isinstance(v, Ticket):
+                    return False    # upstream ticket failed with it
+                if getattr(v, "lost", False):
+                    return False    # the data died with its device
+                env[nm] = self.runtime.get(v)
+            if self._host_engine is None:
+                from ..core.engine import BulkBitwiseEngine
+                self._host_engine = BulkBitwiseEngine(
+                    "cuda", device=self.runtime.tensor_device)
+            q.result = self._host_engine.eval(q.expression, env)
+        except AmbitError:
+            return False
+        q.fallback = True
+        self.report_counters.fallbacks += 1
+        self.metrics.counter("serve_host_fallbacks").inc(1, tenant=q.tenant)
+        if self.tracer.enabled:
+            self.tracer.instant(("frontend",), "host_fallback", "serve",
+                                ts_ns=self.clock_ns,
+                                args={"tenant": q.tenant, "seq": q.seq})
+        return True
 
     # -- metrics ---------------------------------------------------------------
 

@@ -1,6 +1,8 @@
 """The port on the card: every kernel against its plain version, the
 serving slice on backend "cuda" against the committed reference tokens,
-and the binary-LM example through the XNOR-popcount kernel.
+the binary-LM example through the XNOR-popcount kernel, and the DRAM
+model and the PIM runtime on it with their rows on the card against the
+CPU.
 
 Imports nothing of JAX or of the JAX package, so it runs on a GPU machine
 that has only PyTorch:
@@ -477,3 +479,110 @@ def test_ambit_scan_stats_on_card_counts_through_the_kernels(cuda):
             [1, 1] if dev == cuda else [0, 0])
     assert out[0] == out[1]
     assert out[1][0] == int(((values >= 37) & (values <= 200)).sum())
+
+
+# -- the PIM runtime on the DRAM model, row state on the card -----------------
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pim_session(device, devices):
+    """put / eval / drain / get / popcount / spill / fault-in on the DRAM
+    model, one device or a cluster; returns what it observed."""
+    import dataclasses
+    rng = np.random.default_rng(12)
+    bits = rng.integers(0, 2, (3, 6000)).astype(bool)
+    rt = AmbitRuntime(banks=2, subarrays=2, words=8, devices=devices,
+                      seed=4, device=device)
+    hs = [rt.put(BitVector.from_bits(b, device=device), name=f"v{i}")
+          for i, b in enumerate(bits)]
+    out = rt.eval(E.maj(X, ~Y, Z) ^ (X | Y), dict(zip("xyz", hs)))
+    seen = [rt.get(out).data.cpu().tolist(), rt.popcount(out)]
+    ts = [rt.submit(e, dict(zip("xyz", hs)))
+          for e in (X & Y, (X & Y) | Z, ~(X & Y) ^ Z)]
+    rt.drain(optimize=True)
+    seen += [rt.get(t.result).data.cpu().tolist() for t in ts]
+    rt.store.spill(hs[0])
+    again = rt.xor(hs[0], hs[1])
+    seen += [rt.get(again).data.cpu().tolist(),
+             dataclasses.astuple(rt.session_stats),
+             dataclasses.astuple(rt.last_drain),
+             rt.metrics_snapshot()]
+    assert rt.device.device.type == torch.device(device).type
+    return seen
+
+
+@pytest.mark.parametrize("devices", [1, 3])
+def test_pim_runtime_on_card_equals_cpu(cuda, devices):
+    """The PIM runtime with its rows on the card leaves the CPU run's
+    bits, ledgers and metrics, bit for bit."""
+    assert _pim_session(cuda, devices) == _pim_session("cpu", devices)
+
+
+def test_tmr_scrub_on_card_equals_cpu(cuda):
+    """Protected queries under transient flips and weak cells: the
+    parity checks and scrubs vote on the card and give the CPU's bits,
+    ledger string and scrub counters."""
+    from repro_torch.pim.faults import FaultConfig, FaultInjector
+    out = []
+    for dev in ("cpu", cuda):
+        rng = np.random.default_rng(4)
+        raw = [rng.integers(0, 2, 2048).astype(bool) for _ in range(4)]
+        inj = FaultInjector(FaultConfig(seed=7, transient_rate=0.05,
+                                        weak_bit_rate=1e-3), device=dev)
+        rt = AmbitRuntime(banks=4, subarrays=2, words=2, devices=2,
+                          fault_injector=inj, device=dev)
+        hp = [rt.put(BitVector.from_bits(v, device=dev), protect=True)
+              for v in raw]
+        got = []
+        for k in range(6):
+            i, j = k % 4, (k + 1) % 4
+            r = rt.eval(X ^ Y, {"x": hp[i], "y": hp[j]})
+            b = rt.get(r).bits().cpu().numpy()
+            assert np.array_equal(b, raw[i] ^ raw[j])
+            got.append(b.tolist())
+            rt.free(r)
+        counters = rt.metrics_snapshot()["counters"]
+        assert counters.get("scrub_corrections", 0) > 0
+        out.append((got, inj.ledger(), counters))
+    assert out[0] == out[1]
+
+
+def _port_api(device):
+    import repro_torch.core as core
+    import repro_torch.pim as pim
+    import repro_torch.pim.faults as faults
+    import repro_torch.serve as serve
+    return _chip_smoke().PimApi(core, pim, faults, serve, device=device)
+
+
+def test_optimized_drain_on_cuda_launches_the_stacked_kernel(cuda):
+    """``drain(optimize=True)`` on backend "cuda": the TPC-H optimizer mix
+    equals its CPU run, and its scratch tickets and rewritten programs
+    launch ``fused_bitwise`` and ``fused_bitwise_stacked``."""
+    cs = _chip_smoke()
+    want = cs.optimizer_session(_port_api("cpu"), backend="cuda")
+    before = (kbw.fused_bitwise.launches, kbw.fused_bitwise_stacked.launches)
+    got = cs.optimizer_session(_port_api("cuda"), backend="cuda")
+    after = (kbw.fused_bitwise.launches, kbw.fused_bitwise_stacked.launches)
+    assert got == want and got["mismatches"] == 0
+    assert after[0] > before[0] and after[1] > before[1]
+
+
+def test_host_fallback_launches_fused_bitwise(cuda):
+    """After a device loss the frontend serves both queries from host
+    copies through ``BulkBitwiseEngine("cuda")`` on the card."""
+    cs = _chip_smoke()
+    before = kbw.fused_bitwise.launches
+    out = cs.fallback_session(_port_api("cuda"))
+    assert (out["fallbacks"], out["mismatches"]) == (2, 0)
+    assert out["engine"] == ("cuda", "cuda")
+    assert kbw.fused_bitwise.launches - before == 2

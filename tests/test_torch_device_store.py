@@ -10,6 +10,8 @@ bits. Results, handle states, byte counters and the whole
 ``metrics_snapshot()`` must be equal.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -199,22 +201,58 @@ def test_spill_leaves_host_copies_that_share_nothing():
 
 
 def test_store_rejects_sim_backend_and_foreign_handles():
+    """``DeviceStore`` keeps the reference's refusal of the DRAM model
+    (that path is ``PimStore``), which ``AmbitRuntime(backend=
+    "ambit_sim")`` now builds."""
     with pytest.raises(ValueError, match="PimStore"):
         DeviceStore(backend="ambit_sim", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AmbitRuntime(backend="ambit_sim", device="cpu")
+    from repro_torch.pim import PimStore
+    sim = AmbitRuntime(backend="ambit_sim", device="cpu", banks=2,
+                       subarrays=2, words=2)
+    assert isinstance(sim.store, PimStore)
     rt1 = AmbitRuntime(backend="torch", device="cpu")
     rt2 = AmbitRuntime(backend="torch", device="cpu")
     a = rt1.put(BitVector.from_bits(np.ones(64, bool), device="cpu"))
     with pytest.raises(AmbitError, match="another store"):
         rt2.get(a)
+    with pytest.raises(AmbitError, match="another store"):
+        sim.get(a)
 
 
-def test_optimizer_drain_is_not_ported():
-    rt = AmbitRuntime(backend="cuda", device="cpu")
-    a = rt.put(BitVector.from_bits(np.ones(64, bool), device="cpu"))
-    t = rt.submit(~E.Expr.var("x"), {"x": a})
-    with pytest.raises(NotImplementedError, match="optimizer"):
-        rt.drain(optimize=True)
-    rt.drain()                                       # the queue survived
-    assert t.state == "done"
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_optimizer_drain_is_not_ported(backend):
+    """The drain-time optimizer runs on the accelerator backends: an
+    optimized drain's results equal the unoptimized drain's, and its
+    OptReport equals the reference's on the twin backend (the name is
+    kept from when ``drain(optimize=True)`` raised here)."""
+    ref_backend = {"torch": "jnp", "cuda": "pallas"}[backend]
+    rng = np.random.default_rng(8)
+    bits = rng.integers(0, 2, (3, 300)).astype(bool)
+    X, Y, Z = E.Expr.var("x"), E.Expr.var("y"), E.Expr.var("z")
+    JX, JY, JZ = JE.Expr.var("x"), JE.Expr.var("y"), JE.Expr.var("z")
+    out = {}
+    for optimize in (False, True):
+        rt = AmbitRuntime(backend=backend, device="cpu")
+        jrt = JRuntime(backend=ref_backend)
+        vs = [rt.put(BitVector.from_bits(b, device="cpu")) for b in bits]
+        jvs = [jrt.put(JBitVector.from_bits(b)) for b in bits]
+        env = dict(zip("xyz", vs))
+        jenv = dict(zip("xyz", jvs))
+        ts = [rt.submit(e, dict(env)) for e in
+              ((X & Y) | Z, (Y & X) ^ Z, ~(X & Y))]
+        jts = [jrt.submit(e, dict(jenv)) for e in
+               ((JX & JY) | JZ, (JY & JX) ^ JZ, ~(JX & JY))]
+        assert rt.drain(optimize=optimize) == ts
+        jrt.drain(optimize=optimize)
+        out[optimize] = [bits_of(rt, t.result) for t in ts]
+        for t, jt in zip(ts, jts):
+            np.testing.assert_array_equal(bits_of(rt, t.result),
+                                          np.asarray(jrt.get(
+                                              jt.result).bits()))
+        if optimize:
+            rep = rt.last_drain.opt
+            assert rep.cse_materialized == 1 and rep.cse_hits == 2
+            assert dataclasses.astuple(rep) == \
+                dataclasses.astuple(jrt.last_drain.opt)
+    for a, b in zip(out[False], out[True]):
+        np.testing.assert_array_equal(a, b)

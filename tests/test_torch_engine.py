@@ -117,9 +117,10 @@ def test_shift_matches_reference(ref_backend, backend, n_bits):
 
 
 def test_unported_backend_raises():
-    """The engine runs "ambit_sim" (the DRAM model); the PIM runtime on it
-    is not ported yet and says where it is queued; "jnp" is no backend of
-    the port."""
+    """The engine runs "ambit_sim" (the DRAM model), and so does the PIM
+    runtime on it now (the name is kept from when it raised); "jnp" is
+    no backend of the port."""
+    from repro.pim import AmbitRuntime as JRuntime
     from repro_torch.pim import AmbitRuntime
     jv, pv = vectors(np.random.default_rng(0), 70)
     eng, jeng = BulkBitwiseEngine("ambit_sim", device="cpu"), \
@@ -128,7 +129,14 @@ def test_unported_backend_raises():
     assert eng.last_stats.aap_count > 0 and eng.last_stats.ns > 0
     assert dataclasses.astuple(eng.last_stats) == \
         dataclasses.astuple(jeng.last_stats)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        AmbitRuntime(backend="ambit_sim", device="cpu")
+    rt = AmbitRuntime(backend="ambit_sim", device="cpu", banks=2,
+                      subarrays=2, words=2)
+    jrt = JRuntime(backend="ambit_sim", banks=2, subarrays=2, words=2)
+    same_bv(rt.get(rt.and_(rt.put(pv[0]), rt.put(pv[1]))),
+            jrt.get(jrt.and_(jrt.put(jv[0]), jrt.put(jv[1]))))
+    assert dataclasses.astuple(rt.session_stats) == \
+        dataclasses.astuple(jrt.session_stats)
     with pytest.raises(ValueError):
         BulkBitwiseEngine("jnp", device="cpu")
+    with pytest.raises(ValueError):
+        AmbitRuntime(backend="jnp", device="cpu")

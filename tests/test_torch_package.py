@@ -57,7 +57,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.apps.bitfunnel, repro_torch.apps.bitsets, "
             "repro_torch.apps.masked_init, repro_torch.core.analog, "
             "repro_torch.core.ecc, repro_torch.core.timing_checker, "
-            "repro_torch.pim.allocator; "
+            "repro_torch.pim.allocator, repro_torch.pim.store, "
+            "repro_torch.pim.planner, repro_torch.pim.cluster, "
+            "repro_torch.pim.optimizer, repro_torch.pim.faults; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
