@@ -57,11 +57,28 @@ without printing the result line):
    closed-loop queries for about 20 s, every count against numpy, with
    the wall ms a query, the DRAM model's p50/p99 and one query's CUDA
    kernels and copies;
-8. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
+8. the LM path (``repro_torch.data``, ``models``, ``serve.engine``):
+   (a) ``filter_documents`` over 2^24 documents (the quality column's 8
+   planes and the length column's 12, 524,288 words each) on the card,
+   the mask equal to numpy's and to the plain scan's, with exactly two
+   ``bitweaving_scan`` launches for the call, and ``FilteredSyntheticLM``'s
+   ``doc_ids``; (b) qwen2.5-3b at its full widths with its depth cut to 2
+   layers, the card's prefill and three teacher-forced decode logits
+   within 5e-2 (max-rel) of the CPU port's on the same weights, and its
+   decode within 1e-1 of its forward; (c) qwen2.5-3b at full width and
+   depth (36 layers, 3.40 B float32 parameters) behind ``ServeEngine``
+   (4 slots, ``max_seq`` 256), 8 requests of 16 new tokens, greedy and
+   at temperature 0.7, under the termination contract, with the prefill
+   ms a batch, the decode ms a step, tokens/s and peak memory printed;
+   its launch counts are read for this phase alone, on a line of their
+   own;
+9. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
    ``{"kernels": [...]}`` JSON line, then the result line.
 
 Each path must launch its own kernels: the four serving kernels on
-phase 3, ``binary_matmul`` on phase 4.
+phase 3, ``binary_matmul`` on phase 4, ``bitweaving_scan`` on phase 8
+too. A kernel required on several paths (``PATH_OF``) reports its
+launches on each (``launches_by_path``) and their sum (``launches``).
 
 Imports nothing of the JAX package and needs no network.
 """
@@ -768,10 +785,16 @@ def time_popcount_and_scan(torch, rng, timer, row, x):
         None, 9 * 4 * 187538, 8 * 6 * 187538)]
     wide = _rand_words(torch, rng, (8, 524288))
     r["more"].append(row(
-        "bitweaving_scan", "(8,524288)",
-        lambda: kbv.bitweaving_scan(wide, 37, 200),
-        lambda: kbv.bitweaving_scan_plain(wide, 37, 200), None,
+        "bitweaving_scan", "(8,524288) (the LM filter's quality column)",
+        lambda: kbv.bitweaving_scan(wide, 64, 250),
+        lambda: kbv.bitweaving_scan_plain(wide, 64, 250), None,
         9 * 4 * 524288, 8 * 6 * 524288))
+    lengths = _rand_words(torch, rng, (12, 524288))
+    r["more"].append(row(
+        "bitweaving_scan", "(12,524288) (the LM filter's length column)",
+        lambda: kbv.bitweaving_scan(lengths, 256, 4095),
+        lambda: kbv.bitweaving_scan_plain(lengths, 256, 4095), None,
+        13 * 4 * 524288, 12 * 6 * 524288))
     log(f"time bitweaving_scan (8,187538) yardstick torch.amax(dim=0) "
         f"{r['yardstick_ms']:.6f} ms")
     out["bitweaving_scan"] = r
@@ -1108,10 +1131,13 @@ KERNELS = (
      "src/repro_torch/kernels/csrc/binary_matmul.cu",
      "src/repro/kernels/binary_matmul.py:59"),
 )
-# the path whose run each kernel's launches are read from
-PATH_OF = {"fused_bitwise": "serving", "fused_bitwise_stacked": "serving",
-           "popcount_rows": "serving", "bitweaving_scan": "serving",
-           "binary_matmul": "binary_lm"}
+# the paths each kernel must launch on; its launches are read from each
+# path's own run
+PATH_OF = {"fused_bitwise": ("serving",),
+           "fused_bitwise_stacked": ("serving",),
+           "popcount_rows": ("serving",),
+           "bitweaving_scan": ("serving", "lm"),
+           "binary_matmul": ("binary_lm",)}
 
 
 def _wrappers():
@@ -1130,7 +1156,7 @@ def _path_launches(wrappers, path, drive):
     result = drive()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     log(f"launches on the {path} path: {launches}")
-    idle = [n for n, c in launches.items() if PATH_OF[n] == path and c <= 0]
+    idle = [n for n, c in launches.items() if path in PATH_OF[n] and c <= 0]
     if idle:
         fail(f"kernels never launched on the {path} path: {idle}")
     return result, launches
@@ -1167,7 +1193,8 @@ def _wall_ms(torch, fn, device, reps=3):
 
 def _cuda_events(torch, fn) -> dict:
     """The CUDA kernels and memory copies/sets of one call to ``fn``,
-    counted by ``torch.profiler`` in the second of two steps."""
+    counted by ``torch.profiler`` in the second of two steps, and their
+    summed device ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     counts = {}
@@ -1179,6 +1206,8 @@ def _cuda_events(torch, fn) -> dict:
                 kind = ("copies" if e.name.startswith(("Memcpy", "Memset"))
                         else "kernels")
                 counts[kind] = counts.get(kind, 0) + 1
+                counts["device_ms"] = counts.get("device_ms", 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=torch.profiler.schedule(
@@ -1844,6 +1873,291 @@ def pim_runtime_phase(torch, card, wrappers):
     return report
 
 
+# -- phase 8 ------------------------------------------------------------------
+
+LM_ARCH = "qwen2.5-3b"
+LM_BOUND = 5e-2     # card against the CPU port (tests/test_torch_models.py)
+LM_SELF_BOUND = 1e-1    # decode against forward (tests/test_models.py)
+
+
+def lm_filter(torch, card, scan, n=1 << 24):
+    """(a) The data pipeline's document filter over 2^24 documents on the
+    card: two launches of the scan kernel, the mask equal to numpy's and
+    to the plain scan's; then ``FilteredSyntheticLM``'s ``doc_ids``."""
+    from repro_torch.data import pipeline
+    meta = pipeline.synth_corpus_meta(n, seed=0)
+    q, ln = meta.quality, meta.length
+    want = (q >= 64) & (q <= 250) & (ln >= 256)
+    torch.cuda.synchronize()
+    before = scan.launches
+    t0 = time.perf_counter()
+    got = pipeline.filter_documents(meta, 64, 250, 256, device="cuda")
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if scan.launches - before != 2:
+        fail(f"filter_documents launched bitweaving_scan "
+             f"{scan.launches - before} times, not 2")
+    plain = pipeline.filter_documents(meta, 64, 250, 256, use_kernel=False,
+                                      device="cuda")
+    for name, mask in (("kernel", got), ("plain", plain)):
+        if mask.shape != (n,) or not np.array_equal(mask, want):
+            fail(f"filter_documents ({name}) disagrees with numpy on "
+                 f"{int(np.sum(mask != want))} of {n} documents")
+    _, warm_ms = _wall_ms(torch, lambda: pipeline.filter_documents(
+        meta, 64, 250, 256, device="cuda"), "cuda")
+    _, plain_ms = _wall_ms(torch, lambda: pipeline.filter_documents(
+        meta, 64, 250, 256, use_kernel=False, device="cuda"), "cuda")
+    stream = pipeline.FilteredSyntheticLM(
+        pipeline.DataConfig(vocab=151936, seq_len=8, global_batch=4),
+        n_docs=n, device="cuda")
+    ids = np.nonzero(want)[0]
+    if not np.array_equal(stream.doc_ids, ids):
+        fail("FilteredSyntheticLM doc_ids disagree with numpy")
+    batch = stream.batch_at(0)
+    if not np.isin(batch["doc_ids"], ids).all():
+        fail("FilteredSyntheticLM drew a document the filter rejects")
+    out = {"docs": n, "selected": int(ids.size), "first_ms": first_ms,
+           "wall_ms": warm_ms, "plain_wall_ms": plain_ms}
+    log(f"filter_documents {n} docs (quality 8 planes, length 12 planes "
+        f"of {-(-n // 32)} words): selected {ids.size}, mask == numpy == plain "
+        f"scan, 2 launches; wall ms first {first_ms:.3f}, warm "
+        f"{warm_ms:.3f} (plain scan {plain_ms:.3f}), host-to-host, on "
+        f"{card} (measured on the card)")
+    return out
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _max_rel(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_parity(torch, card, n_layers=2, prompt=8, steps=3):
+    """(b) qwen2.5-3b at its full widths, depth cut to ``n_layers``: the
+    card's prefill and teacher-forced decode logits against the CPU
+    port's on the same weights (from one CPU generator) and tokens, and
+    the card's decode against its own forward."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    cpu = model.init(SEED, device="cpu")
+    card_params = _tree_to(cpu, "cuda")
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt + steps))
+                            .astype(np.int32))
+
+    def run(params, dev):
+        t = toks.to(dev)
+        fwd = model.forward(params, {"tokens": t})[0]
+        logits, caches = model.prefill(params, {"tokens": t[:, :prompt]},
+                                       skv=prompt + steps)
+        outs = [logits]
+        for i in range(steps):
+            pos = torch.full((2,), prompt + i, dtype=torch.int32, device=dev)
+            logits, caches = model.decode_step(
+                params, caches, {"tokens": t[:, prompt + i:prompt + i + 1],
+                                 "pos": pos})
+            outs.append(logits)
+        return fwd, outs
+
+    t0 = time.perf_counter()
+    cpu_fwd, cpu_outs = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd, outs = run(card_params, "cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    vs_cpu = [_max_rel(o, w) for o, w in zip(outs, cpu_outs)]
+    # prefill's logits are forward's at position prompt-1, decode step i's
+    # at prompt+i
+    vs_fwd = [_max_rel(o, fwd[:, prompt - 1 + i])
+              for i, o in enumerate(outs)]
+    cpu_vs_fwd = [_max_rel(o, cpu_fwd[:, prompt - 1 + i])
+                  for i, o in enumerate(cpu_outs)]
+    # reported, not gated: over all 2 x 11 positions the forward meets
+    # the reference init's hard attention (scores of std ~360 at full
+    # width), where one key that wins by less than a bf16 ulp flips
+    fwd_vs_cpu = _max_rel(fwd, cpu_fwd)
+    if not all(bool(torch.isfinite(o).all()) for o in outs + [fwd]):
+        fail("lm parity: non-finite logits on the card")
+    if max(vs_cpu) > LM_BOUND:
+        fail(f"lm parity: card vs CPU max-rel {vs_cpu} > {LM_BOUND}")
+    if max(vs_fwd) >= LM_SELF_BOUND:
+        fail(f"lm parity: decode vs forward max-rel {vs_fwd} >= "
+             f"{LM_SELF_BOUND}")
+    out = {"n_layers": n_layers, "params": model.n_params(),
+           "card_vs_cpu": vs_cpu, "decode_vs_forward": vs_fwd,
+           "cpu_decode_vs_forward": cpu_vs_fwd,
+           "forward_card_vs_cpu": fwd_vs_cpu,
+           "init_s": init_s, "cpu_s": cpu_s, "card_s": card_s,
+           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+           "bf16_reduced_reduction":
+               torch.backends.cuda.matmul
+               .allow_bf16_reduced_precision_reduction}
+    log(f"lm parity {LM_ARCH} full width, {n_layers} layers "
+        f"({model.n_params()} params): card vs CPU max-rel (prefill, "
+        f"{steps} decodes) {vs_cpu} <= {LM_BOUND}; card (prefill, decodes) "
+        f"vs its forward {vs_fwd} < {LM_SELF_BOUND} (CPU: {cpu_vs_fwd}); "
+        f"forward card vs CPU {fwd_vs_cpu} (reported); CPU run "
+        f"{cpu_s:.1f} s, card run {card_s:.3f} s on {card}")
+    return out
+
+
+class _TimedModel:
+    """The model as ``ServeEngine`` calls it, each call timed on the host
+    clock up to a synchronise and its logits checked finite."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model = torch, model
+        self.ms = {"prefill": [], "decode": []}
+
+    def _timed(self, kind, fn, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = fn(*args, **kw)
+        finite = bool(self.torch.isfinite(logits).all())   # synchronises
+        self.ms[kind].append((time.perf_counter() - t0) * 1e3)
+        if not finite:
+            fail(f"lm serve: non-finite {kind} logits")
+        return logits, caches
+
+    def prefill(self, params, batch, skv=None):
+        return self._timed("prefill", self.model.prefill, params, batch,
+                           skv=skv)
+
+    def decode_step(self, params, caches, batch):
+        return self._timed("decode", self.model.decode_step, params, caches,
+                           batch)
+
+
+def lm_decode_profile(torch, model, params, vocab, slots=4, plen=8,
+                      skv=256):
+    """One full-depth decode step after three warm-up steps: the host's
+    ms to enqueue it, its wall ms to a synchronise, and (torch.profiler)
+    the CUDA kernels and copies it runs, their summed device ms and the
+    card's idle share of the wall."""
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, vocab, (slots, plen))
+                            .astype(np.int32)).to("cuda")
+    logits, caches = model.prefill(params, {"tokens": toks}, skv=skv)
+    state = {"caches": caches, "tok": logits.argmax(-1).to(torch.int32),
+             "pos": torch.full((slots,), plen, dtype=torch.int32,
+                               device="cuda")}
+
+    def step():
+        logits, state["caches"] = model.decode_step(
+            params, state["caches"],
+            {"tokens": state["tok"][:, None], "pos": state["pos"]})
+        state["tok"] = logits.argmax(-1).to(torch.int32)
+        state["pos"] = state["pos"] + 1
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    out = {"enqueue_ms": (t1 - t0) * 1e3, "wall_ms": wall,
+           **_cuda_events(torch, step)}
+    out["idle_share"] = 1 - out.get("device_ms", 0.0) / wall
+    return out
+
+
+def lm_serve(torch, card, n_requests=8, max_new=16, max_seq=256, slots=4):
+    """(c) qwen2.5-3b as configured (36 layers, float32 parameters) behind
+    ``ServeEngine``: 8 requests with ``launch/serve.py``'s prompts, greedy
+    and then at temperature 0.7, under the termination contract."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, rng.integers(2, 12))
+               .astype(np.int32) for _ in range(n_requests)]
+    out = {"params": model.n_params(), "init_s": init_s}
+    for temperature in (0.0, 0.7):
+        timed = _TimedModel(torch, model)
+        eng = ServeEngine(timed, params, max_seq=max_seq, batch_slots=slots,
+                          temperature=temperature, seed=SEED)
+        reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = sum(len(r.out) for r in reqs)
+        batches = -(-n_requests // slots)
+        want_steps = batches * (max_new - 1)
+        sampled = eng.metrics.counter("serve_tokens_sampled").total()
+        if eng.decode_steps != want_steps or sampled != tokens or \
+                tokens != n_requests * max_new:
+            fail(f"lm serve T={temperature}: decode_steps "
+                 f"{eng.decode_steps} (want {want_steps}), sampled "
+                 f"{sampled}, tokens {tokens}")
+        if not all(r.done and all(0 <= t < cfg.vocab for t in r.out)
+                   for r in reqs):
+            fail(f"lm serve T={temperature}: a request not done or a "
+                 "token outside the vocabulary")
+        row = {"wall_s": wall, "tokens": tokens,
+               "decode_steps": eng.decode_steps,
+               "tokens_per_s": tokens / wall,
+               "prefill_ms": timed.ms["prefill"],
+               "decode_ms_median": statistics.median(timed.ms["decode"]),
+               "decode_ms_min": min(timed.ms["decode"]),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "first_out": reqs[0].out}
+        out[f"T={temperature}"] = row
+        log(f"lm serve {LM_ARCH} {cfg.n_layers} layers "
+            f"({model.n_params()} float32 params), {n_requests} requests, "
+            f"{slots} slots, max_seq {max_seq}, T={temperature}: {tokens} "
+            f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; "
+            f"prefill ms a batch {[round(m, 3) for m in row['prefill_ms']]}"
+            f", decode ms a step median {row['decode_ms_median']:.3f} (min "
+            f"{row['decode_ms_min']:.3f}, {eng.decode_steps} steps); max "
+            f"memory allocated {row['max_memory_allocated']} B on {card} "
+            f"(measured on the card)")
+    prof = lm_decode_profile(torch, model, params, cfg.vocab)
+    out["decode_profile"] = prof
+    log(f"lm decode step profile ({slots} slots, {cfg.n_layers} layers): "
+        f"host enqueue "
+        f"{prof['enqueue_ms']:.3f} ms, wall {prof['wall_ms']:.3f} ms, "
+        f"{prof.get('kernels', 0)} CUDA kernels and {prof.get('copies', 0)} "
+        f"copies summing {prof.get('device_ms', 0.0):.3f} device ms, idle "
+        f"share {prof['idle_share']:.3f} on {card} (measured on the card, "
+        f"torch.profiler)")
+    return out
+
+
+def lm_phase(torch, card, wrappers):
+    """Phase 8: (a) the document filter, (b) parity at full width, (c)
+    serving at full width and depth."""
+    report = {"filter": lm_filter(torch, card, wrappers["bitweaving_scan"])}
+    torch.cuda.empty_cache()
+    report["parity"] = lm_parity(torch, card)
+    torch.cuda.empty_cache()
+    report["serve"] = lm_serve(torch, card)
+    torch.cuda.empty_cache()
+    return report
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(here, "src")
@@ -1901,14 +2215,24 @@ def main() -> int:
     pim = pim_runtime_phase(torch, card, wrappers)
     log(f"pim_runtime phase_s={time.perf_counter() - t_phase:.1f} "
         f"report={json.dumps(pim)} card: {card}")
+    torch.cuda.empty_cache()
+
+    log("== phase 8: the LM path on the card (document filter, "
+        "qwen2.5-3b)")
+    t_phase = time.perf_counter()
+    lm, launches["lm"] = _path_launches(
+        wrappers, "lm", lambda: lm_phase(torch, card, wrappers))
+    log(f"lm phase_s={time.perf_counter() - t_phase:.1f} "
+        f"report={json.dumps(lm)} card: {card}")
 
     kernels = []
     for name, _, source, replaces in KERNELS:
         t = times[name]
+        by_path = {path: launches[path][name] for path in PATH_OF[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "path": PATH_OF[name],
-            "launches": launches[PATH_OF[name]][name],
+            "replaces": replaces, "path": "+".join(PATH_OF[name]),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "checks": checks[name]["checks"],
             "max_abs_err": checks[name]["max_abs_err"], "ms": t["ms"],
             "launch_ms": t["launch_ms"], "plain_ms": t["plain_ms"],

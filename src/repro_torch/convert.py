@@ -3,7 +3,8 @@
 The reference stores packed words as ``uint32``; the port stores the
 same bit patterns as ``torch.int32``. These helpers move numpy arrays
 (the reference's arrays after ``np.asarray``) into the port's tensors and
-back with every bit preserved.
+back with every bit preserved; ``params_from_numpy`` does the same for a
+model's parameter or cache tree.
 
 Like every entry point of the port, each helper lands its result on the
 card unless the caller names another device.
@@ -11,7 +12,7 @@ card unless the caller names another device.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -63,3 +64,19 @@ def bitlinear_from_numpy(weight: np.ndarray, device=None) -> BitLinear:
     of ``examples/binary_lm.py``) -> the port's ``BitLinear`` on
     ``device``, every float kept."""
     return BitLinear(weight, device=device)
+
+
+def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """A reference parameter or cache tree as numpy arrays
+    (``jax.tree.map(np.asarray, params)``) -> the port's tree of tensors
+    on ``device``, the same nested keys, every bit kept. ``bfloat16``
+    arrays (the reference's caches) travel as their 16-bit patterns,
+    which ``torch.from_numpy`` cannot take directly."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    arr = np.ascontiguousarray(tree)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(resolve_device(device))

@@ -1,0 +1,6 @@
+"""Model zoo: the dense-decoder architectures as PyTorch stacks."""
+
+from .model import Model, build_model
+from .param import ParamDef, count_params, init_tree
+
+__all__ = ["Model", "ParamDef", "build_model", "count_params", "init_tree"]

@@ -1,0 +1,156 @@
+"""Common layers: RMSNorm, RoPE/M-RoPE, SwiGLU MLP, embeddings.
+
+Pure functions over ParamDef-described trees of tensors; compute dtype is
+bf16 with f32 for normalization statistics and softmax accumulators
+(MaxText-style mixed precision). Weights stay in their stored dtype until
+cast at use.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Tuple
+
+import torch
+
+from .param import ParamDef
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def cast(x: torch.Tensor, dtype=COMPUTE_DTYPE) -> torch.Tensor:
+    return x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_def(d: int, layers=None) -> ParamDef:
+    if layers is None:
+        return ParamDef((d,), (None,), init="ones")
+    return ParamDef((layers, d), ("layers", None), init="ones")
+
+
+def rmsnorm(w, x, eps: float = 1e-6, dtype=None):
+    """f32 statistics + f32 normalize, cast at the output to ``dtype``
+    (default x's). The reference measured a bf16 variant 20x worse at
+    decode parity."""
+    dtype = dtype or x.dtype
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return out.to(dtype) * cast(w, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def _rotate(x, ang):
+    """Rotate halves of x (B,S,H,D) by angles ang (B,S,D/2), in f32."""
+    half = x.shape[-1] // 2
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
+    """x (B,S,H,D), positions (B,S) int -> rotated x. ``theta`` is a
+    number (gemma3 passes each layer's own)."""
+    half = x.shape[-1] // 2
+    # filled on x's device: a host tensor would be one blocking copy a call
+    log_theta = torch.log(torch.full((), theta, dtype=torch.float32,
+                                     device=x.device))
+    i = torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = torch.exp(-log_theta * (i / half))
+    return _rotate(x, positions.to(torch.float32)[..., None] * freqs)
+
+
+def mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+          sections: Tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): positions (3,B,S) for (t,h,w); frequency
+    bands are split across the three position streams per `sections`
+    (which sum to head_dim/2)."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    i = torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), -i / half)
+    angs, lo = [], 0
+    for s_idx, width in enumerate(sections):
+        p = positions[s_idx].to(torch.float32)  # (B,S)
+        angs.append(p[..., None] * freqs[lo:lo + width])
+        lo += width
+    return _rotate(x, torch.cat(angs, dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_defs(d: int, ff: int, layers: int, dtype=torch.float32):
+    lax_ = ("layers", "embed", "ffn")
+    return {
+        "w1": ParamDef((layers, d, ff), lax_, dtype),
+        "w3": ParamDef((layers, d, ff), lax_, dtype),
+        "w2": ParamDef((layers, ff, d), ("layers", "ffn", "embed"), dtype),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as a Python number: an elementwise op
+    with it computes what the op with a ``dtype`` constant computes (both
+    operands widened to f32, the result rounded), without a tensor on
+    the device."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def _act(name: str, x):
+    """``jax.nn.gelu`` (tanh approximation, its default) or
+    ``jax.nn.silu``, written as the reference's op sequence in x's dtype
+    with its constants rounded to that dtype: in bf16 each op rounds
+    where XLA's rounds (``silu``'s logistic is XLA's ``1 / (1 + exp(-x))``),
+    which ``F.gelu``/``F.silu`` miss by an ulp on a third of elements."""
+    if name == "gelu":
+        inner = rounded(math.sqrt(2 / math.pi), x.dtype) * (
+            x + rounded(0.044715, x.dtype) * (x * x * x))
+        return x * (0.5 * (torch.tanh(inner) + 1.0))
+    return x * (1.0 / (torch.exp(-x) + 1.0))
+
+
+def mlp(p, x, act: str = "silu"):
+    h = _act(act, x @ cast(p["w1"], x.dtype)) * (x @ cast(p["w3"], x.dtype))
+    return h @ cast(p["w2"], x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_defs(vocab: int, d: int, tie: bool, dtype=torch.float32):
+    defs = {"embed": ParamDef((vocab, d), ("vocab", "embed"), dtype,
+                              scale=1.0)}
+    if not tie:
+        defs["unembed"] = ParamDef((d, vocab), ("embed", "vocab"), dtype)
+    return defs
+
+
+def embed(p, tokens: torch.Tensor, dtype=COMPUTE_DTYPE) -> torch.Tensor:
+    # the reference casts the whole table, then indexes; indexing first
+    # gives the same bits and reads only the rows it needs
+    return cast(p["embed"][tokens.long()], dtype)
+
+
+def unembed(p, x: torch.Tensor) -> torch.Tensor:
+    if "unembed" in p:
+        return x @ cast(p["unembed"], x.dtype)
+    return x @ cast(p["embed"], x.dtype).T

@@ -1,0 +1,104 @@
+"""Public model API: build_model(cfg) -> Model with init / forward /
+prefill / decode plus parameter-count accounting used by the roofline
+(MODEL_FLOPS = 6*N*D, 2*N_active per decoded token).
+
+``Model`` is an ``nn.Module`` that holds the parameter tree it was given
+(``init`` or ``load``) under the reference's nested keys and stacked
+shapes, so ``model.params`` carries across key for key. Its compute
+methods take the tree explicitly, as the reference's do.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..core.bitvector import resolve_device
+from . import transformer
+from .param import Tree, count_params, init_tree, map_tree
+
+
+def _module_of(tree: Tree) -> nn.Module:
+    m = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            m.add_module(k, _module_of(v))
+        else:
+            m.register_parameter(k, nn.Parameter(v, requires_grad=False))
+    return m
+
+
+def _tree_of(m: nn.Module) -> Tree:
+    out: Tree = {k: p for k, p in m.named_parameters(recurse=False)}
+    out.update({k: _tree_of(c) for k, c in m.named_children()})
+    return out
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.weights: Optional[nn.Module] = None
+
+    # -- parameters -----------------------------------------------------------
+
+    def param_defs(self) -> Tree:
+        return transformer.model_defs(self.cfg)
+
+    def init(self, seed: int = 0, device=None) -> Tree:
+        """Draw the parameters from a generator seeded with ``seed`` on
+        ``device`` (the card unless named), hold them and return them."""
+        gen = torch.Generator(resolve_device(device)).manual_seed(seed)
+        return self.load(init_tree(self.param_defs(), gen))
+
+    def load(self, params: Tree) -> Tree:
+        """Hold ``params`` (checked against ``param_defs``, key for key and
+        shape for shape) and return them."""
+        shapes = map_tree(lambda d: tuple(d.shape), self.param_defs())
+        got = map_tree(lambda a: tuple(a.shape), params)
+        if got != shapes:
+            raise ValueError(f"{self.cfg.name}: parameter tree {got} does "
+                             f"not match the model's {shapes}")
+        self.weights = _module_of(params)
+        return params
+
+    @property
+    def params(self) -> Tree:
+        if self.weights is None:
+            raise ValueError("no parameters: call init or load first")
+        return _tree_of(self.weights)
+
+    def n_params(self) -> int:
+        return count_params(self.param_defs())
+
+    def n_active_params(self) -> int:
+        """Active parameters per token: every parameter of a dense stack
+        (the port has no MoE family yet)."""
+        return self.n_params()
+
+    # -- compute --------------------------------------------------------------
+
+    def forward(self, params: Tree, batch):
+        return transformer.forward(params, self.cfg, batch)
+
+    def prefill(self, params: Tree, batch, skv: Optional[int] = None):
+        return transformer.prefill(params, self.cfg, batch, skv=skv)
+
+    def decode_step(self, params: Tree, caches: Tree, batch):
+        return transformer.decode_step(params, self.cfg, caches, batch)
+
+    def cache_defs(self, batch: int, skv: int) -> Tree:
+        return transformer.cache_defs(self.cfg, batch, skv)
+
+    def init_cache(self, batch: int, skv: int, device=None) -> Tree:
+        dev = resolve_device(device)
+        return map_tree(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                              device=dev),
+                        self.cache_defs(batch, skv))
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    return Model(cfg)

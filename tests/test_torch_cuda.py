@@ -1,8 +1,9 @@
 """The port on the card: every kernel against its plain version, the
 serving slice on backend "cuda" against the committed reference tokens,
-the binary-LM example through the XNOR-popcount kernel, and the DRAM
+the binary-LM example through the XNOR-popcount kernel, the DRAM
 model and the PIM runtime on it with their rows on the card against the
-CPU.
+CPU, and the LM path: the document filter through the scan kernel and a
+reduced qwen2.5-3b on the card against the CPU.
 
 Imports nothing of JAX or of the JAX package, so it runs on a GPU machine
 that has only PyTorch:
@@ -586,3 +587,65 @@ def test_host_fallback_launches_fused_bitwise(cuda):
     assert (out["fallbacks"], out["mismatches"]) == (2, 0)
     assert out["engine"] == ("cuda", "cuda")
     assert kbw.fused_bitwise.launches - before == 2
+
+
+@pytest.mark.parametrize("n", [33, 5003, 1 << 20, (1 << 20) + 17])
+def test_filter_documents_on_card_launches_the_scan_twice(cuda, n):
+    """The LM data path's document filter: two ``bitweaving_scan``
+    launches on the card, the mask equal to the plain scan's and to
+    numpy's, at document counts that are not a multiple of 32 too."""
+    from repro_torch.data import pipeline
+    meta = pipeline.synth_corpus_meta(n, seed=n)
+    before = kbv.bitweaving_scan.launches
+    got = pipeline.filter_documents(meta, 64, 250, 256, device=cuda)
+    assert kbv.bitweaving_scan.launches - before == 2
+    plain = pipeline.filter_documents(meta, 64, 250, 256, use_kernel=False,
+                                      device=cuda)
+    q, ln = meta.quality, meta.length
+    want = (q >= 64) & (q <= 250) & (ln >= 256)
+    assert got.shape == (n,) and np.array_equal(got, want)
+    assert np.array_equal(plain, want)
+
+
+def test_reduced_qwen_on_card_matches_cpu(cuda):
+    """A reduced qwen2.5-3b on the card against the CPU port on the same
+    weights: prefill, four teacher-forced decode steps, and the card's
+    decode against its own forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("qwen2.5-3b").reduced()
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    card = _tree_to(cpu, cuda)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20))
+                            .astype(np.int32))
+
+    def run(params, dev):
+        t = toks.to(dev)
+        out = [model.forward(params, {"tokens": t})[0][:, 16:]]
+        logits, caches = model.prefill(params, {"tokens": t[:, :16]},
+                                       skv=20)
+        out.append(logits)
+        for i in range(4):
+            logits, caches = model.decode_step(
+                params, caches, {"tokens": t[:, 16 + i:17 + i],
+                                 "pos": torch.full((2,), 16 + i,
+                                                   dtype=torch.int32,
+                                                   device=dev)})
+            out.append(logits)
+        return [o.float().cpu() for o in out]
+
+    want, got = run(cpu, "cpu"), run(card, cuda)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max() / w.abs().max()) <= 5e-2
+    for i in range(4):
+        fwd = got[0][:, i]
+        assert float((got[2 + i] - fwd).abs().max() / fwd.abs().max()) < 1e-1
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -59,7 +59,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.ecc, repro_torch.core.timing_checker, "
             "repro_torch.pim.allocator, repro_torch.pim.store, "
             "repro_torch.pim.planner, repro_torch.pim.cluster, "
-            "repro_torch.pim.optimizer, repro_torch.pim.faults; "
+            "repro_torch.pim.optimizer, repro_torch.pim.faults, "
+            "repro_torch.configs, repro_torch.models, "
+            "repro_torch.models.transformer, repro_torch.serve.engine, "
+            "repro_torch.launch.serve, repro_torch.data.pipeline; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -164,6 +167,41 @@ def test_binary_lm_entry_points_default_to_the_card(entry, monkeypatch):
         make()
     if entry != "main":
         assert make(device="cpu").weight.device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["Model.init", "init_cache",
+                                   "filter_documents", "FilteredSyntheticLM",
+                                   "params_from_numpy", "launch.serve"])
+def test_lm_entry_points_default_to_the_card(entry, monkeypatch):
+    """The LM path's entry points run on the card unless the caller names
+    the CPU, and raise without a card."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_config("qwen2.5-3b").reduced())
+    meta = pipeline.synth_corpus_meta(100)
+    make = {
+        "Model.init": lambda **kw: model.init(0, **kw)["embed"],
+        "init_cache": lambda **kw: model.init_cache(1, 8, **kw)["self"]["k"],
+        "filter_documents": lambda **kw: pipeline.filter_documents(
+            meta, 64, 250, 256, **kw),
+        "FilteredSyntheticLM": lambda **kw: pipeline.FilteredSyntheticLM(
+            pipeline.DataConfig(10, 4, 2), n_docs=100, **kw).mask,
+        "params_from_numpy": lambda **kw: convert.params_from_numpy(
+            {"a": {"b": np.ones(3, np.float32)}}, **kw)["a"]["b"],
+        "launch.serve": lambda **kw: serve.main(
+            ["--requests", "1", "--max-new", "1"]
+            + (["--device", kw["device"]] if kw else [])),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    out = make(device="cpu")
+    if isinstance(out, torch.Tensor):
+        assert out.device.type == "cpu"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
