@@ -72,13 +72,38 @@ without printing the result line):
    ms a batch, the decode ms a step, tokens/s and peak memory printed;
    its launch counts are read for this phase alone, on a line of their
    own;
-9. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
+9. the LM stack's other families (``models/moe.py``, ``models/ssm.py``,
+   the hybrid and encoder-decoder stacks): (a) at full width with the
+   depth cut (granite-moe-3b-a800m 2 layers, mamba2-780m 2 layers over a
+   300-token prompt, three SSD chunks of 128, zamba2-2.7b 6 layers, one
+   group and its shared block, whisper-small 2+2 layers at 1500 frames),
+   the card's prefill and three decode logits within 5e-2 of the CPU
+   port's on the same weights (MoE: on the rows whose routing agrees;
+   the tokens routed elsewhere at layer 0 are printed), end to end and
+   with every attention core fed the CPU's inputs and outputs (each core
+   held on its own; zamba2's and whisper's attention flips keys on an
+   ulp at this init, so their end-to-end numbers are printed), and the
+   card's decode within 1e-1 of its forward (MoE: at a capacity that
+   drops nothing, the configured capacity's drops and numbers printed;
+   zamba2 and whisper: printed);
+   (b) granite-moe, mamba2 and zamba2 at full width and depth behind
+   ``ServeEngine`` as phase 8(c) serves qwen2.5-3b, whisper-small through
+   ``Model.prefill`` with 4 x 1500 frames and 16 greedy steps, and
+   qwen3-moe-235b-a22b at full width with one layer (decode within 1e-1
+   of its forward), each with prefill and decode ms, tokens/s, peak
+   memory and one profiled decode step; (c) granite's routing over a
+   4 x 256-token batch at each of its 32 layers through
+   ``expert_bitmask_stats`` on ``BulkBitwiseEngine("cuda")``: one
+   ``popcount_rows`` launch a call, loads equal to ``numpy.bincount``,
+   masks equal to the plain version's;
+10. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
    ``{"kernels": [...]}`` JSON line, then the result line.
 
 Each path must launch its own kernels: the four serving kernels on
 phase 3, ``binary_matmul`` on phase 4, ``bitweaving_scan`` on phase 8
-too. A kernel required on several paths (``PATH_OF``) reports its
-launches on each (``launches_by_path``) and their sum (``launches``).
+too, ``popcount_rows`` on phase 9 too. A kernel required on several
+paths (``PATH_OF``) reports its launches on each (``launches_by_path``)
+and their sum (``launches``).
 
 Imports nothing of the JAX package and needs no network.
 """
@@ -1135,7 +1160,7 @@ KERNELS = (
 # path's own run
 PATH_OF = {"fused_bitwise": ("serving",),
            "fused_bitwise_stacked": ("serving",),
-           "popcount_rows": ("serving",),
+           "popcount_rows": ("serving", "lm_families"),
            "bitweaving_scan": ("serving", "lm"),
            "binary_matmul": ("binary_lm",)}
 
@@ -2040,15 +2065,17 @@ class _TimedModel:
 
 
 def lm_decode_profile(torch, model, params, vocab, slots=4, plen=8,
-                      skv=256):
+                      skv=256, extra=None):
     """One full-depth decode step after three warm-up steps: the host's
     ms to enqueue it, its wall ms to a synchronise, and (torch.profiler)
     the CUDA kernels and copies it runs, their summed device ms and the
-    card's idle share of the wall."""
+    card's idle share of the wall. ``extra`` joins the prefill's batch
+    (whisper's frames)."""
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, vocab, (slots, plen))
                             .astype(np.int32)).to("cuda")
-    logits, caches = model.prefill(params, {"tokens": toks}, skv=skv)
+    logits, caches = model.prefill(params, dict(extra or {}, tokens=toks),
+                                   skv=skv)
     state = {"caches": caches, "tok": logits.argmax(-1).to(torch.int32),
              "pos": torch.full((slots,), plen, dtype=torch.int32,
                                device="cuda")}
@@ -2074,14 +2101,16 @@ def lm_decode_profile(torch, model, params, vocab, slots=4, plen=8,
     return out
 
 
-def lm_serve(torch, card, n_requests=8, max_new=16, max_seq=256, slots=4):
-    """(c) qwen2.5-3b as configured (36 layers, float32 parameters) behind
-    ``ServeEngine``: 8 requests with ``launch/serve.py``'s prompts, greedy
-    and then at temperature 0.7, under the termination contract."""
+def lm_serve(torch, card, arch=LM_ARCH, n_requests=8, max_new=16,
+             max_seq=256, slots=4):
+    """(c) ``arch`` as configured (qwen2.5-3b: 36 layers, float32
+    parameters) behind ``ServeEngine``: 8 requests with
+    ``launch/serve.py``'s prompts, greedy and then at temperature 0.7,
+    under the termination contract."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import Request, ServeEngine
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2091,7 +2120,8 @@ def lm_serve(torch, card, n_requests=8, max_new=16, max_seq=256, slots=4):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, rng.integers(2, 12))
                .astype(np.int32) for _ in range(n_requests)]
-    out = {"params": model.n_params(), "init_s": init_s}
+    out = {"params": model.n_params(),
+           "active_params": model.n_active_params(), "init_s": init_s}
     for temperature in (0.0, 0.7):
         timed = _TimedModel(torch, model)
         eng = ServeEngine(timed, params, max_seq=max_seq, batch_slots=slots,
@@ -2125,7 +2155,7 @@ def lm_serve(torch, card, n_requests=8, max_new=16, max_seq=256, slots=4):
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "first_out": reqs[0].out}
         out[f"T={temperature}"] = row
-        log(f"lm serve {LM_ARCH} {cfg.n_layers} layers "
+        log(f"lm serve {arch} {cfg.n_layers} layers "
             f"({model.n_params()} float32 params), {n_requests} requests, "
             f"{slots} slots, max_seq {max_seq}, T={temperature}: {tokens} "
             f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; "
@@ -2136,8 +2166,8 @@ def lm_serve(torch, card, n_requests=8, max_new=16, max_seq=256, slots=4):
             f"(measured on the card)")
     prof = lm_decode_profile(torch, model, params, cfg.vocab)
     out["decode_profile"] = prof
-    log(f"lm decode step profile ({slots} slots, {cfg.n_layers} layers): "
-        f"host enqueue "
+    log(f"lm decode step profile {arch} ({slots} slots, {cfg.n_layers} "
+        f"layers): host enqueue "
         f"{prof['enqueue_ms']:.3f} ms, wall {prof['wall_ms']:.3f} ms, "
         f"{prof.get('kernels', 0)} CUDA kernels and {prof.get('copies', 0)} "
         f"copies summing {prof.get('device_ms', 0.0):.3f} device ms, idle "
@@ -2154,6 +2184,506 @@ def lm_phase(torch, card, wrappers):
     report["parity"] = lm_parity(torch, card)
     torch.cuda.empty_cache()
     report["serve"] = lm_serve(torch, card)
+    torch.cuda.empty_cache()
+    return report
+
+
+# -- phase 9 ------------------------------------------------------------------
+
+# arch: (depth for the card-vs-CPU parity run, prompt tokens)
+FAMILY_PARITY = {"granite-moe-3b-a800m": (2, 8), "mamba2-780m": (2, 300),
+                 "zamba2-2.7b": (6, 8), "whisper-small": (2, 8)}
+FAMILY_SERVE = ("granite-moe-3b-a800m", "mamba2-780m", "zamba2-2.7b")
+MOE_WIDE = "qwen3-moe-235b-a22b"
+
+
+class _Routing:
+    """Wraps ``models.moe._moe_local`` while active: each call also
+    records the routed expert ids (T, k) and which tokens lost an
+    assignment to an expert's capacity, on the host."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        import torch
+        moe, local = self.moe, self.moe._moe_local
+
+        def wrapped(x2d, router, *weights, **kw):
+            idx = moe.route(x2d, router, kw["moe"], kw["e_pad"])[2]
+            onehot = torch.nn.functional.one_hot(idx.reshape(-1),
+                                                 kw["e_pad"])
+            rank = (onehot.cumsum(0) * onehot).sum(1) - 1
+            dropped = (rank >= kw["capacity"]).reshape(idx.shape).any(1)
+            self.calls.append((idx.cpu(), dropped.cpu()))
+            return local(x2d, router, *weights, **kw)
+
+        self._local = local
+        moe._moe_local = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._moe_local = self._local
+        return False
+
+
+def _no_drop(cfg):
+    """``cfg`` with each expert's capacity at least the batch's tokens
+    (capacity_factor = n_experts / top_k): nothing is dropped, so the
+    forward and the decode route every assignment alike."""
+    import dataclasses
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k))
+
+
+def _same_sets(a, b):
+    """(T,) bool: tokens whose top-k expert sets agree."""
+    return (a.sort(-1).values == b.sort(-1).values).all(-1)
+
+
+def _lm_run(torch, model, params, toks, extra, prompt, steps, dev,
+            attention=None):
+    """The forward over all of ``toks``, the prefill over the first
+    ``prompt``, then ``steps`` teacher-forced decode steps: (forward
+    logits, [prefill logits, decode logits...], routing calls), inside
+    ``attention`` (an ``_Attention``) when given."""
+    import contextlib
+    b = toks.shape[0]
+    t = toks.to(dev)
+    ex = {k: v.to(dev) for k, v in extra.items()}
+    with _Routing() as routing, attention or contextlib.nullcontext():
+        fwd = model.forward(params, dict(ex, tokens=t))[0]
+        logits, caches = model.prefill(
+            params, dict(ex, tokens=t[:, :prompt]), skv=prompt + steps)
+        outs = [logits]
+        for i in range(steps):
+            pos = torch.full((b,), prompt + i, dtype=torch.int32,
+                             device=dev)
+            logits, caches = model.decode_step(
+                params, caches,
+                {"tokens": t[:, prompt + i:prompt + i + 1], "pos": pos})
+            outs.append(logits)
+    if not all(bool(torch.isfinite(o).all()) for o in outs + [fwd]):
+        fail(f"{model.cfg.name}: non-finite logits on {dev}")
+    return fwd, outs, routing.calls
+
+
+def _vs_forward(outs, fwd, prompt):
+    """Each output's max-rel against the forward's logits at its
+    position (prefill: prompt-1, decode step i: prompt+i)."""
+    return [_max_rel(o, fwd[:, prompt - 1 + j]) for j, o in enumerate(outs)]
+
+
+def _drops(calls):
+    return int(sum(int(d.sum()) for _, d in calls))
+
+
+def _to(x, device):
+    """Tensors, and tuples of them, on ``device``."""
+    if isinstance(x, tuple):
+        return tuple(_to(v, device) for v in x)
+    return x.to(device) if hasattr(x, "to") else x
+
+
+class _Attention:
+    """Wraps ``models.attention``'s ``flash_attention`` and
+    ``decode_attention`` while active. Recording (``feed`` None): keeps
+    each call's inputs and output on the host. Forcing (``feed``, a
+    recorded run's calls): each call computes its output from the
+    recorded call's inputs, keeps its max-rel against the recorded
+    output, and returns the recorded output, so that everything after
+    each attention core reads the same values on both devices."""
+
+    NAMES = ("flash_attention", "decode_attention")
+
+    def __init__(self, feed=None):
+        from repro_torch.models import attention
+        self.attn, self.feed, self.calls, self.rels = attention, feed, [], []
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kw):
+            if self.feed is None:
+                out = fn(*args, **kw)
+                self.calls.append((name, _to(args, "cpu"), kw, out.cpu()))
+                return out
+            rec_name, rec_args, rec_kw, rec_out = self.feed[len(self.rels)]
+            if rec_name != name:
+                fail(f"attention call {len(self.rels)}: {name}, recorded "
+                     f"{rec_name}")
+            dev = args[0].device
+            self.rels.append(_max_rel(fn(*_to(rec_args, dev), **rec_kw),
+                                      rec_out))
+            return rec_out.to(dev)
+        return wrapped
+
+    def __enter__(self):
+        self._orig = {n: getattr(self.attn, n) for n in self.NAMES}
+        for name, fn in self._orig.items():
+            setattr(self.attn, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.attn, name, fn)
+        return False
+
+
+# zamba2's shared attention and whisper's self- and cross-attention (over
+# 1500 frames) are near hard maxima at the reference's init: an ulp of a
+# cuBLAS sum flips a key and moves whole rows (on an H100, end to end
+# 0.15-0.20 and 0.47-0.76 card vs CPU, with the attention cores forced,
+# under 0.008; PERF.md). Their card-vs-CPU bound holds with each
+# attention core fed the CPU's inputs and outputs (``_Attention``); end
+# to end, and the decode against the forward, are printed.
+HARD_ATTENTION = ("zamba2-2.7b", "whisper-small")
+
+
+def family_parity(torch, card, arch, n_layers, prompt, steps=3, batch=2):
+    """(a) ``arch`` at its full widths, depth cut to ``n_layers``: the
+    card's prefill and teacher-forced decode logits against the CPU
+    port's on the same weights, tokens and (whisper) frames, end to end
+    and with every attention core fed the CPU's inputs and outputs
+    (``_Attention``, each core held on its own), and the card's decode
+    against its own forward. MoE: the rows whose routing differs between
+    card and CPU (at any layer of the prefill or the decode steps so far)
+    are printed and left out of the 5e-2 bound; the decode-vs-forward
+    bound holds on the same weights with no capacity drop
+    (``_no_drop``), the configured capacity's numbers and dropped
+    assignments printed. ``HARD_ATTENTION``: end to end and decode vs
+    forward printed, not held."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                              n_enc_layers=2 if cfg.enc_dec else 0)
+    model = build_model(cfg)
+    cpu = model.init(SEED, device="cpu")
+    card_params = _tree_to(cpu, "cuda")
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (batch, prompt + steps))
+                            .astype(np.int32))
+    extra = {}
+    if cfg.enc_dec:
+        extra["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    recorded = _Attention()
+    t0 = time.perf_counter()
+    cpu_fwd, cpu_outs, cpu_calls = _lm_run(torch, model, cpu, toks, extra,
+                                           prompt, steps, "cpu", recorded)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd, outs, calls = _lm_run(torch, model, card_params, toks, extra,
+                               prompt, steps, "cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    forcing = _Attention(feed=recorded.calls)
+    _, forced_outs, forced_calls = _lm_run(torch, model, card_params, toks,
+                                           extra, prompt, steps, "cuda",
+                                           forcing)
+    if len(forcing.rels) != len(recorded.calls):
+        fail(f"{arch}: {len(forcing.rels)} attention calls on the card, "
+             f"{len(recorded.calls)} on the CPU")
+    out = {"n_layers": n_layers, "prompt": prompt,
+           "params": model.n_params(), "cpu_s": cpu_s, "card_s": card_s,
+           "attention_cores": len(forcing.rels),
+           "attention_cores_worst": max(forcing.rels, default=0.0)}
+    agree = [torch.ones(batch, dtype=torch.bool)] * len(outs)
+    vs_fwd = _vs_forward(outs, fwd, prompt)
+    if cfg.moe is not None:
+        def rows(run_calls):
+            same = [_same_sets(a, b).reshape(batch, -1).all(1)
+                    for (a, _), (b, _) in zip(run_calls, cpu_calls)]
+            # the prefill's calls, then each decode step's, cumulatively
+            ok = [torch.stack(same[n_layers:2 * n_layers]).all(0)]
+            for i in range(steps):
+                lo = (2 + i) * n_layers
+                ok.append(ok[-1] & torch.stack(same[lo:lo + n_layers])
+                          .all(0))
+            return ok
+
+        agree, forced_agree = rows(calls), rows(forced_calls)
+        nd_fwd, nd_outs, nd_calls = _lm_run(
+            torch, build_model(_no_drop(cfg)), card_params, toks, extra,
+            prompt, steps, "cuda")
+        if _drops(nd_calls):
+            fail(f"{arch}: the no-drop capacity dropped an assignment")
+        out.update({
+            "flipped_tokens_layer0": {
+                "forward": int((~_same_sets(calls[0][0], cpu_calls[0][0]))
+                               .sum()),
+                "prefill": int((~_same_sets(
+                    calls[n_layers][0], cpu_calls[n_layers][0])).sum())},
+            "dropped_assignments": {
+                "forward": _drops(calls[:n_layers]),
+                "prefill": _drops(calls[n_layers:2 * n_layers]),
+                "decode": _drops(calls[2 * n_layers:])},
+            "routing_agrees_rows": [a.tolist() for a in agree],
+            "decode_vs_forward_configured_capacity": vs_fwd})
+        vs_fwd = _vs_forward(nd_outs, nd_fwd, prompt)
+    else:
+        forced_agree = agree
+
+    def held(got, mask):
+        return [_max_rel(o[a], w[a]) for o, w, a in zip(got, cpu_outs, mask)
+                if a.any()]
+
+    vs_cpu, forced = held(outs, agree), held(forced_outs, forced_agree)
+    rest = [_max_rel(o, w) for o, w, a in zip(outs, cpu_outs, agree)
+            if not a.all()]
+    hard = arch in HARD_ATTENTION
+    if not vs_cpu or not forced:
+        fail(f"{arch} parity: routing differs in every row {agree}")
+    if max(forced) > LM_BOUND or out["attention_cores_worst"] > LM_BOUND:
+        fail(f"{arch} parity: card vs CPU with the CPU's attention cores "
+             f"{forced} (cores: worst {out['attention_cores_worst']}) > "
+             f"{LM_BOUND}")
+    if not hard and max(vs_cpu) > LM_BOUND:
+        fail(f"{arch} parity: card vs CPU max-rel {vs_cpu} > {LM_BOUND}")
+    if not hard and max(vs_fwd) >= LM_SELF_BOUND:
+        fail(f"{arch} parity: decode vs forward max-rel {vs_fwd} >= "
+             f"{LM_SELF_BOUND}")
+    cpu_vs_fwd = _vs_forward(cpu_outs, cpu_fwd, prompt)
+    out.update({"card_vs_cpu": vs_cpu, "card_vs_cpu_rerouted_rows": rest,
+                "card_vs_cpu_attention_forced": forced,
+                "decode_vs_forward": vs_fwd,
+                "cpu_decode_vs_forward": cpu_vs_fwd,
+                "forward_card_vs_cpu": _max_rel(fwd, cpu_fwd)})
+    moe_line = ""
+    if cfg.moe is not None:
+        moe_line = (
+            f"layer-0 tokens routed elsewhere on the card "
+            f"{out['flipped_tokens_layer0']}, rows with the same routing "
+            f"{out['routing_agrees_rows']} (others, not held: {rest}); "
+            f"decode vs forward at the configured capacity "
+            f"{out['decode_vs_forward_configured_capacity']} with dropped "
+            f"assignments {out['dropped_assignments']} (reported); ")
+    mark = "(reported)" if hard else f"<= {LM_BOUND}"
+    self_mark = (f"(reported; its CPU run: {cpu_vs_fwd})" if hard else
+                 f"< {LM_SELF_BOUND}"
+                 + (" (no-drop capacity)" if cfg.moe is not None else ""))
+    log(f"family parity {arch} full width, {n_layers} layers "
+        f"({model.n_params()} params), prompt {prompt}: card vs CPU "
+        f"max-rel (prefill, {steps} decodes) with the CPU's attention "
+        f"cores {forced} <= {LM_BOUND}, its {len(forcing.rels)} attention "
+        f"cores from the CPU's inputs worst {out['attention_cores_worst']} <= "
+        f"{LM_BOUND}; end to end {vs_cpu} {mark}; card vs its forward "
+        f"{vs_fwd} {self_mark}; {moe_line}forward card vs CPU "
+        f"{out['forward_card_vs_cpu']} (reported); CPU run {cpu_s:.1f} s, "
+        f"card run {card_s:.3f} s on {card}")
+    return out
+
+
+def whisper_serve(torch, card, batch=4, max_new=16, skv=256):
+    """(b) whisper-small as configured (12 encoder and 12 decoder layers)
+    through ``Model.prefill`` with 4 x 1500 frames and the first four of
+    ``launch/serve.py``'s prompts (left-padded as the engine pads them),
+    then greedy decode steps, each timed to a synchronise; then one
+    profiled decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("whisper-small")
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, rng.integers(2, 12))
+               .astype(np.int32) for _ in range(batch)]
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((batch, plen), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    frames = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (batch, cfg.n_frames, cfg.d_model)).astype(np.float32)).to("cuda")
+    timed = _TimedModel(torch, model)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = timed.prefill(params, {
+        "tokens": torch.from_numpy(toks).to("cuda"), "frames": frames},
+        skv=skv)
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = torch.full((batch,), plen, dtype=torch.int32, device="cuda")
+    out_toks = [tok]
+    for _ in range(max_new):
+        logits, caches = timed.decode_step(
+            params, caches, {"tokens": tok[:, None], "pos": pos})
+        tok = logits.argmax(-1).to(torch.int32)
+        pos = pos + 1
+        out_toks.append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen = torch.stack(out_toks, 1).cpu()
+    if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+        fail("whisper serve: a token outside the vocabulary")
+    tokens = batch * (max_new + 1)
+    row = {"params": model.n_params(), "wall_s": wall, "tokens": tokens,
+           "tokens_per_s": tokens / wall, "prefill_ms": timed.ms["prefill"],
+           "decode_ms_median": statistics.median(timed.ms["decode"]),
+           "decode_ms_min": min(timed.ms["decode"]),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "first_out": gen[0].tolist()}
+    log(f"whisper serve whisper-small {cfg.n_enc_layers}+{cfg.n_layers} "
+        f"layers ({model.n_params()} float32 params), {batch} x "
+        f"{cfg.n_frames} frames, prompt {plen}, greedy: {tokens} tokens in "
+        f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; prefill ms "
+        f"{[round(m, 3) for m in row['prefill_ms']]}, decode ms a step "
+        f"median {row['decode_ms_median']:.3f} (min "
+        f"{row['decode_ms_min']:.3f}, {max_new} steps); max memory "
+        f"allocated {row['max_memory_allocated']} B on {card} (measured "
+        f"on the card)")
+    prof = lm_decode_profile(torch, model, params, cfg.vocab, slots=batch,
+                             skv=skv, extra={"frames": frames})
+    row["decode_profile"] = prof
+    log(f"lm decode step profile whisper-small ({batch} slots): host "
+        f"enqueue {prof['enqueue_ms']:.3f} ms, wall {prof['wall_ms']:.3f} "
+        f"ms, {prof.get('kernels', 0)} CUDA kernels and "
+        f"{prof.get('copies', 0)} copies summing "
+        f"{prof.get('device_ms', 0.0):.3f} device ms, idle share "
+        f"{prof['idle_share']:.3f} on {card} (measured on the card, "
+        f"torch.profiler)")
+    return row
+
+
+def moe_wide(torch, card, prompt=8, steps=3, batch=2):
+    """(b) qwen3-moe-235b-a22b at its full widths, depth cut to 1 layer
+    (its 94 need item 12), card only: the 128-expert dispatch at its real
+    width; prefill and decode against its forward within 1e-1 with no
+    capacity drop (``_no_drop``), the configured capacity's numbers
+    printed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(MOE_WIDE), n_layers=1)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (batch, prompt + steps))
+                            .astype(np.int32))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd, outs, calls = _lm_run(torch, model, params, toks, {}, prompt,
+                               steps, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nd_fwd, nd_outs, nd_calls = _lm_run(torch, build_model(_no_drop(cfg)),
+                                        params, toks, {}, prompt, steps,
+                                        "cuda")
+    held = _vs_forward(nd_outs, nd_fwd, prompt)
+    if _drops(nd_calls) or max(held) >= LM_SELF_BOUND:
+        fail(f"{MOE_WIDE} 1 layer: decode vs forward {held}, "
+             f"{_drops(nd_calls)} dropped at the no-drop capacity")
+    out = {"params": model.n_params(),
+           "active_params": model.n_active_params(),
+           "decode_vs_forward": held,
+           "decode_vs_forward_configured_capacity": _vs_forward(
+               outs, fwd, prompt),
+           "dropped_assignments": {"forward": _drops(calls[:1]),
+                                   "prefill": _drops(calls[1:2]),
+                                   "decode": _drops(calls[2:])},
+           "wall_s": wall,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"moe wide {MOE_WIDE} 1 layer ({model.n_params()} float32 params, "
+        f"{model.n_active_params()} active, 128 experts top-8): decode vs "
+        f"forward {held} < {LM_SELF_BOUND} (no-drop capacity); at the "
+        f"configured capacity {out['decode_vs_forward_configured_capacity']}"
+        f" with dropped assignments {out['dropped_assignments']} "
+        f"(reported); forward+prefill+{steps} decodes {wall:.3f} s, max "
+        f"memory allocated {out['max_memory_allocated']} B on {card} "
+        "(measured on the card)")
+    return out
+
+
+def moe_bookkeeping(torch, card, popcount, batch=4, seq=256):
+    """(c) granite-moe-3b-a800m's routing bookkeeping on the card: for
+    each of its 32 layers, the top-8 of the router (seeded random
+    weights) over the embedded tokens of a 4 x 256 batch, then
+    ``expert_bitmask_stats(idx, 40, engine=BulkBitwiseEngine("cuda"))``:
+    one ``popcount_rows`` launch a call, the loads equal to
+    ``numpy.bincount``, the masks equal to the plain version's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import BulkBitwiseEngine
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.layers import embed
+    from repro_torch.models.param import init_tree
+    cfg = get_config("granite-moe-3b-a800m")
+    defs = build_model(cfg).param_defs()
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    p = init_tree({"embed": defs["embed"],
+                   "router": defs["layers"]["moe"]["router"]}, gen)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq))
+                            .astype(np.int32)).to("cuda")
+    x2d = embed(p, toks).reshape(batch * seq, cfg.d_model)
+    eng = BulkBitwiseEngine("cuda", device="cuda")
+    e_pad = moe.padded_experts(cfg.moe)
+    launches, ms = 0, []
+    for layer in range(cfg.n_layers):
+        idx = moe.route(x2d, p["router"][layer], cfg.moe, e_pad)[2]
+        before = popcount.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks, loads = moe.expert_bitmask_stats(idx, cfg.moe.n_experts,
+                                                engine=eng)
+        loads = loads.cpu()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if popcount.launches - before != 1:
+            fail(f"expert_bitmask_stats layer {layer}: "
+                 f"{popcount.launches - before} popcount_rows launches")
+        launches += 1
+        want = np.bincount(idx.cpu().numpy().reshape(-1),
+                           minlength=cfg.moe.n_experts)
+        if loads.tolist() != want.tolist():
+            fail(f"expert_bitmask_stats layer {layer}: loads "
+                 f"{loads.tolist()} != bincount {want.tolist()}")
+        plain, plain_loads = moe.expert_bitmask_stats(idx,
+                                                      cfg.moe.n_experts)
+        if not torch.equal(masks.data, plain.data) or \
+                plain_loads.tolist() != want.tolist():
+            fail(f"expert_bitmask_stats layer {layer}: masks differ from "
+                 "the plain version's")
+    out = {"calls": cfg.n_layers, "launches": launches,
+           "tokens": batch * seq, "wall_ms_median": statistics.median(ms)}
+    log(f"moe bookkeeping granite-moe-3b-a800m: {cfg.n_layers} layers x "
+        f"{batch * seq} tokens top-{cfg.moe.top_k} of {cfg.moe.n_experts} "
+        f"experts, expert_bitmask_stats on "
+        f"'cuda': {launches} popcount_rows launches (one a call), loads == "
+        f"bincount, masks == plain; wall ms a call median "
+        f"{out['wall_ms_median']:.3f} (host to host) on {card} (measured on "
+        "the card)")
+    return out
+
+
+def families_phase(torch, card, wrappers):
+    """Phase 9: (a) parity at full width for the MoE, SSM, hybrid and
+    encoder-decoder families, (b) serving at full width and depth, the
+    wide MoE at one layer, (c) the MoE bookkeeping through
+    ``popcount_rows``."""
+    report = {}
+    for arch, (depth, prompt) in FAMILY_PARITY.items():
+        report[f"parity {arch}"] = family_parity(torch, card, arch, depth,
+                                                 prompt)
+        torch.cuda.empty_cache()
+    for arch in FAMILY_SERVE:
+        report[f"serve {arch}"] = lm_serve(torch, card, arch=arch)
+        torch.cuda.empty_cache()
+    report["serve whisper-small"] = whisper_serve(torch, card)
+    torch.cuda.empty_cache()
+    report[f"wide {MOE_WIDE}"] = moe_wide(torch, card)
+    torch.cuda.empty_cache()
+    before = wrappers["popcount_rows"].launches
+    report["bookkeeping"] = moe_bookkeeping(torch, card,
+                                            wrappers["popcount_rows"])
+    calls = report["bookkeeping"]["calls"]
+    if before or wrappers["popcount_rows"].launches != calls:
+        fail(f"phase 9 launched popcount_rows {before} times before the "
+             f"bookkeeping and {wrappers['popcount_rows'].launches - before}"
+             f" in it, not 0 and {calls}")
     torch.cuda.empty_cache()
     return report
 
@@ -2224,6 +2754,16 @@ def main() -> int:
         wrappers, "lm", lambda: lm_phase(torch, card, wrappers))
     log(f"lm phase_s={time.perf_counter() - t_phase:.1f} "
         f"report={json.dumps(lm)} card: {card}")
+    torch.cuda.empty_cache()
+
+    log("== phase 9: the LM stack's other families on the card (MoE, "
+        "Mamba2, Zamba2, Whisper)")
+    t_phase = time.perf_counter()
+    families, launches["lm_families"] = _path_launches(
+        wrappers, "lm_families", lambda: families_phase(torch, card,
+                                                        wrappers))
+    log(f"lm_families phase_s={time.perf_counter() - t_phase:.1f} "
+        f"report={json.dumps(families)} card: {card}")
 
     kernels = []
     for name, _, source, replaces in KERNELS:

@@ -2,8 +2,7 @@
 
 The port's copy of ``repro.configs``: pure Python, byte for byte the
 reference's modules apart from this docstring, with the whole
-``REGISTRY``. The port serves the dense, gemma3 and vlm families; the
-other families' models raise ``NotImplementedError``.
+``REGISTRY``. The port builds, prefills and decodes every family.
 """
 
 from .base import SHAPES, ArchConfig, MoEConfig, SSMConfig, ShapeConfig, \

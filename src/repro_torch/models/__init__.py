@@ -1,4 +1,5 @@
-"""Model zoo: the dense-decoder architectures as PyTorch stacks."""
+"""Model zoo: every family of the reference (dense, MoE, VLM, SSM,
+hybrid, encoder-decoder) as PyTorch stacks."""
 
 from .model import Model, build_model
 from .param import ParamDef, count_params, init_tree

@@ -73,9 +73,9 @@ def out_proj(p, o):
         p["wo"], o.dtype).reshape(h * e, d)
 
 
-def _f32_einsum(spec: str, a, b):
+def _f32_einsum(spec: str, *operands):
     """``einsum`` with ``preferred_element_type=float32``."""
-    return torch.einsum(spec, a.to(torch.float32), b.to(torch.float32))
+    return torch.einsum(spec, *(o.to(torch.float32) for o in operands))
 
 
 # ---------------------------------------------------------------------------

@@ -90,6 +90,16 @@ def mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return _rotate(x, torch.cat(angs, dim=-1))
 
 
+def sinusoidal_positions(n: int, d: int, device) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position embeddings (n, d), in
+    float32 on ``device``."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=device)
+    freqs = torch.exp(-math.log(10000.0) * i / max(half - 1, 1))
+    ang = torch.arange(n, dtype=torch.float32, device=device)[:, None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------

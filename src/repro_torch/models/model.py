@@ -18,6 +18,7 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..core.bitvector import resolve_device
 from . import transformer
+from .moe import padded_experts
 from .param import Tree, count_params, init_tree, map_tree
 
 
@@ -75,9 +76,15 @@ class Model(nn.Module):
         return count_params(self.param_defs())
 
     def n_active_params(self) -> int:
-        """Active parameters per token: every parameter of a dense stack
-        (the port has no MoE family yet)."""
-        return self.n_params()
+        """Active parameters per token (MoE: top_k of E experts)."""
+        cfg = self.cfg
+        if cfg.moe is None:
+            return self.n_params()
+        moe_defs = self.param_defs()["layers"]["moe"]
+        moe_total = count_params(moe_defs) - count_params(
+            {"router": moe_defs["router"]})
+        active = moe_total * cfg.moe.top_k / padded_experts(cfg.moe)
+        return int(self.n_params() - moe_total + active)
 
     # -- compute --------------------------------------------------------------
 

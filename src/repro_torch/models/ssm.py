@@ -1,0 +1,286 @@
+"""Mamba2 block: chunked SSD (state-space duality) + single-step decode.
+
+The SSD dual form (arXiv:2405.21060) splits the sequence into chunks of
+length Q: within a chunk the recurrence is computed as a masked quadratic
+attention-like product (dense matmuls); across chunks a linear scan
+propagates the (H, P, N) state. Prefill uses the chunked form; decode is
+the O(1) recurrent update.
+
+Projections are separate matmuls (wz/wx/wB/wC/wdt) rather than one fused
+in_proj, as in the reference, so the parameter tree carries across key
+for key.
+
+Causal depthwise conv (width 4) is computed as 4 shifted adds; its state
+(last W-1 inputs) is carried in the decode cache.
+
+The reference's ``lax.scan`` over chunks is a Python loop. Its bf16
+products with ``preferred_element_type=float32`` run on f32 copies of
+their operands (``attention._f32_einsum``); ``silu`` is the reference's
+bf16 op sequence (``layers._act``) and ``softplus`` is
+``jax.nn.softplus``'s ``logaddexp(x, 0)``, which ``F.softplus`` is not
+above its threshold of 20.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from .attention import _f32_einsum
+from .layers import _act, cast, rmsnorm
+from .param import ParamDef
+
+
+class SSMDims(NamedTuple):
+    d_inner: int
+    n_heads: int
+    head_dim: int
+    n_groups: int
+    d_state: int
+    gn: int
+    conv_w: int
+
+
+def ssm_dims(cfg: ArchConfig) -> SSMDims:
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    return SSMDims(d_inner, n_heads, s.head_dim, s.n_groups, s.d_state,
+                   s.n_groups * s.d_state, s.conv_width)
+
+
+def ssm_defs(cfg: ArchConfig, layers: int, dtype=torch.float32):
+    d = cfg.d_model
+    dims = ssm_dims(cfg)
+    di, h, gn, w = dims.d_inner, dims.n_heads, dims.gn, dims.conv_w
+    lef = ("layers", "embed", "ffn")
+    return {
+        "wz": ParamDef((layers, d, di), lef, dtype),
+        "wx": ParamDef((layers, d, di), lef, dtype),
+        "wB": ParamDef((layers, d, gn), ("layers", "embed", None), dtype),
+        "wC": ParamDef((layers, d, gn), ("layers", "embed", None), dtype),
+        "wdt": ParamDef((layers, d, h), ("layers", "embed", "ssm_heads"),
+                        dtype),
+        "dt_bias": ParamDef((layers, h), ("layers", "ssm_heads"), dtype,
+                            init="zeros"),
+        "A_log": ParamDef((layers, h), ("layers", "ssm_heads"), dtype,
+                          init="zeros"),
+        "Dskip": ParamDef((layers, h), ("layers", "ssm_heads"), dtype,
+                          init="ones"),
+        "conv_x": ParamDef((layers, w, di), ("layers", None, "ffn"), dtype,
+                           scale=0.5),
+        "conv_B": ParamDef((layers, w, gn), ("layers", None, None), dtype,
+                           scale=0.5),
+        "conv_C": ParamDef((layers, w, gn), ("layers", None, None), dtype,
+                           scale=0.5),
+        "norm": ParamDef((layers, di), ("layers", "ffn"), dtype,
+                         init="ones"),
+        "wo": ParamDef((layers, di, d), ("layers", "ffn", "embed"), dtype),
+    }
+
+
+def _silu(x):
+    return _act("silu", x)
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: ``lax.logaddexp(x, 0)``, its op sequence."""
+    out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, out)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv: x (B,S,C), w (W,C). If `state` (B,W-1,C) is
+    given it provides left context (prefill continuation)."""
+    width = w.shape[0]
+    if state is None:
+        ctx = torch.zeros((x.shape[0], width - 1, x.shape[2]),
+                          dtype=x.dtype, device=x.device)
+    else:
+        ctx = state.to(x.dtype)
+    full = torch.cat([ctx, x], dim=1)
+    out = torch.zeros_like(x)
+    s = x.shape[1]
+    for i in range(width):
+        out = out + full[:, i:i + s] * cast(w[i], x.dtype)
+    return out
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
+                bm: torch.Tensor, cm: torch.Tensor, chunk: int,
+                initial_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD dual form.
+
+    x (B,S,H,P), dt/dA (B,S,H) f32, bm/cm (B,S,G,N).
+    Returns (y (B,S,H,P), final_state (B,H,P,N) f32)."""
+    b, s_orig, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    q = min(chunk, s_orig)
+    pad = (-s_orig) % q
+    if pad:
+        # Zero-padding is exact: padded steps have dt=0 => no state update,
+        # zero decay contribution, zero output rows (sliced off below).
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        dA = F.pad(dA, (0, 0, 0, pad))
+        bm = F.pad(bm, (0, 0, 0, 0, 0, pad))
+        cm = F.pad(cm, (0, 0, 0, 0, 0, pad))
+    s = s_orig + pad
+    nc = s // q
+    rep = h // g
+
+    def c(t):  # chunk reshape (B,S,...) -> (B,nc,Q,...)
+        return t.reshape((b, nc, q) + tuple(t.shape[2:]))
+
+    xc = c(x)
+    dtc = c(dt)
+    dac = c(dA)
+    bc = c(bm).repeat_interleave(rep, dim=3)  # (B,nc,Q,H,N)
+    cc = c(cm).repeat_interleave(rep, dim=3)
+
+    a_cs = torch.cumsum(dac, dim=2)  # (B,nc,Q,H) cumulative log-decay
+
+    # --- intra-chunk (quadratic within Q) ---------------------------------
+    # scores[i,j] = (C_i . B_j) * exp(a_i - a_j) * dt_j   for i >= j
+    cb = _f32_einsum("bcqhn,bckhn->bcqkh", cc, bc)
+    decay = torch.exp(a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :])
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    scores = cb * decay * dtc[:, :, None, :, :]
+    scores = torch.where(tri[None, None, :, :, None], scores, 0.0)
+    y_intra = _f32_einsum("bcqkh,bckhp->bcqhp", scores.to(x.dtype), xc)
+
+    # --- chunk states ------------------------------------------------------
+    # state_c = sum_j exp(a_last - a_j) * dt_j * B_j (x) x_j
+    w = torch.exp(a_cs[:, :, -1:, :] - a_cs) * dtc  # (B,nc,Q,H)
+    states = _f32_einsum("bckh,bckhn,bckhp->bchpn", w.to(x.dtype), bc, xc)
+
+    # --- inter-chunk linear scan -------------------------------------------
+    chunk_decay = torch.exp(a_cs[:, :, -1, :])  # (B,nc,H)
+    s_prev = (torch.zeros((b, h, p, n), dtype=torch.float32,
+                          device=x.device)
+              if initial_state is None else initial_state.to(torch.float32))
+    prev = []
+    for ci in range(nc):
+        prev.append(s_prev)
+        s_prev = s_prev * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    prev_states = torch.stack(prev, dim=1)  # (B,nc,H,P,N)
+
+    y_inter = _f32_einsum("bcqh,bcqhn,bchpn->bcqhp",
+                          torch.exp(a_cs).to(x.dtype), cc,
+                          prev_states.to(x.dtype))
+    y = (y_intra + y_inter).reshape(b, s, h, p)[:, :s_orig]
+    return y.to(x.dtype), s_prev
+
+
+def ssm_block(p, x: torch.Tensor, cfg: ArchConfig,
+              cache: Optional[dict] = None, pos=None,
+              return_cache: bool = False):
+    """Full Mamba2 block. x (B,S,d).
+
+    Forward: cache=None. Prefill: return_cache=True -> returns
+    (out, cache). Decode: cache given, S==1 -> recurrent update (``pos``
+    is not read: the state carries the position)."""
+    dims = ssm_dims(cfg)
+    b, s, d = x.shape
+    decode = cache is not None and s == 1 and not return_cache
+
+    z = x @ cast(p["wz"], x.dtype)
+    xin = x @ cast(p["wx"], x.dtype)
+    bproj = x @ cast(p["wB"], x.dtype)
+    cproj = x @ cast(p["wC"], x.dtype)
+    dt = (x @ cast(p["wdt"], x.dtype)).to(torch.float32)
+
+    if decode:
+        new_cache = {}
+        window_x = torch.cat([cache["conv_x"].to(x.dtype), xin], 1)
+        window_b = torch.cat([cache["conv_B"].to(x.dtype), bproj], 1)
+        window_c = torch.cat([cache["conv_C"].to(x.dtype), cproj], 1)
+        new_cache["conv_x"] = window_x[:, 1:]
+        new_cache["conv_B"] = window_b[:, 1:]
+        new_cache["conv_C"] = window_c[:, 1:]
+        xin = torch.einsum("bwc,wc->bc", window_x,
+                           cast(p["conv_x"], x.dtype))
+        bproj = torch.einsum("bwc,wc->bc", window_b,
+                             cast(p["conv_B"], x.dtype))
+        cproj = torch.einsum("bwc,wc->bc", window_c,
+                             cast(p["conv_C"], x.dtype))
+        xin, bproj, cproj = (_silu(t) for t in (xin, bproj, cproj))
+
+        dtv = _softplus(dt[:, 0] + p["dt_bias"].to(torch.float32))
+        a = -torch.exp(p["A_log"].to(torch.float32))  # (H,)
+        da = torch.exp(dtv * a)  # (B,H)
+        rep = dims.n_heads // dims.n_groups
+        xh = xin.reshape(b, dims.n_heads, dims.head_dim)
+        bh = bproj.reshape(b, dims.n_groups, dims.d_state) \
+            .repeat_interleave(rep, dim=1)
+        ch = cproj.reshape(b, dims.n_groups, dims.d_state) \
+            .repeat_interleave(rep, dim=1)
+        state = cache["state"].to(torch.float32)
+        state = state * da[:, :, None, None] + _f32_einsum(
+            "bh,bhn,bhp->bhpn", dtv, bh, xh)
+        y = _f32_einsum("bhn,bhpn->bhp", ch, state)
+        y = y + p["Dskip"].to(torch.float32)[None, :, None] \
+            * xh.to(torch.float32)
+        y = y.reshape(b, 1, dims.d_inner).to(x.dtype)
+        new_cache["state"] = state
+        z = z.reshape(b, 1, dims.d_inner)
+    else:
+        xin_raw, b_raw, c_raw = xin, bproj, cproj
+        xin = _silu(_causal_conv(xin, p["conv_x"]))
+        bproj = _silu(_causal_conv(bproj, p["conv_B"]))
+        cproj = _silu(_causal_conv(cproj, p["conv_C"]))
+        dtv = _softplus(dt + p["dt_bias"].to(torch.float32))
+        a = -torch.exp(p["A_log"].to(torch.float32))
+        da = dtv * a  # (B,S,H) log-decay
+        xh = xin.reshape(b, s, dims.n_heads, dims.head_dim)
+        bh = bproj.reshape(b, s, dims.n_groups, dims.d_state)
+        ch = cproj.reshape(b, s, dims.n_groups, dims.d_state)
+        init_state = cache["state"] if cache is not None else None
+        y, final_state = ssd_chunked(xh, dtv, da, bh, ch, cfg.ssm.chunk,
+                                     init_state)
+        y = y + p["Dskip"].to(x.dtype)[None, None, :, None] * xh
+        y = y.reshape(b, s, dims.d_inner)
+        if return_cache:
+            w = dims.conv_w
+            new_cache = {
+                "conv_x": xin_raw[:, -(w - 1):],
+                "conv_B": b_raw[:, -(w - 1):],
+                "conv_C": c_raw[:, -(w - 1):],
+                "state": final_state,
+            }
+
+    # the gate product feeds rmsnorm's f32 statistics unrounded, as in
+    # the reference's compiled layer body (see transformer._residual)
+    gated = y.to(torch.float32) * _silu(z).to(torch.float32)
+    y = rmsnorm(p["norm"], gated, dtype=x.dtype)
+    out = y @ cast(p["wo"], x.dtype)
+    if decode or return_cache:
+        return out, new_cache
+    return out
+
+
+def ssm_cache_defs(cfg: ArchConfig, layers: int, batch: int,
+                   dtype=torch.bfloat16):
+    """ParamDefs of the decode cache."""
+    dims = ssm_dims(cfg)
+    w = dims.conv_w
+    return {
+        "conv_x": ParamDef((layers, batch, w - 1, dims.d_inner),
+                           ("layers", "batch", None, "ffn"), dtype,
+                           init="zeros"),
+        "conv_B": ParamDef((layers, batch, w - 1, dims.gn),
+                           ("layers", "batch", None, None), dtype,
+                           init="zeros"),
+        "conv_C": ParamDef((layers, batch, w - 1, dims.gn),
+                           ("layers", "batch", None, None), dtype,
+                           init="zeros"),
+        "state": ParamDef((layers, batch, dims.n_heads, dims.head_dim,
+                           dims.d_state),
+                          ("layers", "batch", "ssm_heads", None, None),
+                          torch.float32, init="zeros"),
+    }

@@ -1,8 +1,9 @@
-"""The dense-decoder stack: dense, gemma3 (window and rope-theta pattern)
-and vlm (M-RoPE, vision-embedding scatter) families. The reference's
-``lax.scan`` over stacked layers is a Python loop over the stacked
-tensors' first axis; gemma3's per-layer windows and thetas are numbers
-the loop hands each layer.
+"""Family stacks: dense / MoE / VLM decoders, SSM (Mamba2), hybrid
+(Zamba2), and encoder-decoder (Whisper). The reference's ``lax.scan``
+over stacked layers is a Python loop over the stacked tensors' first
+axis; gemma3's per-layer windows and thetas are numbers the loop hands
+each layer, and zamba2's shared block runs after each group of
+``shared_attn_every`` layers.
 
 Public entry points (used by model.py):
   model_defs(cfg)                          parameter tree
@@ -11,8 +12,8 @@ Public entry points (used by model.py):
   decode_step(params, cfg, caches, batch)  (logits, new caches)
   cache_defs(cfg, batch, skv)              decode-cache ParamDef tree
 
-The moe, ssm, hybrid and encoder-decoder families raise
-``NotImplementedError`` naming their ROADMAP item.
+Expert parallelism over a mesh is ROADMAP queue 1, item 12
+(``moe.moe_block`` raises when handed one).
 """
 
 from __future__ import annotations
@@ -23,27 +24,14 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn
-from .layers import (COMPUTE_DTYPE, embed, embed_defs, mlp, mlp_defs, mrope,
-                     rmsnorm, rmsnorm_def, rope, rounded, unembed)
+from . import moe as moe_mod
+from . import ssm as ssm_mod
+from .layers import (COMPUTE_DTYPE, cast, embed, embed_defs, mlp, mlp_defs,
+                     mrope, rmsnorm, rmsnorm_def, rope, rounded,
+                     sinusoidal_positions, unembed)
 from .param import ParamDef, map_tree
 
 Tree = Dict[str, Any]
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for a family whose stack the port does not have yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the moe family is not ported yet (ROADMAP queue 1, "
-            "item 11b: models/moe.py)")
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP "
-            "queue 1, item 11c: models/ssm.py)")
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet "
-            "(ROADMAP queue 1, item 11d: whisper)")
 
 
 # ---------------------------------------------------------------------------
@@ -51,30 +39,80 @@ def check_ported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def model_defs(cfg: ArchConfig) -> Tree:
-    check_ported(cfg)
-    d, layers = cfg.d_model, cfg.n_layers
-    defs: Tree = embed_defs(cfg.vocab, d, cfg.tie_embeddings)
-    defs["final_norm"] = rmsnorm_def(d)
-    defs["layers"] = {
+def _decoder_layer_defs(cfg: ArchConfig, layers: int) -> Tree:
+    d = cfg.d_model
+    defs: Tree = {
         "ln1": rmsnorm_def(d, layers),
         "ln2": rmsnorm_def(d, layers),
         "attn": attn.attn_defs(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                                layers, cfg.qkv_bias),
-        "mlp": mlp_defs(d, cfg.d_ff, layers),
     }
+    if cfg.moe is not None:
+        defs["moe"] = moe_mod.moe_defs(cfg, layers)
+    else:
+        defs["mlp"] = mlp_defs(d, cfg.d_ff, layers)
+    return defs
+
+
+def model_defs(cfg: ArchConfig) -> Tree:
+    d = cfg.d_model
+    defs: Tree = embed_defs(cfg.vocab, d, cfg.tie_embeddings)
+    defs["final_norm"] = rmsnorm_def(d)
+
+    if cfg.family == "ssm":
+        defs["layers"] = dict(ssm_mod.ssm_defs(cfg, cfg.n_layers))
+        defs["layers"]["ln"] = rmsnorm_def(d, cfg.n_layers)
+    elif cfg.family == "hybrid":
+        defs["layers"] = dict(ssm_mod.ssm_defs(cfg, cfg.n_layers))
+        defs["layers"]["ln"] = rmsnorm_def(d, cfg.n_layers)
+        defs["shared"] = {
+            "ln1": rmsnorm_def(d), "ln2": rmsnorm_def(d),
+            "attn": attn.attn_defs(d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim, 1, cfg.qkv_bias),
+            "mlp": mlp_defs(d, cfg.d_ff, 1),
+        }
+    elif cfg.enc_dec:
+        defs["enc_layers"] = {
+            "ln1": rmsnorm_def(d, cfg.n_enc_layers),
+            "ln2": rmsnorm_def(d, cfg.n_enc_layers),
+            "attn": attn.attn_defs(d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim, cfg.n_enc_layers),
+            "mlp": mlp_defs(d, cfg.d_ff, cfg.n_enc_layers),
+        }
+        defs["enc_norm"] = rmsnorm_def(d)
+        dec = _decoder_layer_defs(cfg, cfg.n_layers)
+        dec["ln3"] = rmsnorm_def(d, cfg.n_layers)
+        dec["cross"] = attn.attn_defs(d, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.head_dim, cfg.n_layers)
+        defs["layers"] = dec
+    else:  # dense / moe / vlm decoders
+        defs["layers"] = _decoder_layer_defs(cfg, cfg.n_layers)
     return defs
 
 
 def cache_defs(cfg: ArchConfig, batch: int, skv: int) -> Tree:
     """Decode-cache tree."""
-    check_ported(cfg)
-    shape = (cfg.n_layers, batch, skv, cfg.n_kv_heads, cfg.head_dim)
     kv = ("layers", "batch", "kv_seq", "kv_heads", None)
-    return {"self": {
-        "k": ParamDef(shape, kv, COMPUTE_DTYPE, init="zeros"),
-        "v": ParamDef(shape, kv, COMPUTE_DTYPE, init="zeros"),
-    }}
+
+    def kv_pair(layers: int, length: int) -> Tree:
+        shape = (layers, batch, length, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": ParamDef(shape, kv, COMPUTE_DTYPE, init="zeros"),
+                "v": ParamDef(shape, kv, COMPUTE_DTYPE, init="zeros")}
+
+    if cfg.family == "ssm":
+        return {"ssm": ssm_mod.ssm_cache_defs(cfg, cfg.n_layers, batch)}
+    if cfg.family == "hybrid":
+        n_shared = cfg.n_layers // cfg.shared_attn_every
+        return {
+            "ssm": ssm_mod.ssm_cache_defs(cfg, cfg.n_layers, batch),
+            "shared": kv_pair(n_shared, skv),
+        }
+    if cfg.enc_dec:
+        return {
+            "self": kv_pair(cfg.n_layers, skv),
+            "cross": kv_pair(cfg.n_layers, cfg.n_frames),
+        }
+    return {"self": kv_pair(cfg.n_layers, skv)}
 
 
 # ---------------------------------------------------------------------------
@@ -144,9 +182,18 @@ def _attn_block(lp, cfg, x, positions, theta, window, block_kv):
 
 
 def _ffn_layer(lp, cfg, x):
-    """x (the f32 sum of ``_residual``) + mlp(ln2(x)), in bf16."""
+    """x (the f32 sum of ``_residual``) + mlp(ln2(x)) or moe(ln2(x)), in
+    bf16; also returns the MoE aux loss (0 for an mlp)."""
     h = rmsnorm(lp["ln2"], x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
-    return x.to(COMPUTE_DTYPE) + mlp(lp["mlp"], h, cfg.act)
+    if cfg.moe is not None:
+        y, aux = moe_mod.moe_block(lp["moe"], h, cfg, None, cfg.act)
+    else:
+        y, aux = mlp(lp["mlp"], h, cfg.act), _zero(h.device)
+    return x.to(COMPUTE_DTYPE) + y, aux
+
+
+def _zero(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
 
 
 def _layer(layers: Tree, i: int) -> Tree:
@@ -188,17 +235,145 @@ def _positions(cfg, batch, b, s, device):
 def forward(params, cfg: ArchConfig, batch,
             block_kv: int = attn.DEFAULT_BLOCK_KV):
     """Returns (logits (B,S,V), aux_loss scalar)."""
-    check_ported(cfg)
+    if cfg.enc_dec:
+        return _whisper_forward(params, cfg, batch, block_kv)
+    if cfg.family == "ssm":
+        return _ssm_forward(params, cfg, batch)
+    if cfg.family == "hybrid":
+        return _hybrid_forward(params, cfg, batch, block_kv)
+
     b, s = batch["tokens"].shape
     x = _embed_in(params, cfg, batch)
     positions = _positions(cfg, batch, b, s, x.device)
+    aux = _zero(x.device)
     for i, (window, theta) in enumerate(_layer_scalars(cfg, s)):
         lp = _layer(params["layers"], i)
         x, _, _ = _attn_block(lp, cfg, x, positions, theta, window, block_kv)
-        x = _ffn_layer(lp, cfg, x)
+        x, aux_l = _ffn_layer(lp, cfg, x)
+        aux = aux + aux_l
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params, x), aux
+
+
+def _ssm_layer(lp, cfg, x, **kw):
+    """x + ssm_block(ln(x)); with ``cache`` or ``return_cache`` also the
+    layer's new cache."""
+    h = rmsnorm(lp["ln"], x, cfg.norm_eps)
+    lp_ssm = {k: v for k, v in lp.items() if k != "ln"}
+    out = ssm_mod.ssm_block(lp_ssm, h, cfg, **kw)
+    if isinstance(out, tuple):
+        return x + out[0], out[1]
+    return x + out
+
+
+def _ssm_forward(params, cfg, batch):
+    x = _embed_in(params, cfg, batch)
+    for i in range(cfg.n_layers):
+        x = _ssm_layer(_layer(params["layers"], i), cfg, x)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params, x), _zero(x.device)
+
+
+def _shared_block(sp, cfg, x, positions, block_kv, kv_cache=None, pos=None):
+    """Zamba2 weight-tied shared attention+MLP block. Params have a leading
+    length-1 'layers' dim (sliced here). Returns (x, (k,v)) in forward and
+    prefill, or (x, the updated caches) in decode when kv_cache is given.
+    The reference runs it outside any ``lax.scan``, op by op, so its
+    residual sums round to bf16 as eager adds do."""
+    sl = _layer(sp, 0)
+    h = rmsnorm(sl["ln1"], x, cfg.norm_eps)
+    q, k, v = attn.qkv_proj(sl["attn"], h)
+    q, k = _apply_rope(cfg, q, k, positions, cfg.rope_theta)
+    if kv_cache is None:
+        o = attn.flash_attention(q, k, v, causal=True, block_kv=block_kv)
+        new_kv = (k, v)
+    else:
+        kc, vc = attn.update_cache(*kv_cache, k, v, pos)
+        o = attn.decode_attention(q, kc, vc, pos)
+        new_kv = (kc, vc)
+    x = x + attn.out_proj(sl["attn"], o)
+    h2 = rmsnorm(sl["ln2"], x, cfg.norm_eps)
+    x = x + mlp(sl["mlp"], h2, cfg.act)
+    return x, new_kv
+
+
+def _groups(cfg):
+    """Zamba2's stack: ``n_layers / shared_attn_every`` groups of layer
+    indices, each followed by the shared block."""
+    per = cfg.shared_attn_every
+    return [range(g * per, (g + 1) * per)
+            for g in range(cfg.n_layers // per)]
+
+
+def _hybrid_forward(params, cfg, batch, block_kv):
+    b, s = batch["tokens"].shape
+    x = _embed_in(params, cfg, batch)
+    positions = _positions(cfg, batch, b, s, x.device)
+    for group in _groups(cfg):
+        for i in group:
+            x = _ssm_layer(_layer(params["layers"], i), cfg, x)
+        x, _ = _shared_block(params["shared"], cfg, x, positions, block_kv)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params, x), _zero(x.device)
+
+
+def _encode(params, cfg, batch, block_kv):
+    """Whisper's encoder over the stub frontend's frame embeddings
+    (B,F,d): the normalized encoder output."""
+    frames = batch["frames"].to(COMPUTE_DTYPE)
+    f = frames.shape[1]
+    xe = frames + sinusoidal_positions(f, cfg.d_model, frames.device).to(
+        frames.dtype)[None]
+    for i in range(cfg.n_enc_layers):
+        lp = _layer(params["enc_layers"], i)
+        h = rmsnorm(lp["ln1"], xe, cfg.norm_eps)
+        q, k, v = attn.qkv_proj(lp["attn"], h)
+        o = attn.flash_attention(q, k, v, causal=False, block_kv=block_kv)
+        xe, _ = _ffn_layer(lp, cfg,
+                           _residual(xe, attn.out_proj(lp["attn"], o)))
+    return rmsnorm(params["enc_norm"], xe, cfg.norm_eps)
+
+
+def _whisper_layer(lp, cfg, x, enc_out, block_kv):
+    """One decoder layer over the whole sequence: (x, k, v, cross k, cross
+    v)."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    q, k, v = attn.qkv_proj(lp["attn"], h)
+    o = attn.flash_attention(q, k, v, causal=True, block_kv=block_kv)
+    x = _residual(x, attn.out_proj(lp["attn"], o))
+    hc = rmsnorm(lp["ln3"], x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
+    qc, kc, vc = _cross_qkv(lp["cross"], hc, enc_out)
+    oc = attn.flash_attention(qc, kc, vc, causal=False, block_kv=block_kv)
+    x, _ = _ffn_layer(lp, cfg, _residual(x.to(COMPUTE_DTYPE),
+                                         attn.out_proj(lp["cross"], oc)))
+    return x, k, v, kc, vc
+
+
+def _whisper_embed(params, cfg, tokens):
+    s = tokens.shape[1]
+    return embed(params, tokens) + sinusoidal_positions(
+        s, cfg.d_model, tokens.device).to(COMPUTE_DTYPE)[None]
+
+
+def _whisper_forward(params, cfg, batch, block_kv):
+    enc_out = _encode(params, cfg, batch, block_kv)
+    x = _whisper_embed(params, cfg, batch["tokens"])
+    for i in range(cfg.n_layers):
+        x = _whisper_layer(_layer(params["layers"], i), cfg, x, enc_out,
+                           block_kv)[0]
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params, x), _zero(x.device)
+
+
+def _cross_qkv(p, x_dec, enc_out):
+    q = attn._proj(x_dec, p["wq"])
+    k = attn._proj(enc_out, p["wk"])
+    v = attn._proj(enc_out, p["wv"])
+    if "bq" in p:
+        q = q + cast(p["bq"], x_dec.dtype)
+        k = k + cast(p["bk"], enc_out.dtype)
+        v = v + cast(p["bv"], enc_out.dtype)
+    return q, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +384,13 @@ def forward(params, cfg: ArchConfig, batch,
 def prefill(params, cfg: ArchConfig, batch, skv: Optional[int] = None,
             block_kv: int = attn.DEFAULT_BLOCK_KV):
     """Returns (last-token logits (B,V), caches sized for skv)."""
-    check_ported(cfg)
+    if cfg.enc_dec:
+        return _whisper_prefill(params, cfg, batch, skv, block_kv)
+    if cfg.family == "ssm":
+        return _ssm_prefill(params, cfg, batch)
+    if cfg.family == "hybrid":
+        return _hybrid_prefill(params, cfg, batch, skv, block_kv)
+
     b, s = batch["tokens"].shape
     skv = skv or s
     x = _embed_in(params, cfg, batch)
@@ -218,7 +399,7 @@ def prefill(params, cfg: ArchConfig, batch, skv: Optional[int] = None,
     for i, (window, theta) in enumerate(_layer_scalars(cfg, skv)):
         lp = _layer(params["layers"], i)
         x, k, v = _attn_block(lp, cfg, x, positions, theta, window, block_kv)
-        x = _ffn_layer(lp, cfg, x)
+        x, _ = _ffn_layer(lp, cfg, x)
         ks.append(_pad_cache(k, skv))
         vs.append(_pad_cache(v, skv))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -233,6 +414,64 @@ def _pad_cache(k: torch.Tensor, skv: int) -> torch.Tensor:
     return k.to(COMPUTE_DTYPE)
 
 
+def _stack_trees(trees: List[Tree]) -> Tree:
+    """Stack a list of equal-keyed trees leaf by leaf along a new axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _ssm_prefill(params, cfg, batch):
+    x = _embed_in(params, cfg, batch)
+    caches = []
+    for i in range(cfg.n_layers):
+        x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x,
+                              return_cache=True)
+        caches.append(cache)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params, x[:, -1]), {"ssm": _stack_trees(caches)}
+
+
+def _hybrid_prefill(params, cfg, batch, skv, block_kv):
+    b, s = batch["tokens"].shape
+    skv = skv or s
+    x = _embed_in(params, cfg, batch)
+    positions = _positions(cfg, batch, b, s, x.device)
+    ssm_caches, shared_k, shared_v = [], [], []
+    for group in _groups(cfg):
+        for i in group:
+            x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x,
+                                  return_cache=True)
+            ssm_caches.append(cache)
+        x, (k, v) = _shared_block(params["shared"], cfg, x, positions,
+                                  block_kv)
+        shared_k.append(_pad_cache(k, skv))
+        shared_v.append(_pad_cache(v, skv))
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params, x[:, -1]), {
+        "ssm": _stack_trees(ssm_caches),
+        "shared": {"k": torch.stack(shared_k), "v": torch.stack(shared_v)},
+    }
+
+
+def _whisper_prefill(params, cfg, batch, skv, block_kv):
+    enc_out = _encode(params, cfg, batch, block_kv)
+    tokens = batch["tokens"]
+    skv = skv or tokens.shape[1]
+    x = _whisper_embed(params, cfg, tokens)
+    ys = []
+    for i in range(cfg.n_layers):
+        x, k, v, kc, vc = _whisper_layer(_layer(params["layers"], i), cfg,
+                                         x, enc_out, block_kv)
+        ys.append((_pad_cache(k, skv), _pad_cache(v, skv),
+                   kc.to(COMPUTE_DTYPE), vc.to(COMPUTE_DTYPE)))
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    sk, sv, ck, cv = (torch.stack(t) for t in zip(*ys))
+    return unembed(params, x[:, -1]), {"self": {"k": sk, "v": sv},
+                                       "cross": {"k": ck, "v": cv}}
+
+
 # ---------------------------------------------------------------------------
 # Decode: one token against seq_len caches
 # ---------------------------------------------------------------------------
@@ -240,7 +479,13 @@ def _pad_cache(k: torch.Tensor, skv: int) -> torch.Tensor:
 
 def decode_step(params, cfg: ArchConfig, caches, batch):
     """batch: tokens (B,1), pos (B,). Returns (logits (B,V), new caches)."""
-    check_ported(cfg)
+    if cfg.enc_dec:
+        return _whisper_decode(params, cfg, caches, batch)
+    if cfg.family == "ssm":
+        return _ssm_decode(params, cfg, caches, batch)
+    if cfg.family == "hybrid":
+        return _hybrid_decode(params, cfg, caches, batch)
+
     tokens, pos = batch["tokens"], batch["pos"]
     b = tokens.shape[0]
     x = _scale_embed(cfg, embed(params, tokens))
@@ -257,9 +502,79 @@ def decode_step(params, cfg: ArchConfig, caches, batch):
         kc, vc = attn.update_cache(caches["self"]["k"][i],
                                    caches["self"]["v"][i], k, v, pos)
         o = attn.decode_attention(q, kc, vc, pos, window=window)
-        x = _ffn_layer(lp, cfg, _residual(x, attn.out_proj(lp["attn"], o)))
+        x, _ = _ffn_layer(lp, cfg,
+                          _residual(x, attn.out_proj(lp["attn"], o)))
         ks.append(kc)
         vs.append(vc)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x[:, -1]), {
         "self": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def _ssm_decode(params, cfg, caches, batch):
+    x = embed(params, batch["tokens"])
+    new = []
+    for i in range(cfg.n_layers):
+        x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x,
+                              cache=_layer(caches["ssm"], i))
+        new.append(cache)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params, x[:, -1]), {"ssm": _stack_trees(new)}
+
+
+def _hybrid_decode(params, cfg, caches, batch):
+    tokens, pos = batch["tokens"], batch["pos"]
+    x = embed(params, tokens)
+    positions = pos[:, None]
+    new_ssm, new_k, new_v = [], [], []
+    for g, group in enumerate(_groups(cfg)):
+        for i in group:
+            x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x,
+                                  cache=_layer(caches["ssm"], i))
+            new_ssm.append(cache)
+        kv = (caches["shared"]["k"][g], caches["shared"]["v"][g])
+        x, (kc, vc) = _shared_block(params["shared"], cfg, x, positions,
+                                    attn.DEFAULT_BLOCK_KV, kv_cache=kv,
+                                    pos=pos)
+        new_k.append(kc)
+        new_v.append(vc)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params, x[:, -1]), {
+        "ssm": _stack_trees(new_ssm),
+        "shared": {"k": torch.stack(new_k), "v": torch.stack(new_v)},
+    }
+
+
+def _whisper_decode(params, cfg, caches, batch):
+    tokens, pos = batch["tokens"], batch["pos"]
+    b = tokens.shape[0]
+    x = embed(params, tokens)
+    # sinusoidal position of the current step, gathered per sequence
+    skv = caches["self"]["k"].shape[2]
+    pos_table = sinusoidal_positions(skv, cfg.d_model, x.device).to(x.dtype)
+    x = x + pos_table[pos.long()][:, None]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        ck, cv = caches["cross"]["k"][i], caches["cross"]["v"][i]
+        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        q, k, v = attn.qkv_proj(lp["attn"], h)
+        kc, vc = attn.update_cache(caches["self"]["k"][i],
+                                   caches["self"]["v"][i], k, v, pos)
+        o = attn.decode_attention(q, kc, vc, pos)
+        x = _residual(x, attn.out_proj(lp["attn"], o))
+        hc = rmsnorm(lp["ln3"], x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
+        # the reference projects the cross query without ``bq`` here
+        qc = attn._proj(hc, lp["cross"]["wq"])
+        f = ck.shape[1]
+        oc = attn.decode_attention(
+            qc, ck, cv, torch.full((b,), f - 1, dtype=torch.int32,
+                                   device=x.device))
+        x, _ = _ffn_layer(lp, cfg, _residual(x.to(COMPUTE_DTYPE),
+                                             attn.out_proj(lp["cross"], oc)))
+        ks.append(kc)
+        vs.append(vc)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params, x[:, -1]), {
+        "self": {"k": torch.stack(ks), "v": torch.stack(vs)},
+        "cross": caches["cross"]}

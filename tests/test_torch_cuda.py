@@ -2,8 +2,9 @@
 serving slice on backend "cuda" against the committed reference tokens,
 the binary-LM example through the XNOR-popcount kernel, the DRAM
 model and the PIM runtime on it with their rows on the card against the
-CPU, and the LM path: the document filter through the scan kernel and a
-reduced qwen2.5-3b on the card against the CPU.
+CPU, and the LM path: the document filter through the scan kernel, the
+reduced configs of every family on the card against the CPU, and the
+MoE bookkeeping through the popcount kernel.
 
 Imports nothing of JAX or of the JAX package, so it runs on a GPU machine
 that has only PyTorch:
@@ -643,6 +644,142 @@ def test_reduced_qwen_on_card_matches_cpu(cuda):
     for i in range(4):
         fwd = got[0][:, i]
         assert float((got[2 + i] - fwd).abs().max() / fwd.abs().max()) < 1e-1
+
+
+def _prefill_and_decode(model, params, toks, extra, dev, prompt=16,
+                        steps=4):
+    """Forward logits past the prompt, prefill logits and ``steps``
+    teacher-forced decode logits, on the CPU as float32."""
+    t = toks.to(dev)
+    ex = {k: v.to(dev) for k, v in extra.items()}
+    out = [model.forward(params, dict(ex, tokens=t))[0][:, prompt:]]
+    logits, caches = model.prefill(params, dict(ex, tokens=t[:, :prompt]),
+                                   skv=prompt + steps)
+    out.append(logits)
+    for i in range(steps):
+        logits, caches = model.decode_step(
+            params, caches, {"tokens": t[:, prompt + i:prompt + i + 1],
+                             "pos": torch.full((t.shape[0],), prompt + i,
+                                               dtype=torch.int32,
+                                               device=dev)})
+        out.append(logits)
+    return [o.float().cpu() for o in out]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "qwen3-moe-235b-a22b", "mamba2-780m",
+                                  "whisper-small"])
+def test_reduced_family_on_card_matches_cpu(cuda, arch):
+    """The reduced MoE, SSM and encoder-decoder configs on the card
+    against the CPU port on the same weights: forward, prefill and four
+    teacher-forced decode steps within 5e-2 max-rel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20))
+                            .astype(np.int32))
+    extra = {}
+    if cfg.enc_dec:
+        extra["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    want = _prefill_and_decode(model, cpu, toks, extra, "cpu")
+    got = _prefill_and_decode(model, _tree_to(cpu, cuda), toks, extra,
+                              cuda)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max() / w.abs().max()) <= 5e-2
+
+
+def test_reduced_zamba2_on_card_matches_cpu_group_by_group(cuda):
+    """zamba2's reduced stack is chaotic at its init (see
+    tests/test_torch_models.py): each group of six SSM layers and the
+    shared block after it runs on the card from the CPU's input to that
+    group, in forward, prefill (with its caches) and a decode step, and
+    agrees with the CPU within 5e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tt
+    cfg = get_config("zamba2-2.7b").reduced()
+    cpu = build_model(cfg).init(0, device="cpu")
+    card = _tree_to(cpu, cuda)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))
+                            .astype(np.int32))
+    per = cfg.shared_attn_every
+
+    def rel(g, w):
+        return float((g.float().cpu() - w.float()).abs().max()
+                     / w.float().abs().max())
+
+    def group(params, x, g, dev, **kw):
+        """Group g on device ``dev`` from ``x``: (x, ssm caches, k, v)."""
+        x = x.to(dev)
+        caches = []
+        for i in range(g * per, (g + 1) * per):
+            layer_kw = dict(kw)
+            if "caches" in kw:
+                layer_kw = {"cache": _tree_to(tt._layer(kw["caches"], i),
+                                              dev)}
+            out = tt._ssm_layer(tt._layer(params["layers"], i), cfg, x,
+                                **layer_kw)
+            x, c = out if isinstance(out, tuple) else (out, None)
+            caches.append(c)
+        n = x.shape[1]
+        if "caches" in kw:
+            pos = torch.full((2,), 16, dtype=torch.int32, device=dev)
+            kv = tuple(a[g].to(dev) for a in (kw["kv"]["k"], kw["kv"]["v"]))
+            x, (k, v) = tt._shared_block(params["shared"], cfg, x,
+                                         pos[:, None], 1024, kv_cache=kv,
+                                         pos=pos)
+        else:
+            pos = torch.arange(n, device=dev)[None].expand(2, n)
+            x, (k, v) = tt._shared_block(params["shared"], cfg, x, pos, 1024)
+        return x, caches, k, v
+
+    x = tt._embed_in(cpu, cfg, {"tokens": toks})
+    for kw in ({}, {"return_cache": True}):
+        xc = x
+        for g in range(cfg.n_layers // per):
+            want = group(cpu, xc, g, "cpu", **kw)
+            got = group(card, xc, g, cuda, **kw)
+            assert rel(got[0], want[0]) <= 5e-2
+            assert rel(got[2], want[2]) <= 5e-2
+            for gc, wc in zip(got[1], want[1]):
+                for key in (wc or {}):
+                    assert rel(gc[key], wc[key]) <= 5e-2, key
+            xc = want[0]
+    _, caches = build_model(cfg).prefill(cpu, {"tokens": toks}, skv=20)
+    xd = tt.embed(cpu, torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1))
+                                        .astype(np.int32)))
+    for g in range(cfg.n_layers // per):
+        kw = {"caches": caches["ssm"], "kv": caches["shared"]}
+        want = group(cpu, xd, g, "cpu", **kw)
+        got = group(card, xd, g, cuda, **kw)
+        assert rel(got[0], want[0]) <= 5e-2
+        xd = want[0]
+
+
+def test_expert_bitmask_stats_on_card_launches_popcount_once(cuda):
+    """The MoE bookkeeping on the card: ``engine=BulkBitwiseEngine("cuda")``
+    is one ``popcount_rows`` launch, its loads equal the ``"torch"``
+    engine's and a bincount, its masks the same words."""
+    from repro_torch.core import BulkBitwiseEngine
+    from repro_torch.models import moe
+    rng = np.random.default_rng(2)
+    idx = torch.from_numpy(np.stack([rng.choice(40, 8, replace=False)
+                                     for _ in range(1024)])).to(cuda)
+    before = kpc.popcount_rows.launches
+    masks, loads = moe.expert_bitmask_stats(
+        idx, 40, engine=BulkBitwiseEngine("cuda", device=cuda))
+    assert kpc.popcount_rows.launches - before == 1
+    plain, plain_loads = moe.expert_bitmask_stats(idx, 40)
+    assert kpc.popcount_rows.launches - before == 1
+    assert loads.tolist() == plain_loads.tolist() == np.bincount(
+        idx.cpu().numpy().reshape(-1), minlength=40).tolist()
+    assert torch.equal(masks.data, plain.data)
 
 
 def _tree_to(tree, device):

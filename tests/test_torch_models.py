@@ -1,4 +1,5 @@
-"""The port's dense-decoder models against the reference, on the CPU.
+"""The port's models against the reference, on the CPU: every family
+(dense, gemma3, vlm, MoE, SSM, hybrid, encoder-decoder).
 
 Components take the same seeded numpy inputs through both packages:
 float32 within rtol 1e-5 / atol 1e-5 (only the order of f32 sums may
@@ -13,6 +14,7 @@ that 1e-1.
 """
 
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -24,17 +26,27 @@ from repro.configs import REGISTRY, get_config
 from repro.models import attention as ja
 from repro.models import build_model as ref_build
 from repro.models import layers as jl
+from repro.models import ssm as jssm
 from repro.models import transformer as jt
 from repro_torch import convert
 from repro_torch.configs import REGISTRY as PORT_REGISTRY
 from repro_torch.models import attention as ta
 from repro_torch.models import build_model
 from repro_torch.models import layers as tl
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
 
-DENSE = ["deepseek-67b", "gemma3-1b", "internlm2-20b", "qwen2-vl-7b",
-         "qwen2.5-3b"]
-OTHER = sorted(set(REGISTRY) - set(DENSE))
+ARCHS = sorted(REGISTRY)
+# zamba2's reduced stack is chaotic at the reference's init: its shared
+# attention block is a near-hard max (scores of std ~16), so an ulp of
+# difference in an SSM layer's f32 transcendentals (XLA's exp and log1p
+# are not the CPU library's) flips a key and moves whole rows. The
+# reference's own eager and jitted forwards differ by 0.067 there, and its
+# decode by 0.41 from its forward on these inputs. Its whole-model
+# comparison is made group by group on the reference's residual stream
+# (``test_hybrid_groups_match_reference``).
+CHAOTIC = {"zamba2-2.7b"}
+END_TO_END = [a for a in ARCHS if a not in CHAOTIC]
 BOUND = 5e-2                # whole-model max-rel against the reference
 SELF_BOUND = 1e-1           # decode vs forward (tests/test_models.py)
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -191,17 +203,85 @@ def test_update_cache():
         assert np.array_equal(g.float().numpy(), np.asarray(w, np.float32))
 
 
+@pytest.mark.parametrize("n,d", [(24, 64), (1500, 768), (7, 2)])
+def test_sinusoidal_positions(n, d):
+    """Whisper's position table in f32. The two libraries' exp may differ
+    by an ulp in a frequency, which moves an angle of up to n radians by
+    an ulp of n: the table agrees to that, n * 2^-23, and to the f32
+    tolerance elsewhere."""
+    got = tl.sinusoidal_positions(n, d, "cpu")
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    close(got, jl.sinusoidal_positions(n, d),
+          dict(rtol=1e-5, atol=max(1e-5, n * 2.0 ** -23)))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("bias", [False, True])
+def test_cross_qkv(dtype, bias):
+    """Whisper's cross-attention projections: q from the decoder, k and v
+    from the encoder output, with and without the q/k/v biases."""
+    rng = np.random.default_rng(8)
+    pj, pt = {}, {}
+    shapes = {"wq": (32, 4, 8), "wk": (32, 2, 8), "wv": (32, 2, 8)}
+    if bias:
+        shapes.update(bq=(4, 8), bk=(2, 8), bv=(2, 8))
+    for name, shape in shapes.items():
+        pj[name], pt[name] = both(normal(rng, *shape, scale=0.2), "f32")
+    xj, xt = both(normal(rng, 2, 5, 32), dtype)
+    ej, et = both(normal(rng, 2, 11, 32), dtype)
+    for got, want in zip(tt._cross_qkv(pt, xt, et),
+                         jt._cross_qkv(pj, xj, ej)):
+        assert got.shape == want.shape
+        close(got, want, DTYPES[dtype][2])
+
+
 # -- whole models ---------------------------------------------------------------
 
 B, S, STEPS = 2, 16, 4
+
+
+def _dropped_tokens(idx, e_pad, capacity):
+    """(T,) bool: the tokens that lost an expert assignment to capacity in
+    a ``moe._moe_local`` call routed to ``idx`` (T, k): an expert keeps
+    its first ``capacity`` assignments in token order."""
+    t, k = idx.shape
+    onehot = torch.nn.functional.one_hot(idx.reshape(-1), e_pad)
+    rank = (onehot.cumsum(0) * onehot).sum(1) - 1
+    return (rank >= capacity).reshape(t, k).any(1)
+
+
+def _recording_drops(calls):
+    """``moe._moe_local`` that also appends each call's dropped tokens."""
+    local = tmoe._moe_local
+
+    def wrapped(x2d, router, *weights, moe, e_pad, capacity, **kw):
+        idx = tmoe.route(x2d, router, moe, e_pad)[2]
+        calls.append(_dropped_tokens(idx, e_pad, capacity))
+        return local(x2d, router, *weights, moe=moe, e_pad=e_pad,
+                     capacity=capacity, **kw)
+    return wrapped
+
+
+def _inputs(cfg, rng):
+    """The family's extra inputs (vision embeddings, whisper frames) as
+    numpy arrays."""
+    if cfg.family == "vlm":
+        return {"vision_embeds": normal(rng, B, cfg.vision_tokens,
+                                        cfg.d_model),
+                "vision_positions": np.tile(
+                    np.arange(cfg.vision_tokens, dtype=np.int32)[None],
+                    (B, 1))}
+    if cfg.enc_dec:
+        return {"frames": normal(rng, B, cfg.n_frames, cfg.d_model)}
+    return {}
 
 
 @functools.lru_cache(maxsize=None)
 def _run(arch):
     """Both packages on the reduced config with the reference's weights:
     forward over S+STEPS tokens, prefill over S, then STEPS teacher-
-    forced decode steps. Returns (ref outputs, port outputs, port
-    model, port params, batches)."""
+    forced decode steps. Returns (ref outputs, port outputs); the port's
+    also hold ``dropped``, the tokens each of its MoE calls dropped."""
     cfg = get_config(arch).reduced()
     ref_model = ref_build(cfg)
     params = ref_model.init(jax.random.PRNGKey(0))
@@ -210,74 +290,291 @@ def _run(arch):
         jax.tree.map(np.asarray, params), device="cpu"))
     rng = np.random.default_rng(11)
     toks = rng.integers(0, cfg.vocab, (B, S + STEPS)).astype(np.int32)
-    extra = {}
-    if cfg.family == "vlm":
-        extra = {"vision_embeds": normal(rng, B, cfg.vision_tokens,
-                                         cfg.d_model),
-                 "vision_positions": np.tile(
-                     np.arange(cfg.vision_tokens, dtype=np.int32)[None],
-                     (B, 1))}
+    extra = _inputs(cfg, rng)
     jb = {k: jnp.asarray(v) for k, v in extra.items()}
     pb = {k: torch.from_numpy(v) for k, v in extra.items()}
-    out = {"ref": {}, "port": {}}
-    out["ref"]["forward"] = ref_model.forward(
-        params, dict(jb, tokens=jnp.asarray(toks)))[0]
-    out["port"]["forward"] = model.forward(
-        tp, dict(pb, tokens=torch.from_numpy(toks)))[0]
-    skv = S + STEPS
-    jl_, jc = ref_model.prefill(
-        params, dict(jb, tokens=jnp.asarray(toks[:, :S])), skv=skv)
-    tl_, tc = model.prefill(
-        tp, dict(pb, tokens=torch.from_numpy(toks[:, :S])), skv=skv)
-    out["ref"]["prefill"], out["port"]["prefill"] = jl_, tl_
-    out["ref"]["cache"], out["port"]["cache"] = jc, tc
-    for i in range(STEPS):
-        t = toks[:, S + i:S + i + 1]
-        p = np.full((B,), S + i, np.int32)
-        jl_, jc = ref_model.decode_step(
-            params, jc, {"tokens": jnp.asarray(t), "pos": jnp.asarray(p)})
-        tl_, tc = model.decode_step(
-            tp, tc, {"tokens": torch.from_numpy(t),
-                     "pos": torch.from_numpy(p)})
-        out["ref"][f"decode{i}"], out["port"][f"decode{i}"] = jl_, tl_
+    out = {"ref": {}, "port": {"dropped": []}}
+    with mock.patch.object(tmoe, "_moe_local",
+                           _recording_drops(out["port"]["dropped"])):
+        out["ref"]["forward"] = ref_model.forward(
+            params, dict(jb, tokens=jnp.asarray(toks)))[0]
+        out["port"]["forward"] = model.forward(
+            tp, dict(pb, tokens=torch.from_numpy(toks)))[0]
+        skv = S + STEPS
+        jl_, jc = ref_model.prefill(
+            params, dict(jb, tokens=jnp.asarray(toks[:, :S])), skv=skv)
+        tl_, tc = model.prefill(
+            tp, dict(pb, tokens=torch.from_numpy(toks[:, :S])), skv=skv)
+        out["ref"]["prefill"], out["port"]["prefill"] = jl_, tl_
+        out["ref"]["cache"], out["port"]["cache"] = jc, tc
+        for i in range(STEPS):
+            t = toks[:, S + i:S + i + 1]
+            p = np.full((B,), S + i, np.int32)
+            jl_, jc = ref_model.decode_step(
+                params, jc, {"tokens": jnp.asarray(t),
+                             "pos": jnp.asarray(p)})
+            tl_, tc = model.decode_step(
+                tp, tc, {"tokens": torch.from_numpy(t),
+                         "pos": torch.from_numpy(p)})
+            out["ref"][f"decode{i}"], out["port"][f"decode{i}"] = jl_, tl_
     return out["ref"], out["port"]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("arch", END_TO_END)
 def test_forward_matches_reference(arch):
     ref, port = _run(arch)
     assert port["forward"].shape == ref["forward"].shape
     assert rel(port["forward"], ref["forward"]) <= BOUND
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", END_TO_END)
 def test_prefill_logits_and_caches_match_reference(arch):
+    """The logits, and every leaf of the cache tree (k/v in bf16, the
+    SSM's conv windows in bf16 and its state in f32)."""
     ref, port = _run(arch)
     assert rel(port["prefill"], ref["prefill"]) <= BOUND
-    for kv in ("k", "v"):
-        got, want = port["cache"]["self"][kv], ref["cache"]["self"][kv]
-        assert got.dtype == torch.bfloat16 and got.shape == want.shape
-        assert rel(got, want) <= BOUND, kv
+    got = dict(_leaves(port["cache"]))
+    want = dict(_leaves(ref["cache"]))
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        g = got[path]
+        assert str(g.dtype)[6:] == jnp.dtype(w.dtype).name, path
+        assert g.shape == w.shape, path
+        assert rel(g, w) <= BOUND, path
 
 
 @pytest.mark.parametrize("step", range(STEPS))
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", END_TO_END)
 def test_decode_steps_match_reference(arch, step):
     ref, port = _run(arch)
     assert rel(port[f"decode{step}"], ref[f"decode{step}"]) <= BOUND
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", END_TO_END)
 def test_port_decode_matches_its_forward(arch):
     """The port's prefill + decode against its own forward, under the
-    reference's bound between its two paths."""
+    reference's bound between its two paths. An MoE forward sizes each
+    expert's capacity for all its tokens, a decode step for one token a
+    slot, so the forward (and the prefill) can drop an assignment that
+    the decode keeps: the bound holds on the rows where neither dropped
+    one that reaches the compared position (at the position itself, or
+    before it below the last layer, whose outputs later positions read
+    through attention)."""
     _, port = _run(arch)
+    dropped = port["dropped"]
+    n_layers = get_config(arch).reduced().n_layers
+    fwd = torch.zeros((n_layers, B, S + STEPS), dtype=torch.bool)
+    pre = torch.zeros((n_layers, B, S), dtype=torch.bool)
+    if dropped:
+        fwd = torch.stack(dropped[:n_layers]).reshape(n_layers, B, -1)
+        pre = torch.stack(dropped[n_layers:2 * n_layers]).reshape(
+            n_layers, B, -1)
+        assert not torch.stack(dropped[2 * n_layers:]).any()  # decode
+    held = 0
     for i in range(STEPS):
-        want = port["forward"][:, S + i].float().numpy()
-        assert rel(port[f"decode{i}"], want) < SELF_BOUND, i
+        q = S + i
+        clean = ~(fwd[:, :, q].any(0) | fwd[:-1, :, :q].any((0, 2))
+                  | pre[:-1].any((0, 2)))
+        if clean.any():
+            want = port["forward"][clean, q].float().numpy()
+            assert rel(port[f"decode{i}"][clean], want) < SELF_BOUND, i
+            held += 1
+    assert held > 0
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_decode_matches_its_forward_in_the_reference_setting(arch):
+    """The reference suite's ``test_arch_decode_matches_forward`` on the
+    port: its batch (``jax.random`` tokens, vision embeddings and frames
+    from its keys), prefill over 16 tokens, one decode step against the
+    forward's logits, under its bound."""
+    cfg = get_config(arch).reduced()
+    key = jax.random.PRNGKey(0)
+    model = build_model(PORT_REGISTRY[arch].reduced())
+    tp = model.load(convert.params_from_numpy(jax.tree.map(
+        np.asarray, ref_build(cfg).init(key)), device="cpu"))
+    b, s = 2, 16
+    toks = torch.from_numpy(np.array(jax.random.randint(
+        jax.random.PRNGKey(1), (b, s + 1), 0, cfg.vocab)))
+    extra = {}
+    if cfg.family == "vlm":
+        extra = {"vision_embeds": jax.random.normal(
+                     key, (b, cfg.vision_tokens, cfg.d_model)),
+                 "vision_positions": jnp.tile(
+                     jnp.arange(cfg.vision_tokens)[None], (b, 1))}
+    if cfg.enc_dec:
+        extra = {"frames": jax.random.normal(key, (b, cfg.n_frames,
+                                                   cfg.d_model))}
+    extra = {k: torch.from_numpy(np.array(v)) for k, v in extra.items()}
+    want = model.forward(tp, dict(extra, tokens=toks))[0][:, s]
+    _, caches = model.prefill(tp, dict(extra, tokens=toks[:, :s]),
+                              skv=s + 4)
+    got, _ = model.decode_step(tp, caches, {
+        "tokens": toks[:, s:s + 1],
+        "pos": torch.full((b,), s, dtype=torch.int32)})
+    assert rel(got, want.float().numpy()) < SELF_BOUND
+
+
+# -- zamba2, group by group -----------------------------------------------------
+
+HYBRID = "zamba2-2.7b"
+
+
+def _ref_ssm_layer(cfg, **kw):
+    """The reference stacks' SSM scan body (``transformer._ssm_forward``
+    and its kin), as ``lax.scan`` runs it."""
+    def body(x, xs):
+        lp, cache = xs if isinstance(xs, tuple) else (xs, None)
+        h = jl.rmsnorm(lp["ln"], x, cfg.norm_eps)
+        lp_ssm = {k: v for k, v in lp.items() if k != "ln"}
+        if cache is not None:
+            kw["cache"] = cache
+        out = jssm.ssm_block(lp_ssm, h, cfg, **kw)
+        if isinstance(out, tuple):
+            return x + out[0], out[1]
+        return x + out, None
+    return body
+
+
+@functools.lru_cache(maxsize=None)
+def _hybrid_groups():
+    """zamba2's reduced stack run group by group: the reference's groups
+    as its ``_hybrid_*`` functions run them (their final logits must
+    equal the reference's own, bit for bit), and each of the port's
+    groups (six SSM layers, then the shared block) on the reference's
+    input to that group and, in decode, its caches. Returns
+    {phase: [(name, port, ref), ...]} for forward, prefill and STEPS
+    decode steps."""
+    cfg = get_config(HYBRID).reduced()
+    ref_model = ref_build(cfg)
+    params = ref_model.init(jax.random.PRNGKey(0))
+    tp = build_model(PORT_REGISTRY[HYBRID].reduced()).load(
+        convert.params_from_numpy(jax.tree.map(np.asarray, params),
+                                  device="cpu"))
+    per = cfg.shared_attn_every
+    groups = cfg.n_layers // per
+    gl = jax.tree.map(lambda a: a.reshape((groups, per) + a.shape[1:]),
+                      params["layers"])
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, cfg.vocab, (B, S + STEPS)).astype(np.int32)
+    to_port = functools.partial(convert.params_from_numpy, device="cpu")
+    out = {}
+
+    def run(phase, n, **kw):
+        """Both packages over tokens[:, :n] (prefill: with caches)."""
+        cache = kw.get("return_cache", False)
+        x = jt._embed_in(params, cfg, {"tokens": jnp.asarray(toks[:, :n])})
+        jpos = jt._positions(cfg, {}, B, n)
+        tpos = torch.from_numpy(np.array(jpos))
+        rows, caches = [], []
+        for g in range(groups):
+            lp_g = jax.tree.map(lambda a: a[g], gl)
+            xt = to_port(np.asarray(x))
+            y, c = jax.lax.scan(_ref_ssm_layer(cfg, **kw), x, lp_g)
+            for i in range(g * per, (g + 1) * per):
+                o = tt._ssm_layer(tt._layer(tp["layers"], i), cfg, xt, **kw)
+                xt, ct = o if cache else (o, None)
+                if cache:
+                    rows += [(f"group{g} layer{i} ssm {k}", ct[k],
+                              c[k][i - g * per]) for k in ct]
+            rows.append((f"group{g} ssm out", xt, y))
+            x, (k, v) = jt._shared_block(params["shared"], cfg, y, jpos,
+                                         1024)
+            xt, (kt, vt) = tt._shared_block(tp["shared"], cfg,
+                                            to_port(np.asarray(y)), tpos,
+                                            1024)
+            rows.append((f"group{g} shared out", xt, x))
+            if cache:
+                rows += [(f"group{g} shared k", kt, k),
+                         (f"group{g} shared v", vt, v)]
+                caches.append((c, jt._pad_cache(k, S + STEPS),
+                               jt._pad_cache(v, S + STEPS)))
+        x = jl.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        xt = tl.rmsnorm(tp["final_norm"], to_port(np.asarray(x)),
+                        cfg.norm_eps)
+        logits = jl.unembed(params, x if not cache else x[:, -1])
+        rows.append(("logits", tl.unembed(tp, xt if not cache
+                                          else xt[:, -1]), logits))
+        out[phase] = rows
+        return logits, caches
+
+    logits, _ = run("forward", S + STEPS)
+    assert np.array_equal(np.asarray(logits), np.asarray(ref_model.forward(
+        params, {"tokens": jnp.asarray(toks)})[0]))
+    logits, caches = run("prefill", S, return_cache=True)
+    want, jc = ref_model.prefill(params, {"tokens": jnp.asarray(toks[:, :S])},
+                                 skv=S + STEPS)
+    assert np.array_equal(np.asarray(logits), np.asarray(want))
+    for step in range(STEPS):
+        t = toks[:, S + step:S + step + 1]
+        p = np.full((B,), S + step, np.int32)
+        x = jl.embed(params, jnp.asarray(t))
+        rows = []
+        new_ssm, new_k, new_v = [], [], []
+        for g in range(groups):
+            lp_g = jax.tree.map(lambda a: a[g], gl)
+            cache_g = jax.tree.map(lambda a: a[g * per:(g + 1) * per],
+                                   jc["ssm"])
+            xt = to_port(np.asarray(x))
+            y, c = jax.lax.scan(_ref_ssm_layer(cfg), x, (lp_g, cache_g))
+            for i in range(g * per, (g + 1) * per):
+                xt, ct = tt._ssm_layer(
+                    tt._layer(tp["layers"], i), cfg, xt,
+                    cache=to_port(jax.tree.map(lambda a: np.asarray(a[i]),
+                                               jc["ssm"])))
+                rows += [(f"group{g} layer{i} ssm {k}", ct[k],
+                          c[k][i - g * per]) for k in ct]
+            rows.append((f"group{g} ssm out", xt, y))
+            kv = (jc["shared"]["k"][g], jc["shared"]["v"][g])
+            x, (kc, vc) = jt._shared_block(
+                params["shared"], cfg, y, jnp.asarray(p)[:, None], 1024,
+                kv_cache=kv, pos=jnp.asarray(p))
+            xt, (kt, vt) = tt._shared_block(
+                tp["shared"], cfg, to_port(np.asarray(y)),
+                torch.from_numpy(p)[:, None], 1024,
+                kv_cache=tuple(to_port(np.asarray(a)) for a in kv),
+                pos=torch.from_numpy(p))
+            rows += [(f"group{g} shared out", xt, x),
+                     (f"group{g} shared k", kt, kc),
+                     (f"group{g} shared v", vt, vc)]
+            new_ssm.append(c)
+            new_k.append(kc)
+            new_v.append(vc)
+        x = jl.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        xt = tl.rmsnorm(tp["final_norm"], to_port(np.asarray(x)),
+                        cfg.norm_eps)
+        logits = jl.unembed(params, x[:, -1])
+        rows.append(("logits", tl.unembed(tp, xt[:, -1]), logits))
+        want, jc = ref_model.decode_step(
+            params, jc, {"tokens": jnp.asarray(t), "pos": jnp.asarray(p)})
+        assert np.array_equal(np.asarray(logits), np.asarray(want))
+        out[f"decode{step}"] = rows
+    return out
+
+
+@pytest.mark.parametrize("phase", ["forward", "prefill"] +
+                         [f"decode{i}" for i in range(STEPS)])
+def test_hybrid_groups_match_reference(phase):
+    """zamba2 (reduced: two groups of six SSM layers, each followed by
+    the weight-tied shared block), group by group on the reference's
+    residual stream: each group's output, every layer's SSM cache, the
+    shared block's k/v and the logits within the whole-model bound."""
+    rows = _hybrid_groups()[phase]
+    assert len(rows) > 4
+    for name, got, want in rows:
+        assert got.shape == tuple(want.shape), name
+        assert rel(got, want) <= BOUND, name
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_param_and_cache_trees_match_reference(arch):
     cfg = get_config(arch).reduced()
     ref_model, model = ref_build(cfg), build_model(PORT_REGISTRY[arch])
@@ -321,18 +618,6 @@ def test_load_rejects_a_tree_of_another_shape():
     tree["final_norm"] = torch.ones(3)
     with pytest.raises(ValueError, match="does not match"):
         model.load(tree)
-
-
-@pytest.mark.parametrize("arch", OTHER)
-def test_unported_families_raise(arch):
-    cfg = PORT_REGISTRY[arch].reduced()
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        model.param_defs()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        model.cache_defs(1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        model.forward({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
 
 
 def test_configs_are_the_reference_configs():

@@ -61,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.pim.planner, repro_torch.pim.cluster, "
             "repro_torch.pim.optimizer, repro_torch.pim.faults, "
             "repro_torch.configs, repro_torch.models, "
-            "repro_torch.models.transformer, repro_torch.serve.engine, "
+            "repro_torch.models.transformer, repro_torch.models.moe, "
+            "repro_torch.models.ssm, repro_torch.serve.engine, "
             "repro_torch.launch.serve, repro_torch.data.pipeline; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")

@@ -6,7 +6,9 @@ packages with the same stub model, written once per package: the ``out``
 lists, ``done`` flags, ``decode_steps`` and metrics snapshots must be
 equal. A greedy run of a reduced qwen2.5-3b with the reference's weights
 carried across must give prefill logits within the whole-model bound of
-``tests/test_torch_models.py`` and equal counters.
+``tests/test_torch_models.py`` and equal counters and streams; so must
+greedy runs of a reduced granite-moe, mamba2 and zamba2. Both launchers
+fail alike on whisper, whose frames neither engine passes.
 """
 
 import jax
@@ -129,16 +131,20 @@ def test_temperature_sampling_is_seeded_and_in_range():
     assert outs[0] == outs[1] and outs[0] != outs[2]
 
 
-def test_greedy_reduced_qwen_matches_reference():
-    cfg = get_config("qwen2.5-3b").reduced()
+def _greedy_matches_reference(arch, n_requests):
+    """A greedy run of the reduced ``arch`` with the reference's weights
+    carried across, ``n_requests`` of ``launch/serve.py``'s prompts
+    behind both packages' ``ServeEngine``: equal counters and streams,
+    and the first batch's prefill logits within the whole-model bound."""
+    cfg = get_config(arch).reduced()
     ref_model = ref_build(cfg)
     params = ref_model.init(jax.random.PRNGKey(0))
-    model = build_model(port_config("qwen2.5-3b").reduced())
+    model = build_model(port_config(arch).reduced())
     tp = model.load(convert.params_from_numpy(
         jax.tree.map(np.asarray, params), device="cpu"))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, rng.integers(2, 12))
-               .astype(np.int32) for _ in range(5)]
+               .astype(np.int32) for _ in range(n_requests)]
     engines = {"ref": RefEngine(ref_model, params, max_seq=32,
                                 batch_slots=4),
                "port": ServeEngine(model, tp, max_seq=32, batch_slots=4)}
@@ -150,7 +156,8 @@ def test_greedy_reduced_qwen_matches_reference():
     assert engines["port"].metrics.snapshot() == \
         engines["ref"].metrics.snapshot()
     assert engines["port"].decode_steps == engines["ref"].decode_steps
-    assert [len(r.out) for r in reqs["port"]] == [5] * 5
+    assert [len(r.out) for r in reqs["port"]] == [5] * n_requests
+    assert [r.out for r in reqs["port"]] == [r.out for r in reqs["ref"]]
     # the first batch's prefill, left-padded as the engine pads it
     toks = np.zeros((4, 11), np.int32)
     for i, p in enumerate(prompts[:4]):
@@ -163,6 +170,53 @@ def test_greedy_reduced_qwen_matches_reference():
     want = np.asarray(want, np.float32)
     err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
     assert err <= BOUND
+
+
+def test_greedy_reduced_qwen_matches_reference():
+    _greedy_matches_reference("qwen2.5-3b", 5)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-780m",
+                                  "zamba2-2.7b"])
+def test_greedy_reduced_family_matches_reference(arch):
+    """The MoE, SSM and hybrid families behind both engines, the eight
+    requests ``launch/serve.py`` sends (two batches of 11 and 8 tokens)."""
+    _greedy_matches_reference(arch, 8)
+
+
+@pytest.mark.parametrize("pkg", sorted(PACKAGES))
+def test_ssm_batch_of_two_token_prompts_fails_in_both_packages(pkg):
+    """An SSM prefill over fewer tokens than the conv window's three
+    leaves a short conv cache, and the first decode step fails: the
+    reference's behaviour, which the port keeps."""
+    arch = "mamba2-780m"
+    if pkg == "ref":
+        model = ref_build(get_config(arch).reduced())
+        params = model.init(jax.random.PRNGKey(0))
+        eng = RefEngine(model, params, max_seq=16, batch_slots=2)
+        req = RefRequest(prompt=np.array([1, 2], np.int32),
+                         max_new_tokens=3)
+    else:
+        model = build_model(port_config(arch).reduced())
+        eng = ServeEngine(model, model.init(0, device="cpu"), max_seq=16,
+                          batch_slots=2)
+        req = Request(prompt=np.array([1, 2], np.int32), max_new_tokens=3)
+    with pytest.raises((ValueError, RuntimeError)):
+        eng.generate([req])
+
+
+def test_launch_serve_fails_on_whisper_as_the_reference_does(monkeypatch):
+    """Neither package's engine passes whisper's frames (the reference
+    engine sends only tokens): both launchers fail in the first prefill
+    with the same ``KeyError``."""
+    from repro.launch import serve as ref_launch
+    argv = ["--arch", "whisper-small", "--requests", "2", "--max-new",
+            "2", "--slots", "2"]
+    monkeypatch.setattr("sys.argv", ["serve"] + argv)
+    with pytest.raises(KeyError, match="frames"):
+        ref_launch.main()
+    with pytest.raises(KeyError, match="frames"):
+        launch_serve.main(argv + ["--device", "cpu"])
 
 
 def test_launch_serve_runs_on_the_named_device(capsys):
