@@ -80,12 +80,15 @@ without printing the result line):
    the card's prefill and three decode logits within 5e-2 of the CPU
    port's on the same weights (MoE: on the rows whose routing agrees;
    the tokens routed elsewhere at layer 0 are printed), end to end and
-   with every attention core fed the CPU's inputs and outputs (each core
-   held on its own; zamba2's and whisper's attention flips keys on an
-   ulp at this init, so their end-to-end numbers are printed), and the
-   card's decode within 1e-1 of its forward (MoE: at a capacity that
-   drops nothing, the configured capacity's drops and numbers printed;
-   zamba2 and whisper: printed);
+   with every attention core fed the CPU's inputs and outputs (the
+   forward too; each core's output, and each of its inputs the card
+   computed, held on its own: zamba2's and whisper's attention flips
+   keys on an ulp at this init, so their end-to-end numbers are
+   printed), and the card's decode within 1e-1 of its forward (MoE: at
+   a capacity that drops nothing, the configured capacity's drops and
+   numbers printed; zamba2 and whisper: with each prefill and decode
+   core fed the forward's rows and its inputs held against the
+   forward's, the unforced numbers printed);
    (b) granite-moe, mamba2 and zamba2 at full width and depth behind
    ``ServeEngine`` as phase 8(c) serves qwen2.5-3b, whisper-small through
    ``Model.prefill`` with 4 x 1500 frames and 16 greedy steps, and
@@ -2248,17 +2251,21 @@ def _lm_run(torch, model, params, toks, extra, prompt, steps, dev,
     """The forward over all of ``toks``, the prefill over the first
     ``prompt``, then ``steps`` teacher-forced decode steps: (forward
     logits, [prefill logits, decode logits...], routing calls), inside
-    ``attention`` (an ``_Attention``) when given."""
+    ``attention`` (a ``_Cores``) when given, each stage marked on it."""
     import contextlib
     b = toks.shape[0]
     t = toks.to(dev)
     ex = {k: v.to(dev) for k, v in extra.items()}
+    stage = attention.stage if attention else (lambda *a: None)
     with _Routing() as routing, attention or contextlib.nullcontext():
+        stage("forward")
         fwd = model.forward(params, dict(ex, tokens=t))[0]
+        stage("prefill")
         logits, caches = model.prefill(
             params, dict(ex, tokens=t[:, :prompt]), skv=prompt + steps)
         outs = [logits]
         for i in range(steps):
+            stage("decode", prompt + i)
             pos = torch.full((b,), prompt + i, dtype=torch.int32,
                              device=dev)
             logits, caches = model.decode_step(
@@ -2287,35 +2294,36 @@ def _to(x, device):
     return x.to(device) if hasattr(x, "to") else x
 
 
-class _Attention:
+class _Cores:
     """Wraps ``models.attention``'s ``flash_attention`` and
-    ``decode_attention`` while active. Recording (``feed`` None): keeps
-    each call's inputs and output on the host. Forcing (``feed``, a
-    recorded run's calls): each call computes its output from the
-    recorded call's inputs, keeps its max-rel against the recorded
-    output, and returns the recorded output, so that everything after
-    each attention core reads the same values on both devices."""
+    ``decode_attention`` while active; a subclass's ``_call`` says what
+    a call returns. ``rels``: each core's output against the one it is
+    held to; ``arg_rels``: each tensor argument the run computed (q, k,
+    v, the caches) against the one it is held to (an integer argument
+    must be equal: 0.0, else inf). ``_lm_run`` marks its stages."""
 
     NAMES = ("flash_attention", "decode_attention")
 
-    def __init__(self, feed=None):
+    def __init__(self):
         from repro_torch.models import attention
-        self.attn, self.feed, self.calls, self.rels = attention, feed, [], []
+        self.attn, self.rels, self.arg_rels = attention, [], []
+        self.at, self.k = ("forward", None), 0
+
+    def stage(self, name, row=None):
+        self.at, self.k = (name, row), 0
+
+    def _hold(self, pairs):
+        import torch
+        for got, want in pairs:
+            if got.is_floating_point():
+                self.arg_rels.append(_max_rel(got, want))
+            else:
+                same = torch.equal(got.cpu(), want.cpu())
+                self.arg_rels.append(0.0 if same else float("inf"))
 
     def _wrap(self, name, fn):
         def wrapped(*args, **kw):
-            if self.feed is None:
-                out = fn(*args, **kw)
-                self.calls.append((name, _to(args, "cpu"), kw, out.cpu()))
-                return out
-            rec_name, rec_args, rec_kw, rec_out = self.feed[len(self.rels)]
-            if rec_name != name:
-                fail(f"attention call {len(self.rels)}: {name}, recorded "
-                     f"{rec_name}")
-            dev = args[0].device
-            self.rels.append(_max_rel(fn(*_to(rec_args, dev), **rec_kw),
-                                      rec_out))
-            return rec_out.to(dev)
+            return self._call(name, fn, args, kw)
         return wrapped
 
     def __enter__(self):
@@ -2330,13 +2338,87 @@ class _Attention:
         return False
 
 
+class _Attention(_Cores):
+    """Recording (``feed`` None): keeps each call's inputs and output on
+    the host. Forcing (``feed``, a recorded run's calls): holds each
+    call's own inputs against the recorded call's, computes its output
+    from the recorded inputs and holds it against the recorded output,
+    and returns the recorded output, so that everything after each
+    attention core reads the same values on both devices, and each
+    core's inputs (projections, rope, ``_cross_qkv``, ``update_cache``,
+    the decode caches) are compared on comparable values."""
+
+    def __init__(self, feed=None):
+        super().__init__()
+        self.feed, self.calls = feed, []
+
+    def _call(self, name, fn, args, kw):
+        if self.feed is None:
+            out = fn(*args, **kw)
+            self.calls.append((name, _to(args, "cpu"), kw, out.cpu()))
+            return out
+        rec_name, rec_args, rec_kw, rec_out = self.feed[len(self.rels)]
+        if (rec_name, rec_kw) != (name, kw):
+            fail(f"attention call {len(self.rels)}: {name} {kw}, recorded "
+                 f"{rec_name} {rec_kw}")
+        dev = args[0].device
+        self._hold(zip(args, rec_args))
+        self.rels.append(_max_rel(fn(*_to(rec_args, dev), **rec_kw),
+                                  rec_out))
+        return rec_out.to(dev)
+
+
+class _FromForward(_Cores):
+    """The decode against the forward with the cores made alike: the
+    forward's cores run and are kept; each prefill core (the k-th of the
+    prefill, over its first rows) and each decode core (the k-th of a
+    step, at the step's row of the forward's k-th decoder core, those
+    whose output spans all ``seq`` tokens) holds its inputs against the
+    forward's at those rows (a cache over its valid rows), keeps its own
+    output's max-rel against the forward's rows in ``rels`` (where a hard
+    maximum flips) and returns the forward's rows."""
+
+    def __init__(self, seq):
+        super().__init__()
+        self.seq, self.fwd = seq, []
+
+    def _call(self, name, fn, args, kw):
+        own = fn(*args, **kw)
+        stage, row = self.at
+        if stage == "forward":
+            self.fwd.append((args, own))
+            return own
+        if stage == "prefill":
+            f_args, f_out = self.fwd[self.k]
+            self._hold((a, f[:, :a.shape[1]]) for a, f in zip(args, f_args))
+            want = f_out[:, :args[0].shape[1]]
+        else:
+            f_args, f_out = [c for c in self.fwd
+                             if c[1].shape[1] == self.seq][self.k]
+            q, kc, vc, pos = args[:4]
+            valid = int(pos.max()) + 1
+            if int(pos.min()) + 1 != valid:
+                fail(f"decode core at row {row}: positions differ {pos}")
+            self._hold([(q, f_args[0][:, row:row + 1]),
+                        (kc[:, :valid], f_args[1][:, :valid]),
+                        (vc[:, :valid], f_args[2][:, :valid])])
+            want = f_out[:, row:row + 1]
+        self.k += 1
+        self.rels.append(_max_rel(own, want))
+        return want
+
+
 # zamba2's shared attention and whisper's self- and cross-attention (over
 # 1500 frames) are near hard maxima at the reference's init: an ulp of a
 # cuBLAS sum flips a key and moves whole rows (on an H100, end to end
-# 0.15-0.20 and 0.47-0.76 card vs CPU, with the attention cores forced,
-# under 0.008; PERF.md). Their card-vs-CPU bound holds with each
-# attention core fed the CPU's inputs and outputs (``_Attention``); end
-# to end, and the decode against the forward, are printed.
+# 0.15-0.20 and 0.47-0.76 card vs CPU, the decode up to 0.17 and 0.25
+# from its forward; PERF.md). Their bounds hold with the cores made
+# alike: card vs CPU with each core fed the CPU's inputs and outputs
+# (``_Attention``), every core input the card computes held against the
+# CPU's; the decode vs the forward with each prefill and decode core fed
+# the forward's rows (``_FromForward``), every core input held against
+# the forward's. End to end, and the decode against the forward, are
+# printed.
 HARD_ATTENTION = ("zamba2-2.7b", "whisper-small")
 
 
@@ -2345,14 +2427,16 @@ def family_parity(torch, card, arch, n_layers, prompt, steps=3, batch=2):
     card's prefill and teacher-forced decode logits against the CPU
     port's on the same weights, tokens and (whisper) frames, end to end
     and with every attention core fed the CPU's inputs and outputs
-    (``_Attention``, each core held on its own), and the card's decode
+    (``_Attention``: the forward, the prefill and the decodes, each
+    core's inputs and output held on their own), and the card's decode
     against its own forward. MoE: the rows whose routing differs between
-    card and CPU (at any layer of the prefill or the decode steps so far)
-    are printed and left out of the 5e-2 bound; the decode-vs-forward
-    bound holds on the same weights with no capacity drop
-    (``_no_drop``), the configured capacity's numbers and dropped
-    assignments printed. ``HARD_ATTENTION``: end to end and decode vs
-    forward printed, not held."""
+    card and CPU (at any layer of the forward, or of the prefill and the
+    decode steps so far) are printed and left out of the 5e-2 bound; the
+    decode-vs-forward bound holds on the same weights with no capacity
+    drop (``_no_drop``), the configured capacity's numbers and dropped
+    assignments printed. ``HARD_ATTENTION``: the decode-vs-forward bound
+    holds with the cores fed the forward's rows (``_FromForward``); end
+    to end, and the decode against the forward unforced, are printed."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -2382,31 +2466,36 @@ def family_parity(torch, card, arch, n_layers, prompt, steps=3, batch=2):
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     forcing = _Attention(feed=recorded.calls)
-    _, forced_outs, forced_calls = _lm_run(torch, model, card_params, toks,
-                                           extra, prompt, steps, "cuda",
-                                           forcing)
+    forced_fwd, forced_outs, forced_calls = _lm_run(
+        torch, model, card_params, toks, extra, prompt, steps, "cuda",
+        forcing)
     if len(forcing.rels) != len(recorded.calls):
         fail(f"{arch}: {len(forcing.rels)} attention calls on the card, "
              f"{len(recorded.calls)} on the CPU")
     out = {"n_layers": n_layers, "prompt": prompt,
            "params": model.n_params(), "cpu_s": cpu_s, "card_s": card_s,
            "attention_cores": len(forcing.rels),
-           "attention_cores_worst": max(forcing.rels, default=0.0)}
+           "attention_cores_worst": max(forcing.rels, default=0.0),
+           "attention_inputs": len(forcing.arg_rels),
+           "attention_inputs_worst": max(forcing.arg_rels, default=0.0)}
     agree = [torch.ones(batch, dtype=torch.bool)] * len(outs)
+    fwd_agree = forced_fwd_agree = torch.ones(batch, dtype=torch.bool)
     vs_fwd = _vs_forward(outs, fwd, prompt)
     if cfg.moe is not None:
         def rows(run_calls):
+            """(rows whose forward routes alike, [the prefill's, then
+            each decode step's, cumulatively])"""
             same = [_same_sets(a, b).reshape(batch, -1).all(1)
                     for (a, _), (b, _) in zip(run_calls, cpu_calls)]
-            # the prefill's calls, then each decode step's, cumulatively
             ok = [torch.stack(same[n_layers:2 * n_layers]).all(0)]
             for i in range(steps):
                 lo = (2 + i) * n_layers
                 ok.append(ok[-1] & torch.stack(same[lo:lo + n_layers])
                           .all(0))
-            return ok
+            return torch.stack(same[:n_layers]).all(0), ok
 
-        agree, forced_agree = rows(calls), rows(forced_calls)
+        fwd_agree, agree = rows(calls)
+        forced_fwd_agree, forced_agree = rows(forced_calls)
         nd_fwd, nd_outs, nd_calls = _lm_run(
             torch, build_model(_no_drop(cfg)), card_params, toks, extra,
             prompt, steps, "cuda")
@@ -2433,26 +2522,47 @@ def family_parity(torch, card, arch, n_layers, prompt, steps=3, batch=2):
                 if a.any()]
 
     vs_cpu, forced = held(outs, agree), held(forced_outs, forced_agree)
+    if not vs_cpu or not forced or not forced_fwd_agree.any():
+        fail(f"{arch} parity: routing differs in every row {agree}")
+    forced_fwd_rel = _max_rel(forced_fwd[forced_fwd_agree],
+                              cpu_fwd[forced_fwd_agree])
     rest = [_max_rel(o, w) for o, w, a in zip(outs, cpu_outs, agree)
             if not a.all()]
     hard = arch in HARD_ATTENTION
-    if not vs_cpu or not forced:
-        fail(f"{arch} parity: routing differs in every row {agree}")
-    if max(forced) > LM_BOUND or out["attention_cores_worst"] > LM_BOUND:
+    if max(forced + [forced_fwd_rel, out["attention_cores_worst"],
+                     out["attention_inputs_worst"]]) > LM_BOUND:
         fail(f"{arch} parity: card vs CPU with the CPU's attention cores "
-             f"{forced} (cores: worst {out['attention_cores_worst']}) > "
+             f"{forced}, forward {forced_fwd_rel} (cores: worst "
+             f"{out['attention_cores_worst']}, their inputs the card "
+             f"computed: worst {out['attention_inputs_worst']}) > "
              f"{LM_BOUND}")
     if not hard and max(vs_cpu) > LM_BOUND:
         fail(f"{arch} parity: card vs CPU max-rel {vs_cpu} > {LM_BOUND}")
-    if not hard and max(vs_fwd) >= LM_SELF_BOUND:
-        fail(f"{arch} parity: decode vs forward max-rel {vs_fwd} >= "
-             f"{LM_SELF_BOUND}")
     cpu_vs_fwd = _vs_forward(cpu_outs, cpu_fwd, prompt)
     out.update({"card_vs_cpu": vs_cpu, "card_vs_cpu_rerouted_rows": rest,
                 "card_vs_cpu_attention_forced": forced,
-                "decode_vs_forward": vs_fwd,
+                "forward_card_vs_cpu_attention_forced": forced_fwd_rel,
                 "cpu_decode_vs_forward": cpu_vs_fwd,
-                "forward_card_vs_cpu": _max_rel(fwd, cpu_fwd)})
+                "forward_card_vs_cpu": _max_rel(fwd[fwd_agree],
+                                                cpu_fwd[fwd_agree])})
+    if hard:
+        from_fwd = _FromForward(prompt + steps)
+        ff_fwd, ff_outs, _ = _lm_run(torch, model, card_params, toks, extra,
+                                     prompt, steps, "cuda", from_fwd)
+        out.update({"decode_vs_forward_unforced": vs_fwd,
+                    "forward_fed_cores": len(from_fwd.rels),
+                    "forward_fed_cores_own_worst": max(from_fwd.rels),
+                    "forward_fed_inputs": len(from_fwd.arg_rels),
+                    "forward_fed_inputs_worst": max(from_fwd.arg_rels)})
+        vs_fwd = _vs_forward(ff_outs, ff_fwd, prompt)
+        if out["forward_fed_inputs_worst"] > LM_BOUND:
+            fail(f"{arch} parity: the prefill's and decodes' core inputs "
+                 f"against the forward's, worst "
+                 f"{out['forward_fed_inputs_worst']} > {LM_BOUND}")
+    out["decode_vs_forward"] = vs_fwd
+    if max(vs_fwd) >= LM_SELF_BOUND:
+        fail(f"{arch} parity: decode vs forward max-rel {vs_fwd} >= "
+             f"{LM_SELF_BOUND}")
     moe_line = ""
     if cfg.moe is not None:
         moe_line = (
@@ -2462,17 +2572,32 @@ def family_parity(torch, card, arch, n_layers, prompt, steps=3, batch=2):
             f"decode vs forward at the configured capacity "
             f"{out['decode_vs_forward_configured_capacity']} with dropped "
             f"assignments {out['dropped_assignments']} (reported); ")
-    mark = "(reported)" if hard else f"<= {LM_BOUND}"
-    self_mark = (f"(reported; its CPU run: {cpu_vs_fwd})" if hard else
-                 f"< {LM_SELF_BOUND}"
-                 + (" (no-drop capacity)" if cfg.moe is not None else ""))
+    if hard:
+        self_line = (
+            f"card vs its forward with {out['forward_fed_cores']} prefill "
+            f"and decode cores fed the forward's rows {vs_fwd} < "
+            f"{LM_SELF_BOUND}, their {out['forward_fed_inputs']} inputs "
+            f"against the forward's worst {out['forward_fed_inputs_worst']}"
+            f" <= {LM_BOUND}, their own outputs against the forward's rows "
+            f"worst {out['forward_fed_cores_own_worst']} (reported); "
+            f"unforced {out['decode_vs_forward_unforced']} (reported; its "
+            f"CPU run: {cpu_vs_fwd}); end to end card vs CPU {vs_cpu} "
+            f"(reported); ")
+    else:
+        self_line = (
+            f"end to end {vs_cpu} <= {LM_BOUND}; card vs its forward "
+            f"{vs_fwd} < {LM_SELF_BOUND}"
+            + (" (no-drop capacity)" if cfg.moe is not None else "")
+            + "; ")
     log(f"family parity {arch} full width, {n_layers} layers "
         f"({model.n_params()} params), prompt {prompt}: card vs CPU "
         f"max-rel (prefill, {steps} decodes) with the CPU's attention "
-        f"cores {forced} <= {LM_BOUND}, its {len(forcing.rels)} attention "
-        f"cores from the CPU's inputs worst {out['attention_cores_worst']} <= "
-        f"{LM_BOUND}; end to end {vs_cpu} {mark}; card vs its forward "
-        f"{vs_fwd} {self_mark}; {moe_line}forward card vs CPU "
+        f"cores {forced}, forward {forced_fwd_rel} <= {LM_BOUND}, its "
+        f"{len(forcing.rels)} attention cores from the CPU's inputs worst "
+        f"{out['attention_cores_worst']} <= {LM_BOUND}, their "
+        f"{len(forcing.arg_rels)} inputs the card computed against the "
+        f"CPU's worst {out['attention_inputs_worst']} <= {LM_BOUND}; "
+        f"{self_line}{moe_line}forward card vs CPU "
         f"{out['forward_card_vs_cpu']} (reported); CPU run {cpu_s:.1f} s, "
         f"card run {card_s:.3f} s on {card}")
     return out

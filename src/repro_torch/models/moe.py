@@ -84,9 +84,11 @@ def route(x2d: torch.Tensor, router: torch.Tensor, moe: MoEConfig,
 def _moe_local(x2d: torch.Tensor, router: torch.Tensor, w1: torch.Tensor,
                w3: torch.Tensor, w2: torch.Tensor, *, moe: MoEConfig,
                e_pad: int, n_local: int, e_lo: int, act: str,
-               capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+               capacity: int, aux: bool = True
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x2d (T, d) -> (out (T, d), aux_loss), over experts
-    ``e_lo .. e_lo + n_local - 1``."""
+    ``e_lo .. e_lo + n_local - 1``; the aux loss is None unless ``aux``
+    (prefill and decode discard it)."""
     t, d = x2d.shape
     k = moe.top_k
     dev = x2d.device
@@ -129,18 +131,21 @@ def _moe_local(x2d: torch.Tensor, router: torch.Tensor, w1: torch.Tensor,
     out = slab[:, 0]
     for j in range(1, k):
         out = out + slab[:, j]
+    if not aux:
+        return out, None
 
     # Switch-style load-balance aux loss (computed on real experts only).
     probs = torch.softmax(logits[:, :moe.n_experts], dim=-1)
     frac = counts[:moe.n_experts].to(torch.float32) / (t * k)
-    aux = moe.n_experts * torch.sum(frac * probs.mean(0))
-    return out, aux
+    return out, moe.n_experts * torch.sum(frac * probs.mean(0))
 
 
-def moe_block(p, x: torch.Tensor, cfg: ArchConfig, mesh, act: str
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,d) -> (out (B,S,d), aux scalar): every expert on this
-    device, the capacity sized for all B*S tokens."""
+def moe_block(p, x: torch.Tensor, cfg: ArchConfig, mesh, act: str,
+              aux: bool = True
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x (B,S,d) -> (out (B,S,d), aux scalar, or None unless ``aux``):
+    every expert on this device, the capacity sized for all B*S
+    tokens."""
     if mesh is not None:
         raise NotImplementedError(
             "moe_block over a mesh (expert parallelism) is not ported yet "
@@ -151,7 +156,7 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, mesh, act: str
     out, aux = _moe_local(x.reshape(b * s, d), p["router"], p["w1"],
                           p["w3"], p["w2"], moe=moe, e_pad=e_pad,
                           n_local=e_pad, e_lo=0, act=act,
-                          capacity=_capacity(b * s, moe))
+                          capacity=_capacity(b * s, moe), aux=aux)
     return out.reshape(b, s, d), aux
 
 

@@ -181,15 +181,19 @@ def _attn_block(lp, cfg, x, positions, theta, window, block_kv):
     return _residual(x, attn.out_proj(lp["attn"], o)), k, v
 
 
-def _ffn_layer(lp, cfg, x):
+def _ffn_layer(lp, cfg, x, auxes=None):
     """x (the f32 sum of ``_residual``) + mlp(ln2(x)) or moe(ln2(x)), in
-    bf16; also returns the MoE aux loss (0 for an mlp)."""
+    bf16. An MoE layer appends its aux loss to ``auxes`` when given (the
+    forward sums them; prefill and decode compute none)."""
     h = rmsnorm(lp["ln2"], x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
-    if cfg.moe is not None:
-        y, aux = moe_mod.moe_block(lp["moe"], h, cfg, None, cfg.act)
+    if cfg.moe is None:
+        y = mlp(lp["mlp"], h, cfg.act)
     else:
-        y, aux = mlp(lp["mlp"], h, cfg.act), _zero(h.device)
-    return x.to(COMPUTE_DTYPE) + y, aux
+        y, aux = moe_mod.moe_block(lp["moe"], h, cfg, None, cfg.act,
+                                   aux=auxes is not None)
+        if auxes is not None:
+            auxes.append(aux)
+    return x.to(COMPUTE_DTYPE) + y
 
 
 def _zero(device) -> torch.Tensor:
@@ -245,14 +249,13 @@ def forward(params, cfg: ArchConfig, batch,
     b, s = batch["tokens"].shape
     x = _embed_in(params, cfg, batch)
     positions = _positions(cfg, batch, b, s, x.device)
-    aux = _zero(x.device)
+    auxes: List[torch.Tensor] = []
     for i, (window, theta) in enumerate(_layer_scalars(cfg, s)):
         lp = _layer(params["layers"], i)
         x, _, _ = _attn_block(lp, cfg, x, positions, theta, window, block_kv)
-        x, aux_l = _ffn_layer(lp, cfg, x)
-        aux = aux + aux_l
+        x = _ffn_layer(lp, cfg, x, auxes)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x), aux
+    return unembed(params, x), sum(auxes, _zero(x.device))
 
 
 def _ssm_layer(lp, cfg, x, **kw):
@@ -329,8 +332,8 @@ def _encode(params, cfg, batch, block_kv):
         h = rmsnorm(lp["ln1"], xe, cfg.norm_eps)
         q, k, v = attn.qkv_proj(lp["attn"], h)
         o = attn.flash_attention(q, k, v, causal=False, block_kv=block_kv)
-        xe, _ = _ffn_layer(lp, cfg,
-                           _residual(xe, attn.out_proj(lp["attn"], o)))
+        xe = _ffn_layer(lp, cfg,
+                        _residual(xe, attn.out_proj(lp["attn"], o)))
     return rmsnorm(params["enc_norm"], xe, cfg.norm_eps)
 
 
@@ -344,8 +347,8 @@ def _whisper_layer(lp, cfg, x, enc_out, block_kv):
     hc = rmsnorm(lp["ln3"], x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
     qc, kc, vc = _cross_qkv(lp["cross"], hc, enc_out)
     oc = attn.flash_attention(qc, kc, vc, causal=False, block_kv=block_kv)
-    x, _ = _ffn_layer(lp, cfg, _residual(x.to(COMPUTE_DTYPE),
-                                         attn.out_proj(lp["cross"], oc)))
+    x = _ffn_layer(lp, cfg, _residual(x.to(COMPUTE_DTYPE),
+                                      attn.out_proj(lp["cross"], oc)))
     return x, k, v, kc, vc
 
 
@@ -399,7 +402,7 @@ def prefill(params, cfg: ArchConfig, batch, skv: Optional[int] = None,
     for i, (window, theta) in enumerate(_layer_scalars(cfg, skv)):
         lp = _layer(params["layers"], i)
         x, k, v = _attn_block(lp, cfg, x, positions, theta, window, block_kv)
-        x, _ = _ffn_layer(lp, cfg, x)
+        x = _ffn_layer(lp, cfg, x)
         ks.append(_pad_cache(k, skv))
         vs.append(_pad_cache(v, skv))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -502,8 +505,8 @@ def decode_step(params, cfg: ArchConfig, caches, batch):
         kc, vc = attn.update_cache(caches["self"]["k"][i],
                                    caches["self"]["v"][i], k, v, pos)
         o = attn.decode_attention(q, kc, vc, pos, window=window)
-        x, _ = _ffn_layer(lp, cfg,
-                          _residual(x, attn.out_proj(lp["attn"], o)))
+        x = _ffn_layer(lp, cfg,
+                       _residual(x, attn.out_proj(lp["attn"], o)))
         ks.append(kc)
         vs.append(vc)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -570,8 +573,8 @@ def _whisper_decode(params, cfg, caches, batch):
         oc = attn.decode_attention(
             qc, ck, cv, torch.full((b,), f - 1, dtype=torch.int32,
                                    device=x.device))
-        x, _ = _ffn_layer(lp, cfg, _residual(x.to(COMPUTE_DTYPE),
-                                             attn.out_proj(lp["cross"], oc)))
+        x = _ffn_layer(lp, cfg, _residual(x.to(COMPUTE_DTYPE),
+                                          attn.out_proj(lp["cross"], oc)))
         ks.append(kc)
         vs.append(vc)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

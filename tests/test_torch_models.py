@@ -14,7 +14,6 @@ that 1e-1.
 """
 
 import functools
-from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +32,6 @@ from repro_torch.configs import REGISTRY as PORT_REGISTRY
 from repro_torch.models import attention as ta
 from repro_torch.models import build_model
 from repro_torch.models import layers as tl
-from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
 
 ARCHS = sorted(REGISTRY)
@@ -240,26 +238,14 @@ def test_cross_qkv(dtype, bias):
 B, S, STEPS = 2, 16, 4
 
 
-def _dropped_tokens(idx, e_pad, capacity):
-    """(T,) bool: the tokens that lost an expert assignment to capacity in
-    a ``moe._moe_local`` call routed to ``idx`` (T, k): an expert keeps
-    its first ``capacity`` assignments in token order."""
-    t, k = idx.shape
-    onehot = torch.nn.functional.one_hot(idx.reshape(-1), e_pad)
-    rank = (onehot.cumsum(0) * onehot).sum(1) - 1
-    return (rank >= capacity).reshape(t, k).any(1)
-
-
-def _recording_drops(calls):
-    """``moe._moe_local`` that also appends each call's dropped tokens."""
-    local = tmoe._moe_local
-
-    def wrapped(x2d, router, *weights, moe, e_pad, capacity, **kw):
-        idx = tmoe.route(x2d, router, moe, e_pad)[2]
-        calls.append(_dropped_tokens(idx, e_pad, capacity))
-        return local(x2d, router, *weights, moe=moe, e_pad=e_pad,
-                     capacity=capacity, **kw)
-    return wrapped
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _inputs(cfg, rng):
@@ -293,9 +279,10 @@ def _run(arch):
     extra = _inputs(cfg, rng)
     jb = {k: jnp.asarray(v) for k, v in extra.items()}
     pb = {k: torch.from_numpy(v) for k, v in extra.items()}
-    out = {"ref": {}, "port": {"dropped": []}}
-    with mock.patch.object(tmoe, "_moe_local",
-                           _recording_drops(out["port"]["dropped"])):
+    out = {"ref": {}, "port": {}}
+    # chip_smoke.py's record of each moe._moe_local call: (expert ids,
+    # the tokens that lost an assignment to capacity)
+    with _chip_smoke()._Routing() as routing:
         out["ref"]["forward"] = ref_model.forward(
             params, dict(jb, tokens=jnp.asarray(toks)))[0]
         out["port"]["forward"] = model.forward(
@@ -317,6 +304,7 @@ def _run(arch):
                 tp, tc, {"tokens": torch.from_numpy(t),
                          "pos": torch.from_numpy(p)})
             out["ref"][f"decode{i}"], out["port"][f"decode{i}"] = jl_, tl_
+    out["port"]["dropped"] = [dropped for _, dropped in routing.calls]
     return out["ref"], out["port"]
 
 
@@ -572,6 +560,100 @@ def test_hybrid_groups_match_reference(phase):
     for name, got, want in rows:
         assert got.shape == tuple(want.shape), name
         assert rel(got, want) <= BOUND, name
+
+
+@functools.lru_cache(maxsize=None)
+def _hybrid_stack():
+    """zamba2's reduced stack through the port's entry points
+    (``model.forward``, ``prefill`` and STEPS ``decode_step``s, each step
+    on the caches the entry points returned) beside the port's own
+    groups chained by hand on its own residual stream: six SSM layers,
+    then the shared block, group after group; in prefill the shared k/v
+    zero-padded to skv, in decode layer i reading SSM cache i and group
+    g the shared block's cache g. Returns {phase: [(name, stack, chain),
+    ...]}: the logits and every cache leaf."""
+    cfg = get_config(HYBRID).reduced()
+    model = build_model(PORT_REGISTRY[HYBRID].reduced())
+    tp = model.load(convert.params_from_numpy(jax.tree.map(
+        np.asarray, ref_build(cfg).init(jax.random.PRNGKey(0))),
+        device="cpu"))
+    per, skv = cfg.shared_attn_every, S + STEPS
+    groups = cfg.n_layers // per
+
+    def chain(tokens, caches=None, pos=None, prefill=False):
+        n = tokens.shape[1]
+        x = tl.embed(tp, tokens)
+        positions = (torch.arange(n)[None].expand(B, n) if pos is None
+                     else pos[:, None])
+        ssm, ks, vs = [], [], []
+        for g in range(groups):
+            for i in range(g * per, (g + 1) * per):
+                lp = tt._layer(tp["layers"], i)
+                if caches is not None:
+                    x, c = tt._ssm_layer(lp, cfg, x, cache={
+                        k: v[i] for k, v in caches["ssm"].items()})
+                    ssm.append(c)
+                elif prefill:
+                    x, c = tt._ssm_layer(lp, cfg, x, return_cache=True)
+                    ssm.append(c)
+                else:
+                    x = tt._ssm_layer(lp, cfg, x)
+            kv = None if caches is None else (caches["shared"]["k"][g],
+                                              caches["shared"]["v"][g])
+            x, (k, v) = tt._shared_block(tp["shared"], cfg, x, positions,
+                                         1024, kv_cache=kv, pos=pos)
+            if prefill:
+                k, v = (torch.cat([a.to(torch.bfloat16), torch.zeros(
+                    (B, skv - n) + a.shape[2:], dtype=torch.bfloat16)], 1)
+                        for a in (k, v))
+            ks.append(k)
+            vs.append(v)
+        x = tl.rmsnorm(tp["final_norm"], x, cfg.norm_eps)
+        if not ssm:
+            return tl.unembed(tp, x), {}
+        return tl.unembed(tp, x[:, -1]), {
+            "ssm": {k: torch.stack([c[k] for c in ssm]) for k in ssm[0]},
+            "shared": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+    def rows(stack, by_hand):
+        (logits, caches), (want, want_caches) = stack, by_hand
+        got, expect = dict(_leaves(caches)), dict(_leaves(want_caches))
+        assert sorted(got) == sorted(expect)
+        return [("logits", logits, want)] + [
+            ("/".join(path), got[path], expect[path]) for path in expect]
+
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + STEPS))
+                            .astype(np.int32))
+    out = {"forward": rows((model.forward(tp, {"tokens": toks})[0], {}),
+                           chain(toks))}
+    stack = model.prefill(tp, {"tokens": toks[:, :S]}, skv=skv)
+    out["prefill"] = rows(stack, chain(toks[:, :S], prefill=True))
+    caches = stack[1]
+    for step in range(STEPS):
+        t = toks[:, S + step:S + step + 1]
+        p = torch.full((B,), S + step, dtype=torch.int32)
+        stack = model.decode_step(tp, caches, {"tokens": t, "pos": p})
+        out[f"decode{step}"] = rows(stack, chain(t, caches, p))
+        caches = stack[1]
+    return out
+
+
+@pytest.mark.parametrize("phase", ["forward", "prefill"] +
+                         [f"decode{i}" for i in range(STEPS)])
+def test_hybrid_stack_is_its_group_chain(phase):
+    """zamba2's ``_hybrid_forward``, ``_hybrid_prefill`` and
+    ``_hybrid_decode`` equal, bit for bit, the port's own groups chained
+    by hand: the group order, the shared block after each group, the
+    padded shared caches and the per-layer and per-group cache indexing.
+    With ``test_hybrid_groups_match_reference`` (each group against the
+    reference) this holds the whole stack where its chaos keeps an end
+    to end comparison out."""
+    rows = _hybrid_stack()[phase]
+    assert len(rows) == (1 if phase == "forward" else 7)
+    for name, got, want in rows:
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert torch.equal(got, want), name
 
 
 @pytest.mark.parametrize("arch", ARCHS)

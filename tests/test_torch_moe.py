@@ -10,6 +10,7 @@ float32 rtol/atol 1e-5, bf16 two ulps (rtol 1.6e-2, atol 1e-3).
 """
 
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -157,6 +158,42 @@ def test_moe_block_matches_reference(arch):
     np.testing.assert_allclose(tout.float().numpy(),
                                np.asarray(jout.astype(jnp.float32)), **BF16)
     np.testing.assert_allclose(float(taux), float(jaux), **F32)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_block_without_aux_keeps_its_output(arch):
+    """Prefill and decode discard the aux loss, so they ask for none
+    (``aux=False``): the block's output stays the same bits; the stack's
+    forward alone asks for it."""
+    from repro_torch.models import build_model
+    cfg = port_config(arch).reduced()
+    tp = build_model(cfg).init(0, device="cpu")
+    p = {k: v[0] for k, v in tp["layers"]["moe"].items()}
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(2, 9, cfg.d_model)).astype(np.float32)).bfloat16()
+    out, aux = tm.moe_block(p, x, cfg, None, cfg.act)
+    bare, none = tm.moe_block(p, x, cfg, None, cfg.act, aux=False)
+    assert aux.shape == () and none is None
+    assert torch.equal(bare, out)
+    asked = []
+    local = tm._moe_local
+
+    def spy(*args, **kw):
+        asked.append(kw["aux"])
+        return local(*args, **kw)
+
+    model = build_model(cfg)
+    toks = torch.zeros((2, 4), dtype=torch.int32)
+    with mock.patch.object(tm, "_moe_local", spy):
+        model.forward(tp, {"tokens": toks})
+        n = len(asked)
+        _, caches = model.prefill(tp, {"tokens": toks}, skv=5)
+        model.decode_step(tp, caches, {
+            "tokens": toks[:, :1], "pos": torch.full((2,), 4,
+                                                     dtype=torch.int32)})
+    assert n == cfg.n_layers and asked[:n] == [True] * n
+    assert asked[n:] == [False] * (2 * cfg.n_layers)
 
 
 def test_moe_block_raises_on_a_mesh():
