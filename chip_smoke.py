@@ -99,12 +99,40 @@ without printing the result line):
    ``expert_bitmask_stats`` on ``BulkBitwiseEngine("cuda")``: one
    ``popcount_rows`` launch a call, loads equal to ``numpy.bincount``,
    masks equal to the plain version's;
-10. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
+10. training (``repro_torch.optim``, ``train``, ``checkpoint``,
+   ``runtime``, ``launch.train``): (a) one train step
+   (``remat="save_attn"``) at full width with the depth cut, batch 2,
+   on the card against the CPU port on the same weights: qwen2.5-3b 2
+   layers over 128 tokens, granite-moe-3b-a800m 2 layers at a capacity
+   that drops nothing, mamba2-780m 2 layers over 300 tokens (three SSD
+   chunks): the loss within 5e-3 relative, grad_norm and each gradient
+   leaf within 5e-2 (norm-relative), unforced and with every attention
+   core fed the CPU's inputs and outputs (``_Attention``: the gradient
+   passes straight through), the archs of ``TRAIN_FORCED`` held by the
+   latter; ``optim.update`` fed the CPU's gradients within 1e-5 of the
+   CPU's update; ``make_train_step`` itself on the card moving every
+   leaf; zamba2-2.7b 6 layers and whisper-small 2+2 layers at 1500
+   frames take one step each (finite, every leaf moved), their numbers
+   against the CPU printed; (b) qwen2.5-3b at full width and depth (36
+   layers, 3.40 B float32 parameters) trained by ``make_train_step``
+   (``launch/train``'s optimizer, batch 8 x 128) for 20 steps on
+   ``FilteredSyntheticLM``'s batches (two ``bitweaving_scan`` launches):
+   every loss and parameter finite; step ms, tokens/s, peak memory and
+   one profiled step (kernels, device ms, idle share); its loss curve
+   and grad norms printed (at the reference's init the 36-layer
+   gradient norm passes float32's range and the loss does not fall);
+   (c) ``launch.train.main --reduced --device cuda`` for 30 steps, then
+   ``--resume`` to 40: the first run's loss falls (the mean of its last
+   5 steps below its first 5's), the resumed run starts at step 30, each
+   run's final checkpoint equals its live state bit for bit, two
+   ``bitweaving_scan`` launches a run; the phase's launch counts are
+   read for this phase alone;
+11. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
    ``{"kernels": [...]}`` JSON line, then the result line.
 
 Each path must launch its own kernels: the four serving kernels on
-phase 3, ``binary_matmul`` on phase 4, ``bitweaving_scan`` on phase 8
-too, ``popcount_rows`` on phase 9 too. A kernel required on several
+phase 3, ``binary_matmul`` on phase 4, ``bitweaving_scan`` on phases 8
+and 10 too, ``popcount_rows`` on phase 9 too. A kernel required on several
 paths (``PATH_OF``) reports its launches on each (``launches_by_path``)
 and their sum (``launches``).
 
@@ -1164,7 +1192,7 @@ KERNELS = (
 PATH_OF = {"fused_bitwise": ("serving",),
            "fused_bitwise_stacked": ("serving",),
            "popcount_rows": ("serving", "lm_families"),
-           "bitweaving_scan": ("serving", "lm"),
+           "bitweaving_scan": ("serving", "lm", "train"),
            "binary_matmul": ("binary_lm",)}
 
 
@@ -1960,8 +1988,10 @@ def _tree_to(tree, device):
 
 
 def _max_rel(got, want) -> float:
-    got, want = got.float().cpu(), want.float().cpu()
-    return float((got - want).abs().max() / want.abs().max())
+    """max |got - want| / max |want|, 0 where both are 0."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max()
+                 .clamp_min(1e-30))
 
 
 def lm_parity(torch, card, n_layers=2, prompt=8, steps=3):
@@ -2288,10 +2318,18 @@ def _drops(calls):
 
 
 def _to(x, device):
-    """Tensors, and tuples of them, on ``device``."""
+    """Tensors (detached), and tuples of them, on ``device``."""
     if isinstance(x, tuple):
         return tuple(_to(v, device) for v in x)
-    return x.to(device) if hasattr(x, "to") else x
+    return x.detach().to(device) if hasattr(x, "to") else x
+
+
+def _through(x, value):
+    """``value``, with ``x``'s gradient where ``x`` has one: the backward
+    passes straight through to ``x`` (``x - x`` adds an exact 0)."""
+    if not getattr(x, "requires_grad", False):
+        return value
+    return value + (x - x.detach())
 
 
 class _Cores:
@@ -2346,16 +2384,33 @@ class _Attention(_Cores):
     and returns the recorded output, so that everything after each
     attention core reads the same values on both devices, and each
     core's inputs (projections, rope, ``_cross_qkv``, ``update_cache``,
-    the decode caches) are compared on comparable values."""
+    the decode caches) are compared on comparable values.
+
+    In a train step both substitutions pass the gradient straight
+    through (to the call's own inputs, from its output), so each core's
+    backward runs at the recorded inputs; a checkpointed layer's
+    recompute in the backward runs to its end (no early stop, which
+    would leave a core call without its output), so the calls of two
+    steps pair one to one."""
 
     def __init__(self, feed=None):
         super().__init__()
         self.feed, self.calls = feed, []
 
+    def __enter__(self):
+        from torch.utils.checkpoint import set_checkpoint_early_stop
+        self._whole = set_checkpoint_early_stop(False)
+        self._whole.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        return self._whole.__exit__(*exc)
+
     def _call(self, name, fn, args, kw):
         if self.feed is None:
             out = fn(*args, **kw)
-            self.calls.append((name, _to(args, "cpu"), kw, out.cpu()))
+            self.calls.append((name, _to(args, "cpu"), kw, _to(out, "cpu")))
             return out
         rec_name, rec_args, rec_kw, rec_out = self.feed[len(self.rels)]
         if (rec_name, rec_kw) != (name, kw):
@@ -2363,9 +2418,10 @@ class _Attention(_Cores):
                  f"{rec_name} {rec_kw}")
         dev = args[0].device
         self._hold(zip(args, rec_args))
-        self.rels.append(_max_rel(fn(*_to(rec_args, dev), **rec_kw),
-                                  rec_out))
-        return rec_out.to(dev)
+        own = fn(*(_through(a, r) for a, r in zip(args, _to(rec_args, dev))),
+                 **rec_kw)
+        self.rels.append(_max_rel(own, rec_out))
+        return _through(own, rec_out.to(dev))
 
 
 class _FromForward(_Cores):
@@ -2813,6 +2869,373 @@ def families_phase(torch, card, wrappers):
     return report
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+# arch: (depth, tokens a sequence) of the card-vs-CPU train step, batch 2;
+# mamba2 runs over three SSD chunks of 128, the MoE at a capacity that
+# drops nothing (``_no_drop``)
+TRAIN_PARITY = {"qwen2.5-3b": (2, 128), "granite-moe-3b-a800m": (2, 128),
+                "mamba2-780m": (2, 300)}
+# their attention flips keys on a cuBLAS ulp at this init (phase 9): one
+# step each on the card, finite and moving every leaf, their numbers
+# against the CPU printed
+TRAIN_PRINTED = {"zamba2-2.7b": (6, 128), "whisper-small": (2, 128)}
+TRAIN_LOSS_BOUND = 5e-3     # relative
+TRAIN_GRAD_BOUND = 5e-2     # grad_norm relative; each leaf norm-relative
+TRAIN_UPDATE_BOUND = 1e-5   # optim.update on the CPU's gradients, max-rel
+# archs of TRAIN_PARITY held with every attention core fed the CPU's
+# inputs and outputs (``_Attention``); the unforced numbers are printed.
+# Their attention flips keys on a cuBLAS ulp at this init, and the step's
+# gradients follow the flipped rows: on an H100 qwen2.5-3b's unforced
+# leaves read 0.55-1.14 from the CPU's (grad_norm 0.34) and granite's
+# 0.19-0.25, where fed the CPU's cores they read at most 7.6e-3 and
+# 9.4e-3 (PERF.md).
+TRAIN_FORCED = ("qwen2.5-3b", "granite-moe-3b-a800m")
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=20, total_steps=20)  # launch/train's
+TRAIN_FULL = dict(arch=LM_ARCH, steps=20, batch=8, seq=128)  # its defaults
+
+
+def _norm_rel(got, want) -> float:
+    """|got - want| / |want| (Frobenius norms), on the host in float64."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def _named_leaves(tree, path=()):
+    """(path, leaf) in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+def _grad_numbers(loss, grads, want_loss, want_grads, gnorm, want_gnorm):
+    """The loss, grad_norm and each gradient leaf against the CPU's."""
+    leaves = {p: _norm_rel(g, w) for (p, g), (_, w) in
+              zip(_named_leaves(grads), _named_leaves(want_grads))}
+    worst = max(leaves, key=leaves.get)
+    return {"loss": float(loss),
+            "loss_rel": abs(float(loss) - want_loss) / abs(want_loss),
+            "grad_norm": gnorm,
+            "grad_norm_rel": abs(gnorm - want_gnorm) / want_gnorm,
+            "leaf_worst": leaves[worst], "leaf_worst_at": worst}
+
+
+def _train_batch(torch, cfg, batch, seq):
+    """Tokens from a numpy seed (labels the next token) and, for
+    whisper, frames, on the host."""
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab, (batch, seq + 1)).astype(np.int32)
+    host = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+            "labels": torch.from_numpy(toks[:, 1:].copy())}
+    if cfg.enc_dec:
+        host["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    return host
+
+
+def train_parity(torch, card, arch, n_layers, seq, batch=2, held=True):
+    """(a) One train step (``remat="save_attn"``) of ``arch`` at its full
+    widths, depth cut to ``n_layers``, on the card against the CPU port
+    on the same weights and batch: the loss, grad_norm and each gradient
+    leaf, unforced and (with attention) with every core fed the CPU's
+    inputs and outputs (``_Attention``); ``optim.update`` fed the CPU's
+    gradients against the CPU's update; then ``make_train_step`` itself
+    on the card, which must give the same loss and move every leaf.
+    ``held``: the bounds apply (else the numbers are printed)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.train import step as train_step
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                              n_enc_layers=2 if cfg.enc_dec else 0)
+    if cfg.moe is not None:
+        cfg = _no_drop(cfg)
+    model = build_model(cfg)
+    cpu = model.init(SEED, device="cpu")
+    host = _train_batch(torch, cfg, batch, seq)
+    loss_fn = train_step.make_loss_fn(model, remat="save_attn")
+    recorded = _Attention()
+    t0 = time.perf_counter()
+    with recorded:
+        (cpu_loss, _), cpu_grads = train_step.value_and_grad(loss_fn, cpu,
+                                                             host)
+    cpu_s = time.perf_counter() - t0
+    cpu_loss, cpu_gnorm = float(cpu_loss), float(opt.global_norm(cpu_grads))
+    params = _tree_to(cpu, "cuda")
+    data = _tree_to(host, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (loss, _), grads = train_step.value_and_grad(loss_fn, params, data)
+    gnorm = float(opt.global_norm(grads))
+    card_s = time.perf_counter() - t0
+    unforced = _grad_numbers(loss, grads, cpu_loss, cpu_grads, gnorm,
+                             cpu_gnorm)
+    del grads
+    out = {"n_layers": n_layers, "seq": seq, "params": model.n_params(),
+           "cpu_loss": cpu_loss, "cpu_grad_norm": cpu_gnorm,
+           "unforced": unforced, "cpu_s": cpu_s, "card_s": card_s}
+    if recorded.calls:
+        forcing = _Attention(feed=recorded.calls)
+        with forcing:
+            (f_loss, _), f_grads = train_step.value_and_grad(loss_fn, params,
+                                                             data)
+        if len(forcing.rels) != len(recorded.calls):
+            fail(f"{arch}: {len(forcing.rels)} attention calls in the "
+                 f"card's step, {len(recorded.calls)} in the CPU's")
+        out["forced"] = dict(
+            _grad_numbers(f_loss, f_grads, cpu_loss, cpu_grads,
+                          float(opt.global_norm(f_grads)), cpu_gnorm),
+            cores=len(forcing.rels), cores_worst=max(forcing.rels),
+            core_inputs_worst=max(forcing.arg_rels))
+        del f_grads
+    gated = out["forced"] if arch in TRAIN_FORCED else unforced
+    extra = ([gated["cores_worst"], gated["core_inputs_worst"]]
+             if arch in TRAIN_FORCED else [])
+    if held and (gated["loss_rel"] > TRAIN_LOSS_BOUND
+                 or max([gated["grad_norm_rel"], gated["leaf_worst"]]
+                        + extra) > TRAIN_GRAD_BOUND):
+        fail(f"{arch} train parity: {gated} against the CPU over loss "
+             f"{TRAIN_LOSS_BOUND}, grad_norm and leaves {TRAIN_GRAD_BOUND}"
+             + (" (attention cores fed the CPU's)" if extra else ""))
+
+    # the card's update fed the CPU's gradients, against the CPU's
+    opt_cfg = opt.OptimizerConfig(**TRAIN_OPT)
+    step_params = _tree_to(cpu, "cuda")
+    cpu_state, card_state = opt.init(cpu), opt.init(params)
+    opt.update(opt_cfg, cpu_grads, cpu_state, cpu)
+    opt.update(opt_cfg, _tree_to(cpu_grads, "cuda"), card_state, params)
+    pairs = [(params, cpu), (card_state["m"], cpu_state["m"]),
+             (card_state["v"], cpu_state["v"])]
+    out["update_worst"] = max(_max_rel(g, w) for got, want in pairs
+                              for g, w in zip(tree_leaves(got),
+                                              tree_leaves(want)))
+    if held and out["update_worst"] > TRAIN_UPDATE_BOUND:
+        fail(f"{arch}: optim.update on the card, fed the CPU's gradients, "
+             f"{out['update_worst']} from the CPU's > {TRAIN_UPDATE_BOUND}")
+    del params, card_state, cpu_grads
+
+    # the entry point: make_train_step on the card
+    before = [p.clone() for p in tree_leaves(step_params)]
+    state = {"params": step_params, "opt": opt.init(step_params)}
+    state, m = train_step.make_train_step(model, opt_cfg)(state, data)
+    step_loss = float(m["loss"])
+    if not abs(step_loss - float(loss)) <= 1e-6 * abs(float(loss)):
+        fail(f"{arch}: make_train_step's loss {step_loss} is not "
+             f"value_and_grad's {float(loss)}")
+    moved = [not torch.equal(a, b) and bool(torch.isfinite(a).all())
+             for a, b in zip(tree_leaves(state["params"]), before)]
+    if not all(moved):
+        fail(f"{arch}: the step left {moved.count(False)} parameter leaves "
+             "unchanged or non-finite")
+    out["step_grad_norm"] = float(m["grad_norm"])
+    forced_line = ""
+    if "forced" in out:
+        f = out["forced"]
+        forced_line = (
+            f"; with its {f['cores']} attention cores fed the CPU's: loss "
+            f"{f['loss_rel']:.3e}, grad_norm {f['grad_norm_rel']:.3e}, "
+            f"worst leaf {f['leaf_worst']:.3e} ({f['leaf_worst_at']}), "
+            f"cores worst {f['cores_worst']:.3e}, their inputs worst "
+            f"{f['core_inputs_worst']:.3e}")
+    u = unforced
+    log(f"train parity {arch} full width, {n_layers} layers "
+        f"({model.n_params()} params), batch {batch} x {seq}, "
+        f"remat save_attn{' (held)' if held else ' (printed)'}"
+        f"{' gated with the cores fed the CPU' if arch in TRAIN_FORCED else ''}"
+        f": card vs CPU loss {u['loss']:.6f} vs {cpu_loss:.6f} (rel "
+        f"{u['loss_rel']:.3e}, bound {TRAIN_LOSS_BOUND}), grad_norm rel "
+        f"{u['grad_norm_rel']:.3e}, worst leaf {u['leaf_worst']:.3e} "
+        f"({u['leaf_worst_at']}) (bound {TRAIN_GRAD_BOUND}){forced_line}; "
+        f"update fed the CPU's grads worst {out['update_worst']:.3e} (bound "
+        f"{TRAIN_UPDATE_BOUND}); make_train_step's loss within 1e-6 of it, "
+        f"every leaf moved; CPU step {cpu_s:.1f} s, card {card_s:.3f} s on {card}")
+    return out
+
+
+def train_full(torch, card, scan, arch, steps, batch, seq):
+    """(b) ``arch`` as configured (qwen2.5-3b: 36 layers, 3.40 B float32
+    parameters) trained by ``make_train_step`` for ``steps`` steps on
+    ``FilteredSyntheticLM``'s batches (its filter: two scan launches):
+    every loss and every parameter finite; step ms, tokens/s, peak memory
+    and one profiled step. Whether the mean loss of the last 5 steps fell
+    below the first 5's is printed with each step's grad_norm, not
+    required: at the reference's init the 36-layer stack's gradient norm
+    reaches 1e17 and past float32's range (the norm reads inf and the
+    clip scales the step to nothing), as the reference's own grows with
+    depth (``tests/test_torch_train.py``), and the loss stays within its
+    batch-to-batch spread (PERF.md). ``launch.train``'s reduced run
+    (phase 10(c)) holds that criterion."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, FilteredSyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizer import OptimizerConfig
+    from repro_torch.train.step import init_state, make_train_step
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_state(model, SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    before = scan.launches
+    data = FilteredSyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=batch), device="cuda")
+    if scan.launches - before != 2:
+        fail(f"FilteredSyntheticLM launched bitweaving_scan "
+             f"{scan.launches - before} times, not 2")
+    step = make_train_step(model, OptimizerConfig(**TRAIN_OPT),
+                           remat="save_attn", microbatches=1)
+
+    def batch_at(s):
+        b = data.batch_at(s)
+        return {k: torch.from_numpy(b[k]).to("cuda")
+                for k in ("tokens", "labels")}
+
+    losses, gnorms, ms = [], [], []
+    for s in range(steps):
+        b = batch_at(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"train {arch}: non-finite losses {losses}")
+    bad = [k for k, p in _named_leaves(state["params"])
+           if not bool(torch.isfinite(p).all())]
+    if bad:
+        fail(f"train {arch}: non-finite parameters after {steps} steps in "
+             f"{bad}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    warm = ms[1:]
+    median = statistics.median(warm)
+    prof = _cuda_events(torch, lambda: step(state, batch_at(steps)))
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "params": model.n_params(), "batch": batch, "seq": seq,
+           "steps": steps, "init_s": init_s, "losses": losses,
+           "first5_mean": first, "last5_mean": last, "loss_fell":
+               last < first, "grad_norms": gnorms,
+           "grad_norm_inf_steps": sum(not np.isfinite(g) for g in gnorms),
+           "step_ms": ms,
+           "step_ms_median": median, "step_ms_min": min(warm),
+           "step_ms_max": max(warm),
+           "tokens_per_s": batch * seq / (median / 1e3),
+           "max_memory_allocated": peak,
+           "state_bytes": 4 * 4 * model.n_params(),
+           "profile": prof,
+           "idle_share": 1 - prof.get("device_ms", 0.0) / median}
+    log(f"train {arch} {cfg.n_layers} layers ({model.n_params()} float32 "
+        f"params; params, grads, m, v {out['state_bytes']} B), batch "
+        f"{batch} x seq {seq}, remat save_attn, {steps} steps on "
+        f"FilteredSyntheticLM: every loss and parameter finite; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, first 5 mean {first:.4f}, "
+        f"last 5 mean {last:.4f} ({'fell' if last < first else 'did not fall'}"
+        f", reported); grad_norm {min(gnorms):.3e} to {max(gnorms):.3e} "
+        f"({out['grad_norm_inf_steps']} steps inf, reported); step ms "
+        f"median {median:.3f} min {min(warm):.3f} max {max(warm):.3f} "
+        f"(first {ms[0]:.3f}), {out['tokens_per_s']:.1f} tokens/s; max "
+        f"memory allocated {peak} B; one profiled step: "
+        f"{prof.get('kernels', 0)} CUDA kernels and {prof.get('copies', 0)}"
+        f" copies summing {prof.get('device_ms', 0.0):.3f} device ms, idle "
+        f"share {out['idle_share']:.3f} of the median step on {card} "
+        f"(measured on the card)")
+    return out
+
+
+def train_entry(torch, card, scan, steps=30, more=10):
+    """(c) ``launch.train.main --reduced --device cuda`` for ``steps``
+    steps into a temporary checkpoint directory, then ``--resume`` to
+    ``steps + more``: each run launches the scan twice, the resumed run
+    starts at ``steps``, each run's final checkpoint equals its live
+    state bit for bit, and the first run's loss falls (the mean of its
+    last 5 steps below its first 5's: the criterion of
+    ``test_train_infra.py::test_loss_decreases``)."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.param import tree_leaves
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        for name, argv, want_start in (
+                ("run", ["--steps", str(steps)], 0),
+                ("resume", ["--steps", str(steps + more), "--resume"],
+                 steps)):
+            before = scan.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start, state, hist = launch_train.main(
+                ["--reduced", "--device", "cuda", "--ckpt-dir", tmp] + argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = scan.launches - before
+            end = int(argv[1])
+            ran = [h["step"] for h in hist if "loss" in h]
+            if start != want_start or ran != list(range(want_start, end)):
+                fail(f"launch.train {name}: started at {start}, ran {ran}")
+            if launches != 2:
+                fail(f"launch.train {name} launched bitweaving_scan "
+                     f"{launches} times, not 2")
+            saved = ck.restore(end, device="cuda")[1]
+            same = [a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(tree_leaves(saved), tree_leaves(state))]
+            if len(same) != len(tree_leaves(state)) or not all(same):
+                fail(f"launch.train {name}: the step-{end} checkpoint "
+                     f"differs from the live state in {same.count(False)} "
+                     "leaves")
+            losses = [h["loss"] for h in hist if "loss" in h]
+            if not all(np.isfinite(losses)):
+                fail(f"launch.train {name}: non-finite losses {losses}")
+            fell = float(np.mean(losses[-5:])) < float(np.mean(losses[:5]))
+            if name == "run" and not fell:
+                fail(f"launch.train: the mean loss of the last 5 steps is "
+                     f"not below the first 5's: {losses}")
+            out[name] = {"start": start, "end": end, "wall_s": wall,
+                         "scan_launches": launches,
+                         "first_loss": losses[0], "last_loss": losses[-1],
+                         "first5_mean": float(np.mean(losses[:5])),
+                         "last5_mean": float(np.mean(losses[-5:])),
+                         "checkpoints": ck.steps()}
+            log(f"launch.train {name} --reduced --device cuda: steps "
+                f"{start}->{end}, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+                f"(mean of the first 5 {out[name]['first5_mean']:.4f}, of "
+                f"the last 5 {out[name]['last5_mean']:.4f}"
+                + (", held" if name == "run" else "") + f"), {launches} "
+                f"bitweaving_scan launches, checkpoints "
+                f"{ck.steps()}, step-{end} checkpoint == live state (bit "
+                f"for bit), wall {wall:.3f} s on {card}")
+    return out
+
+
+def train_phase(torch, card, wrappers):
+    """Phase 10: (a) the train step at full width against the CPU port,
+    (b) the trainer at full width and depth, (c) ``launch.train`` and its
+    resume."""
+    scan = wrappers["bitweaving_scan"]
+    report = {}
+    for arch, (depth, seq) in TRAIN_PARITY.items():
+        report[f"parity {arch}"] = train_parity(torch, card, arch, depth, seq)
+        torch.cuda.empty_cache()
+    for arch, (depth, seq) in TRAIN_PRINTED.items():
+        report[f"printed {arch}"] = train_parity(torch, card, arch, depth,
+                                                 seq, held=False)
+        torch.cuda.empty_cache()
+    report["full"] = train_full(torch, card, scan, **TRAIN_FULL)
+    torch.cuda.empty_cache()
+    report["entry"] = train_entry(torch, card, scan)
+    torch.cuda.empty_cache()
+    return report
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(here, "src")
@@ -2889,6 +3312,15 @@ def main() -> int:
                                                         wrappers))
     log(f"lm_families phase_s={time.perf_counter() - t_phase:.1f} "
         f"report={json.dumps(families)} card: {card}")
+    torch.cuda.empty_cache()
+
+    log("== phase 10: training on the card (train step, qwen2.5-3b "
+        "trainer, launch.train)")
+    t_phase = time.perf_counter()
+    training, launches["train"] = _path_launches(
+        wrappers, "train", lambda: train_phase(torch, card, wrappers))
+    log(f"train phase_s={time.perf_counter() - t_phase:.1f} "
+        f"report={json.dumps(training)} card: {card}")
 
     kernels = []
     for name, _, source, replaces in KERNELS:

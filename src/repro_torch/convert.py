@@ -74,9 +74,18 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     which ``torch.from_numpy`` cannot take directly."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    arr = np.ascontiguousarray(tree)
+    arr = np.asarray(tree)          # a 0-d array stays 0-d
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr.copy())
     return t.to(resolve_device(device))
+
+
+def state_from_numpy(state: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """A reference train state as numpy arrays
+    (``jax.tree.map(np.asarray, state)``: ``{"params", "opt": {"m", "v",
+    "step"}}``) -> the port's state of tensors on ``device``, every bit
+    kept; ``step`` stays a 0-d ``int32``."""
+    return {"params": params_from_numpy(state["params"], device),
+            "opt": params_from_numpy(state["opt"], device)}

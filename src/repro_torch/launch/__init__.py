@@ -1,1 +1,1 @@
-"""Launch layer: the single-device serving entry point."""
+"""Launch layer: the single-device serving and training entry points."""

@@ -88,8 +88,14 @@ class Model(nn.Module):
 
     # -- compute --------------------------------------------------------------
 
-    def forward(self, params: Tree, batch):
-        return transformer.forward(params, self.cfg, batch)
+    def forward(self, params: Tree, batch, mesh=None, remat=False):
+        """Train-mode logits and aux loss; ``remat`` is the reference's
+        (False, True or ``"save_attn"``; ``transformer.forward``)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "Model.forward over a mesh is not ported yet (ROADMAP "
+                "queue 1, item 12)")
+        return transformer.forward(params, self.cfg, batch, remat=remat)
 
     def prefill(self, params: Tree, batch, skv: Optional[int] = None):
         return transformer.prefill(params, self.cfg, batch, skv=skv)

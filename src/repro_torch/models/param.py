@@ -41,6 +41,28 @@ def map_tree(fn: Callable[[Any], Any], tree: Tree) -> Tree:
     return {k: map_tree(fn, v) for k, v in tree.items()}
 
 
+def tree_leaves(tree: Tree) -> list:
+    """The leaves of a nested dict in ``jax.tree.leaves``'s order (keys
+    sorted at every level)."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+
+
+def tree_unflatten(like: Tree, leaves) -> Tree:
+    """A tree shaped as ``like`` holding ``leaves`` (in ``tree_leaves``
+    order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if not isinstance(t, dict):
+            return next(it)
+        made = {k: build(t[k]) for k in sorted(t)}
+        return {k: made[k] for k in t}
+
+    return build(like)
+
+
 def count_params(tree: Tree) -> int:
     total = 0
 

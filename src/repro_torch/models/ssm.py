@@ -148,10 +148,18 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     # --- intra-chunk (quadratic within Q) ---------------------------------
     # scores[i,j] = (C_i . B_j) * exp(a_i - a_j) * dt_j   for i >= j
     cb = _f32_einsum("bcqhn,bckhn->bcqkh", cc, bc)
-    decay = torch.exp(a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :])
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    # Above the diagonal a_i - a_j is the decay summed over the steps
+    # between, which passes float32's exp range within a chunk of 128 at
+    # dt near 0.7; the reference takes exp there and masks the product,
+    # so its backward multiplies the mask's zero by inf (NaN gradients).
+    # Masked to -inf before the exp, those entries are 0: the forward is
+    # the same bits, and the backward finite.
+    tri5 = tri[None, None, :, :, None]
+    decay = torch.exp(torch.where(
+        tri5, a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :], -torch.inf))
     scores = cb * decay * dtc[:, :, None, :, :]
-    scores = torch.where(tri[None, None, :, :, None], scores, 0.0)
+    scores = torch.where(tri5, scores, 0.0)
     y_intra = _f32_einsum("bcqkh,bckhp->bcqhp", scores.to(x.dtype), xc)
 
     # --- chunk states ------------------------------------------------------

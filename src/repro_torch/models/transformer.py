@@ -7,10 +7,18 @@ each layer, and zamba2's shared block runs after each group of
 
 Public entry points (used by model.py):
   model_defs(cfg)                          parameter tree
-  forward(params, cfg, batch, ...)         train-mode logits (B,S,V)
+  forward(params, cfg, batch, remat, ...)  train-mode logits (B,S,V)
   prefill(params, cfg, batch, ...)         (last-token logits, caches)
   decode_step(params, cfg, caches, batch)  (logits, new caches)
   cache_defs(cfg, batch, skv)              decode-cache ParamDef tree
+
+The train-mode forward takes the reference's ``remat``: False, True
+(each layer under ``torch.utils.checkpoint``: its activations are
+recomputed in the backward) or ``"save_attn"`` (the decoder layer's
+attention core and the rest of the layer are checkpointed apart, so the
+attention output is kept across the boundary as the reference's
+``checkpoint_name(o, "attn_out")`` policy keeps it; a layer with no
+attention is recomputed whole, as under that policy).
 
 Expert parallelism over a mesh is ROADMAP queue 1, item 12
 (``moe.moe_block`` raises when handed one).
@@ -18,9 +26,11 @@ Expert parallelism over a mesh is ROADMAP queue 1, item 12
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import attention as attn
@@ -170,14 +180,21 @@ def _residual(x, y):
     return x.to(torch.float32) + y.to(torch.float32)
 
 
-def _attn_block(lp, cfg, x, positions, theta, window, block_kv):
-    """x + attention(x) as ``_residual``'s f32 sum; also returns the
-    layer's rotated k and v."""
+def _attn_core(lp, cfg, x, positions, theta, window, block_kv):
+    """The attention output o (before ``out_proj``) and the layer's
+    rotated k and v."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv_proj(lp["attn"], h)
     q, k = _apply_rope(cfg, q, k, positions, theta)
     o = attn.flash_attention(q, k, v, causal=True, window=window,
                              block_kv=block_kv)
+    return o, k, v
+
+
+def _attn_block(lp, cfg, x, positions, theta, window, block_kv):
+    """x + attention(x) as ``_residual``'s f32 sum; also returns the
+    layer's rotated k and v."""
+    o, k, v = _attn_core(lp, cfg, x, positions, theta, window, block_kv)
     return _residual(x, attn.out_proj(lp["attn"], o)), k, v
 
 
@@ -203,6 +220,22 @@ def _zero(device) -> torch.Tensor:
 def _layer(layers: Tree, i: int) -> Tree:
     """Layer i's slice of the stacked parameter (or cache) tree."""
     return map_tree(lambda a: a[i], layers)
+
+
+def _layers(layers: Tree, n: int) -> List[Tree]:
+    """Every layer's slice of the stacked parameter tree, from one
+    ``torch.unbind`` a leaf: the same views as ``_layer``'s, but under
+    autograd each leaf's gradient is stacked once, where the backward of
+    ``a[i]`` adds a zero-filled copy of the whole stacked leaf a layer."""
+    parts = map_tree(torch.unbind, layers)
+    return [map_tree(lambda t: t[i], parts) for i in range(n)]
+
+
+def _remat(fn, remat):
+    """``fn`` under ``torch.utils.checkpoint`` when ``remat`` is set."""
+    if not remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def _scale_embed(cfg, x):
@@ -236,26 +269,52 @@ def _positions(cfg, batch, b, s, device):
 # ---------------------------------------------------------------------------
 
 
-def forward(params, cfg: ArchConfig, batch,
+def forward(params, cfg: ArchConfig, batch, remat=False,
             block_kv: int = attn.DEFAULT_BLOCK_KV):
     """Returns (logits (B,S,V), aux_loss scalar)."""
     if cfg.enc_dec:
-        return _whisper_forward(params, cfg, batch, block_kv)
+        return _whisper_forward(params, cfg, batch, remat, block_kv)
     if cfg.family == "ssm":
-        return _ssm_forward(params, cfg, batch)
+        return _ssm_forward(params, cfg, batch, remat)
     if cfg.family == "hybrid":
-        return _hybrid_forward(params, cfg, batch, block_kv)
+        return _hybrid_forward(params, cfg, batch, remat, block_kv)
 
     b, s = batch["tokens"].shape
     x = _embed_in(params, cfg, batch)
     positions = _positions(cfg, batch, b, s, x.device)
+    layer = (_save_attn_layer if remat == "save_attn"
+             else _remat(_train_layer, remat))
     auxes: List[torch.Tensor] = []
-    for i, (window, theta) in enumerate(_layer_scalars(cfg, s)):
-        lp = _layer(params["layers"], i)
-        x, _, _ = _attn_block(lp, cfg, x, positions, theta, window, block_kv)
-        x = _ffn_layer(lp, cfg, x, auxes)
+    for lp, (window, theta) in zip(_layers(params["layers"], cfg.n_layers),
+                                   _layer_scalars(cfg, s)):
+        x, aux = layer(lp, cfg, x, positions, theta, window, block_kv)
+        if aux is not None:
+            auxes.append(aux)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x), sum(auxes, _zero(x.device))
+
+
+def _attn_out_ffn(lp, cfg, x, o):
+    """The decoder layer after its attention core: (x + out_proj(o), then
+    the ffn sublayer; the MoE aux loss or None)."""
+    auxes: List[torch.Tensor] = []
+    x = _ffn_layer(lp, cfg, _residual(x, attn.out_proj(lp["attn"], o)),
+                   auxes)
+    return x, (auxes[0] if auxes else None)
+
+
+def _train_layer(lp, cfg, x, positions, theta, window, block_kv):
+    """One decoder layer of the forward: (x, the MoE aux loss or None)."""
+    o = _attn_core(lp, cfg, x, positions, theta, window, block_kv)[0]
+    return _attn_out_ffn(lp, cfg, x, o)
+
+
+def _save_attn_layer(lp, cfg, x, positions, theta, window, block_kv):
+    """``_train_layer`` with its attention core and the rest checkpointed
+    apart: the backward recomputes both, and keeps o between them."""
+    o = checkpoint(_attn_core, lp, cfg, x, positions, theta, window,
+                   block_kv, use_reentrant=False)[0]
+    return checkpoint(_attn_out_ffn, lp, cfg, x, o, use_reentrant=False)
 
 
 def _ssm_layer(lp, cfg, x, **kw):
@@ -269,10 +328,11 @@ def _ssm_layer(lp, cfg, x, **kw):
     return x + out
 
 
-def _ssm_forward(params, cfg, batch):
+def _ssm_forward(params, cfg, batch, remat=False):
     x = _embed_in(params, cfg, batch)
-    for i in range(cfg.n_layers):
-        x = _ssm_layer(_layer(params["layers"], i), cfg, x)
+    layer = _remat(_ssm_layer, remat)
+    for lp in _layers(params["layers"], cfg.n_layers):
+        x = layer(lp, cfg, x)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x), _zero(x.device)
 
@@ -308,33 +368,40 @@ def _groups(cfg):
             for g in range(cfg.n_layers // per)]
 
 
-def _hybrid_forward(params, cfg, batch, block_kv):
+def _hybrid_forward(params, cfg, batch, remat, block_kv):
+    """The SSM layers under ``remat``; the shared block never, as in the
+    reference (its remat wraps the inner scan only)."""
     b, s = batch["tokens"].shape
     x = _embed_in(params, cfg, batch)
     positions = _positions(cfg, batch, b, s, x.device)
+    layers = _layers(params["layers"], cfg.n_layers)
+    layer = _remat(_ssm_layer, remat)
     for group in _groups(cfg):
         for i in group:
-            x = _ssm_layer(_layer(params["layers"], i), cfg, x)
+            x = layer(layers[i], cfg, x)
         x, _ = _shared_block(params["shared"], cfg, x, positions, block_kv)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x), _zero(x.device)
 
 
-def _encode(params, cfg, batch, block_kv):
+def _encode(params, cfg, batch, block_kv, remat=False):
     """Whisper's encoder over the stub frontend's frame embeddings
     (B,F,d): the normalized encoder output."""
     frames = batch["frames"].to(COMPUTE_DTYPE)
     f = frames.shape[1]
     xe = frames + sinusoidal_positions(f, cfg.d_model, frames.device).to(
         frames.dtype)[None]
-    for i in range(cfg.n_enc_layers):
-        lp = _layer(params["enc_layers"], i)
-        h = rmsnorm(lp["ln1"], xe, cfg.norm_eps)
-        q, k, v = attn.qkv_proj(lp["attn"], h)
-        o = attn.flash_attention(q, k, v, causal=False, block_kv=block_kv)
-        xe = _ffn_layer(lp, cfg,
-                        _residual(xe, attn.out_proj(lp["attn"], o)))
+    layer = _remat(_enc_layer, remat)
+    for lp in _layers(params["enc_layers"], cfg.n_enc_layers):
+        xe = layer(lp, cfg, xe, block_kv)
     return rmsnorm(params["enc_norm"], xe, cfg.norm_eps)
+
+
+def _enc_layer(lp, cfg, xe, block_kv):
+    h = rmsnorm(lp["ln1"], xe, cfg.norm_eps)
+    q, k, v = attn.qkv_proj(lp["attn"], h)
+    o = attn.flash_attention(q, k, v, causal=False, block_kv=block_kv)
+    return _ffn_layer(lp, cfg, _residual(xe, attn.out_proj(lp["attn"], o)))
 
 
 def _whisper_layer(lp, cfg, x, enc_out, block_kv):
@@ -358,12 +425,14 @@ def _whisper_embed(params, cfg, tokens):
         s, cfg.d_model, tokens.device).to(COMPUTE_DTYPE)[None]
 
 
-def _whisper_forward(params, cfg, batch, block_kv):
-    enc_out = _encode(params, cfg, batch, block_kv)
+def _whisper_forward(params, cfg, batch, remat, block_kv):
+    """Encoder and decoder layers under ``remat``, each recomputed whole
+    (their bodies name no attention output)."""
+    enc_out = _encode(params, cfg, batch, block_kv, remat)
     x = _whisper_embed(params, cfg, batch["tokens"])
-    for i in range(cfg.n_layers):
-        x = _whisper_layer(_layer(params["layers"], i), cfg, x, enc_out,
-                           block_kv)[0]
+    layer = _remat(_whisper_layer, remat)
+    for lp in _layers(params["layers"], cfg.n_layers):
+        x = layer(lp, cfg, x, enc_out, block_kv)[0]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x), _zero(x.device)
 

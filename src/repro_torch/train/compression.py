@@ -1,0 +1,59 @@
+"""Error-feedback int8 gradient compression for data-parallel all-reduce.
+
+DP all-reduce of f32 gradients is the dominant cross-pod traffic. EF-int8
+quantizes each gradient leaf to int8 with a per-leaf scale before the
+reduction and carries the quantization residual into the next step
+(error feedback), which preserves SGD convergence and matches
+full-precision training (tests/test_torch_train_infra.py checks
+loss parity on a small model).
+
+Wire format: int8 payload (4x smaller than f32) + one f32 scale per leaf.
+The reduction itself (``compressed_psum``) needs a collective across
+devices: ROADMAP queue 1, item 12.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..models.param import map_tree, tree_leaves, tree_unflatten
+
+
+def ef_quantize(g: torch.Tensor, err: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (q int8, scale f32 scalar, new_err). ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    gf = g.to(torch.float32) + err
+    scale = torch.clamp(torch.max(torch.abs(gf)), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+    new_err = gf - q.to(torch.float32) * scale
+    return q, scale, new_err
+
+
+def ef_compress_tree(grads, err_tree):
+    """Quantize a gradient tree; returns (q_tree, scale_tree, new_err)."""
+    out = [ef_quantize(g, e) for g, e in zip(tree_leaves(grads),
+                                             tree_leaves(err_tree))]
+    return tuple(tree_unflatten(grads, list(part)) for part in zip(*out))
+
+
+def compressed_psum(q_tree, scale_tree, axis_name: str, n_shards: int):
+    """All-reduce quantized grads across ``axis_name`` (mean): a
+    collective over a device mesh, which the port does not have yet."""
+    raise NotImplementedError(
+        "compressed_psum needs a collective over a device mesh, which is "
+        "not ported yet (ROADMAP queue 1, item 12)")
+
+
+def init_error_state(params):
+    return map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def compression_ratio(params) -> float:
+    """Wire bytes ratio vs f32 all-reduce (int8 payload + scalar scales)."""
+    sizes = [int(np.prod(l.shape)) for l in tree_leaves(params)]
+    return sum(n * 4 for n in sizes) / sum(n * 1 + 4 for n in sizes)

@@ -3,8 +3,10 @@ serving slice on backend "cuda" against the committed reference tokens,
 the binary-LM example through the XNOR-popcount kernel, the DRAM
 model and the PIM runtime on it with their rows on the card against the
 CPU, and the LM path: the document filter through the scan kernel, the
-reduced configs of every family on the card against the CPU, and the
-MoE bookkeeping through the popcount kernel.
+reduced configs of every family on the card against the CPU, the MoE
+bookkeeping through the popcount kernel, and training: a reduced train
+step against the CPU, the in-place update's memory, a checkpoint
+restored onto the card.
 
 Imports nothing of JAX or of the JAX package, so it runs on a GPU machine
 that has only PyTorch:
@@ -786,3 +788,86 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def test_reduced_train_step_on_card_matches_cpu(cuda):
+    """One reduced qwen2.5-3b train step on the card against the CPU port
+    on the same state and batch: finite, the same shapes, the loss within
+    5e-3 and every gradient leaf within 5e-2 norm-relative (the bounds of
+    ``chip_smoke.py`` phase 10(a)), then the same update."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.optim.optimizer import OptimizerConfig, global_norm
+    from repro_torch.train import step as train_step
+    cfg = get_config("qwen2.5-3b").reduced()
+    model = build_model(cfg)
+    cpu = train_step.init_state(model, 0, device="cpu")
+    card = _tree_to(cpu, cuda)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (2, 33)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+             "labels": torch.from_numpy(toks[:, 1:].copy())}
+    loss_fn = train_step.make_loss_fn(model)
+    (want, _), want_g = train_step.value_and_grad(loss_fn, cpu["params"],
+                                                  batch)
+    (got, _), got_g = train_step.value_and_grad(loss_fn, card["params"],
+                                                _tree_to(batch, cuda))
+    assert abs(float(got) - float(want)) <= 5e-3 * abs(float(want))
+    for g, w in zip(tree_leaves(got_g), tree_leaves(want_g)):
+        assert g.shape == w.shape and g.device.type == "cuda"
+        assert torch.isfinite(g).all()
+        assert float((g.cpu() - w).norm() / w.norm()) <= 5e-2
+    assert abs(float(global_norm(got_g)) / float(global_norm(want_g)) - 1) \
+        <= 5e-2
+    step = train_step.make_train_step(model, OptimizerConfig(total_steps=10))
+    new_card, m = step(card, _tree_to(batch, cuda))
+    new_cpu, _ = step(cpu, batch)
+    assert np.isfinite(float(m["loss"]))
+    for g, w in zip(tree_leaves(new_card), tree_leaves(new_cpu)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.isfinite(g).all()
+
+
+def test_update_in_place_keeps_one_state_on_card(cuda):
+    """``optim.update`` writes the new parameters and moments into the
+    state's own tensors: the peak memory rises by less than one more
+    copy of (params, m, v), which a functional update would allocate."""
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.optim import optimizer as opt
+    gen = torch.Generator(cuda).manual_seed(0)
+    params = {f"w{i}": torch.randn(1 << 22, generator=gen, device=cuda)
+              for i in range(16)}
+    grads = {k: torch.randn(v.shape, generator=gen, device=cuda)
+             for k, v in params.items()}
+    state = opt.init(params)
+    ids = [id(t) for t in tree_leaves({"p": params, "o": state})]
+    one_state = 3 * sum(p.numel() * 4 for p in params.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    new_p, new_o, _ = opt.update(opt.OptimizerConfig(), grads, state, params)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    assert [id(t) for t in tree_leaves({"p": new_p, "o": new_o})] == ids
+    assert rise < one_state, (rise, one_state)
+    assert int(new_o["step"]) == 1
+
+
+def test_checkpoint_restore_lands_on_card(cuda, tmp_path):
+    """A checkpoint saved from the card restores onto the card by default,
+    bit for bit, and onto the CPU when asked."""
+    from repro_torch.checkpoint import Checkpointer
+    tree = {"w": torch.randn(5, 3, device=cuda),
+            "h": torch.randn(4, device=cuda).to(torch.bfloat16),
+            "opt": {"step": torch.tensor(7, dtype=torch.int32, device=cuda)}}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(7, tree)
+    ck.wait()
+    step, got = ck.restore()
+    assert step == 7
+    assert got["w"].device.type == "cuda" and torch.equal(got["w"], tree["w"])
+    assert got["h"].dtype == torch.bfloat16 and torch.equal(got["h"],
+                                                            tree["h"])
+    assert torch.equal(got["opt"]["step"], tree["opt"]["step"])
+    assert ck.restore(device="cpu")[1]["w"].device.type == "cpu"

@@ -63,7 +63,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs, repro_torch.models, "
             "repro_torch.models.transformer, repro_torch.models.moe, "
             "repro_torch.models.ssm, repro_torch.serve.engine, "
-            "repro_torch.launch.serve, repro_torch.data.pipeline; "
+            "repro_torch.launch.serve, repro_torch.data.pipeline, "
+            "repro_torch.optim, repro_torch.optim.optimizer, "
+            "repro_torch.train, repro_torch.train.step, "
+            "repro_torch.train.compression, repro_torch.checkpoint, "
+            "repro_torch.runtime, repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -203,6 +207,57 @@ def test_lm_entry_points_default_to_the_card(entry, monkeypatch):
     out = make(device="cpu")
     if isinstance(out, torch.Tensor):
         assert out.device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["init_state", "Checkpointer.restore",
+                                   "Supervisor", "state_from_numpy",
+                                   "launch.train"])
+def test_train_entry_points_default_to_the_card(entry, monkeypatch,
+                                                tmp_path):
+    """The training path's entry points run on the card unless the caller
+    names the CPU, and raise without a card."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.runtime import HostFailure, Supervisor
+    from repro_torch.train.step import init_state
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_config("qwen2.5-3b").reduced())
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(1, {"w": torch.ones(3)}, blocking=True)
+
+    def supervised(**kw):
+        """One injected failure: the supervisor restores step 1."""
+        failed = []
+
+        def injector(step):
+            if not failed:
+                failed.append(step)
+                raise HostFailure()
+
+        state, _ = Supervisor(ck, **kw).run(
+            {"w": torch.zeros(3)}, lambda s: None,
+            lambda st, b: (st, {}), 1, 2, failure_injector=injector)
+        return state["w"]
+
+    make = {
+        "init_state": lambda **kw: init_state(model, 0, **kw)["opt"]["step"],
+        "Checkpointer.restore": lambda **kw: ck.restore(**kw)[1]["w"],
+        "Supervisor": supervised,
+        "state_from_numpy": lambda **kw: convert.state_from_numpy(
+            {"params": {"a": np.ones(3, np.float32)},
+             "opt": {"step": np.int32(0)}}, **kw)["opt"]["step"],
+        "launch.train": lambda **kw: train.main(
+            ["--reduced", "--steps", "1", "--batch", "2", "--seq", "8",
+             "--ckpt-dir", str(tmp_path / "launch")]
+            + (["--device", kw["device"]] if kw else []))[1]["opt"]["step"],
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu").device.type == "cpu"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
