@@ -127,12 +127,36 @@ without printing the result line):
    run's final checkpoint equals its live state bit for bit, two
    ``bitweaving_scan`` launches a run; the phase's launch counts are
    read for this phase alone;
-11. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
+11. the multi-device layer (``launch.mesh``, ``models.sharding_ctx``,
+   the mesh paths of ``models``, ``train``, ``checkpoint`` and
+   ``launch.train``, ``runtime.pipeline``) on a (1,1) mesh over a
+   one-rank NCCL group the phase starts (one card: every collective
+   across more than one rank is held on the CPU, on 8 gloo ranks, by
+   ``tests/test_torch_distributed.py``): (a) qwen2.5-3b at full width, 2
+   layers, batch 2 x 128, one ``make_train_step(mesh=)`` step from
+   ``init_state(mesh=)`` against the mesh-free step, and granite-moe at
+   full width, 2 layers, ``Model.forward(mesh=)`` on sharded parameters
+   against the mesh-free forward, both bit for bit (one rank adds no
+   arithmetic), and the memory that ``init_state(mesh=)``, a sharded
+   ``save`` and ``restore(mesh=, spec_tree=)`` hold above the state,
+   each at most two whole leaves (a leaf is drawn, gathered or read
+   whole one at a time), the restore bit for bit; (b) qwen2.5-3b as configured, 3 steps of the sharded
+   trainer on phase 10(b)'s batches (two ``bitweaving_scan`` launches),
+   its step ms, tokens/s, peak memory and one profiled step beside
+   10(b)'s; (c) ``launch.train --reduced --device cuda`` inside the
+   phase's group, 30 steps then ``--resume`` to 40 through
+   ``restore(mesh=, spec_tree=)``, two scan launches a run, each final
+   checkpoint equal to the live (DTensor) state; (d) ``compressed_psum``
+   over the group equal to ``q*s/1``, ``pipeline`` with one stage against
+   the sequential application (1e-5) with a finite nonzero gradient, a
+   checkpoint saved without a mesh restored onto the mesh bit for bit;
+   the phase's launch counts are read for this phase alone;
+12. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
    ``{"kernels": [...]}`` JSON line, then the result line.
 
 Each path must launch its own kernels: the four serving kernels on
-phase 3, ``binary_matmul`` on phase 4, ``bitweaving_scan`` on phases 8
-and 10 too, ``popcount_rows`` on phase 9 too. A kernel required on several
+phase 3, ``binary_matmul`` on phase 4, ``bitweaving_scan`` on phases 8,
+10 and 11 too, ``popcount_rows`` on phase 9 too. A kernel required on several
 paths (``PATH_OF``) reports its launches on each (``launches_by_path``)
 and their sum (``launches``).
 
@@ -1192,7 +1216,7 @@ KERNELS = (
 PATH_OF = {"fused_bitwise": ("serving",),
            "fused_bitwise_stacked": ("serving",),
            "popcount_rows": ("serving", "lm_families"),
-           "bitweaving_scan": ("serving", "lm", "train"),
+           "bitweaving_scan": ("serving", "lm", "train", "mesh"),
            "binary_matmul": ("binary_lm",)}
 
 
@@ -2731,10 +2755,10 @@ def whisper_serve(torch, card, batch=4, max_new=16, skv=256):
 
 def moe_wide(torch, card, prompt=8, steps=3, batch=2):
     """(b) qwen3-moe-235b-a22b at its full widths, depth cut to 1 layer
-    (its 94 need item 12), card only: the 128-expert dispatch at its real
-    width; prefill and decode against its forward within 1e-1 with no
-    capacity drop (``_no_drop``), the configured capacity's numbers
-    printed."""
+    (its 94 need more than one card), card only: the 128-expert dispatch
+    at its real width; prefill and decode against its forward within
+    1e-1 with no capacity drop (``_no_drop``), the configured capacity's
+    numbers printed."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -3057,12 +3081,14 @@ def train_parity(torch, card, arch, n_layers, seq, batch=2, held=True):
     return out
 
 
-def train_full(torch, card, scan, arch, steps, batch, seq):
+def train_full(torch, card, scan, arch, steps, batch, seq, mesh=None):
     """(b) ``arch`` as configured (qwen2.5-3b: 36 layers, 3.40 B float32
     parameters) trained by ``make_train_step`` for ``steps`` steps on
     ``FilteredSyntheticLM``'s batches (its filter: two scan launches):
     every loss and every parameter finite; step ms, tokens/s, peak memory
-    and one profiled step. Whether the mean loss of the last 5 steps fell
+    and one profiled step. With ``mesh`` (phase 11(b)) the state is
+    placed on it (``init_state(mesh=)``: DTensors) and the step is the
+    sharded one. Whether the mean loss of the last 5 steps fell
     below the first 5's is printed with each step's grad_norm, not
     required: at the reference's init the 36-layer stack's gradient norm
     reaches 1e17 and past float32's range (the norm reads inf and the
@@ -3080,7 +3106,7 @@ def train_full(torch, card, scan, arch, steps, batch, seq):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = init_state(model, SEED, device="cuda")
+    state = init_state(model, SEED, device="cuda", mesh=mesh)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     before = scan.launches
@@ -3089,7 +3115,7 @@ def train_full(torch, card, scan, arch, steps, batch, seq):
     if scan.launches - before != 2:
         fail(f"FilteredSyntheticLM launched bitweaving_scan "
              f"{scan.launches - before} times, not 2")
-    step = make_train_step(model, OptimizerConfig(**TRAIN_OPT),
+    step = make_train_step(model, OptimizerConfig(**TRAIN_OPT), mesh=mesh,
                            remat="save_attn", microbatches=1)
 
     def batch_at(s):
@@ -3111,15 +3137,16 @@ def train_full(torch, card, scan, arch, steps, batch, seq):
     if not all(np.isfinite(losses)):
         fail(f"train {arch}: non-finite losses {losses}")
     bad = [k for k, p in _named_leaves(state["params"])
-           if not bool(torch.isfinite(p).all())]
+           if not bool(torch.isfinite(_local(p)).all())]
     if bad:
         fail(f"train {arch}: non-finite parameters after {steps} steps in "
              f"{bad}")
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    n = min(5, steps)
+    first, last = float(np.mean(losses[:n])), float(np.mean(losses[-n:]))
     warm = ms[1:]
     median = statistics.median(warm)
     prof = _cuda_events(torch, lambda: step(state, batch_at(steps)))
-    out = {"arch": arch, "n_layers": cfg.n_layers,
+    out = {"arch": arch, "n_layers": cfg.n_layers, "mesh": mesh is not None,
            "params": model.n_params(), "batch": batch, "seq": seq,
            "steps": steps, "init_s": init_s, "losses": losses,
            "first5_mean": first, "last5_mean": last, "loss_fell":
@@ -3133,12 +3160,13 @@ def train_full(torch, card, scan, arch, steps, batch, seq):
            "state_bytes": 4 * 4 * model.n_params(),
            "profile": prof,
            "idle_share": 1 - prof.get("device_ms", 0.0) / median}
-    log(f"train {arch} {cfg.n_layers} layers ({model.n_params()} float32 "
+    log(f"train {arch}{' sharded on the (1,1) mesh' if mesh else ''} "
+        f"{cfg.n_layers} layers ({model.n_params()} float32 "
         f"params; params, grads, m, v {out['state_bytes']} B), batch "
         f"{batch} x seq {seq}, remat save_attn, {steps} steps on "
         f"FilteredSyntheticLM: every loss and parameter finite; loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}, first 5 mean {first:.4f}, "
-        f"last 5 mean {last:.4f} ({'fell' if last < first else 'did not fall'}"
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, first {n} mean {first:.4f}, "
+        f"last {n} mean {last:.4f} ({'fell' if last < first else 'did not fall'}"
         f", reported); grad_norm {min(gnorms):.3e} to {max(gnorms):.3e} "
         f"({out['grad_norm_inf_steps']} steps inf, reported); step ms "
         f"median {median:.3f} min {min(warm):.3f} max {max(warm):.3f} "
@@ -3236,6 +3264,340 @@ def train_phase(torch, card, wrappers):
     return report
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+MESH_STEPS = 3      # 11(b): the sharded trainer at full size
+MESH_FAMILY = "granite-moe-3b-a800m"
+
+
+def _local(t):
+    """A DTensor's shard on this rank (the whole tensor on one rank)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def mesh_parity(torch, card, mesh, n_layers=2, batch=2, seq=128):
+    """(a) qwen2.5-3b at full width, ``n_layers`` layers: one step of
+    ``make_train_step(mesh=)`` from ``init_state(mesh=)`` against the
+    mesh-free step from ``init_state``, on the same batch; then
+    granite-moe at full width (40 experts padded to 48, top-8),
+    ``Model.forward(mesh=)`` on sharded parameters against the mesh-free
+    forward. On one rank the mesh path adds no arithmetic (its gathers
+    and reductions copy or keep values), so both are held bit for bit:
+    the initial state, the loss and every metric, every updated
+    parameter and moment, the logits and the aux loss. The device
+    memory that ``init_state(mesh=)``, ``save`` of the sharded
+    parameters and ``restore(mesh=, spec_tree=)`` of them hold above
+    the state (their transients) is read from the allocator's peak and
+    held to two whole leaves of the largest, and the restore to the
+    saved parameters bit for bit."""
+    import dataclasses
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import ShardingRules, tree_leaves
+    from repro_torch.models.sharding_ctx import distribute, mesh_shape_dict
+    from repro_torch.optim.optimizer import OptimizerConfig
+    from repro_torch.train import step as train_step
+    out = {}
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers)
+    model = build_model(cfg)
+    data = _tree_to(_train_batch(torch, cfg, batch, seq), "cuda")
+    opt_cfg = OptimizerConfig(**TRAIN_OPT)
+    free = train_step.init_state(model, SEED, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    placed = train_step.init_state(model, SEED, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    transient = {"init": torch.cuda.max_memory_allocated()
+                 - torch.cuda.memory_allocated()}
+    if not all(hasattr(p, "placements")
+               for p in tree_leaves(placed["params"])):
+        fail("init_state(mesh=) left plain tensors")
+    if not all(torch.equal(a, _local(b)) for a, b in
+               zip(tree_leaves(free), tree_leaves(placed))):
+        fail("init_state(mesh=) drew other parameters than init_state")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_free, m_free = train_step.make_train_step(
+        model, opt_cfg, remat="save_attn")(free, data)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    new_mesh, m_mesh = train_step.make_train_step(
+        model, opt_cfg, mesh=mesh, remat="save_attn")(placed, data)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    differ = [k for (k, a), (_, b) in zip(_named_leaves(new_free),
+                                          _named_leaves(new_mesh))
+              if not torch.equal(a, _local(b))]
+    metrics = {k: (float(m_free[k]), float(m_mesh[k])) for k in m_free}
+    worst = max((_max_rel(_local(b), a) for (_, a), (_, b) in zip(
+        _named_leaves(new_free), _named_leaves(new_mesh))), default=0.0)
+    if differ or any(not torch.equal(m_free[k], m_mesh[k]) for k in m_free):
+        fail(f"the (1,1) mesh step differs from the mesh-free step: "
+             f"metrics {metrics}, {len(differ)} leaves differ (first "
+             f"{differ[:4]}, worst max-rel {worst:.3e})")
+    out[LM_ARCH] = {"n_layers": n_layers, "batch": batch, "seq": seq,
+                    "loss": metrics["loss"][0],
+                    "grad_norm": metrics["grad_norm"][0],
+                    "leaves": len(tree_leaves(new_free)),
+                    "step_s_free": t1 - t0, "step_s_mesh": t2 - t1}
+    log(f"mesh parity {LM_ARCH} full width, {n_layers} layers, batch "
+        f"{batch} x {seq}, remat save_attn: the (1,1) mesh step equals the "
+        f"mesh-free step bit for bit (loss {metrics['loss'][0]:.6f}, "
+        f"grad_norm {metrics['grad_norm'][0]:.6f}, "
+        f"{len(tree_leaves(new_free))} leaves of params, m and v, every "
+        f"metric); first steps {t1 - t0:.3f} s mesh-free, {t2 - t1:.3f} s "
+        f"on the mesh, on {card}")
+    del free, placed, new_free
+
+    # the sharded save and the restore onto the mesh, a leaf at a time
+    specs = {"params": model.param_specs(ShardingRules(),
+                                         mesh_shape_dict(mesh))}
+    largest = max(_local(p).numel() * _local(p).element_size()
+                  for p in tree_leaves(new_mesh["params"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ck.save(1, {"params": new_mesh["params"]}, blocking=True)
+        torch.cuda.synchronize()
+        transient["save"] = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        _, back = ck.restore(mesh=mesh, spec_tree=specs)
+        torch.cuda.synchronize()
+        transient["restore"] = (torch.cuda.max_memory_allocated()
+                                - torch.cuda.memory_allocated())
+    if not all(hasattr(b, "placements") and torch.equal(_local(b), _local(a))
+               for a, b in zip(tree_leaves(new_mesh["params"]),
+                               tree_leaves(back["params"]))):
+        fail("the sharded parameters restored onto the (1,1) mesh differ "
+             "from those saved")
+    over = {k: v for k, v in transient.items() if v > 2 * largest}
+    if over:
+        fail(f"init_state(mesh=), save or restore held more than two whole "
+             f"leaves ({2 * largest} B) above the state: {over}")
+    out["transient_bytes"] = dict(transient, largest_leaf=largest)
+    log(f"mesh memory {LM_ARCH} full width, {n_layers} layers, on one "
+        f"rank: above the state, init_state(mesh=) held {transient['init']}"
+        f" B at its peak, a sharded save of the parameters "
+        f"{transient['save']} B, restore(mesh=, spec_tree=) "
+        f"{transient['restore']} B (the largest leaf whole: {largest} B; "
+        f"bound twice that); the restore equals the saved parameters bit "
+        f"for bit, on {card}")
+    del new_mesh, back
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config(MESH_FAMILY), n_layers=n_layers)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    toks = _tree_to(_train_batch(torch, cfg, batch, seq), "cuda")["tokens"]
+    with torch.no_grad():
+        want, want_aux = model.forward(params, {"tokens": toks})
+        sharded = distribute(params, mesh, model.param_specs(
+            ShardingRules(), mesh_shape_dict(mesh)))
+        got, got_aux = model.forward(sharded, {"tokens": toks}, mesh=mesh)
+    if not (torch.equal(got, want) and torch.equal(got_aux, want_aux)):
+        fail(f"{MESH_FAMILY} forward on the (1,1) mesh differs from the "
+             f"mesh-free forward: logits max-rel {_max_rel(got, want):.3e}, "
+             f"aux {float(got_aux)} vs {float(want_aux)}")
+    out[MESH_FAMILY] = {"n_layers": n_layers, "batch": batch, "seq": seq,
+                        "aux": float(want_aux)}
+    log(f"mesh parity {MESH_FAMILY} full width ({cfg.moe.n_experts} experts "
+        f"padded to 48, top-{cfg.moe.top_k}), {n_layers} layers, batch "
+        f"{batch} x {seq}: Model.forward(mesh=) on sharded parameters "
+        f"equals the mesh-free forward bit for bit (logits and aux "
+        f"{float(want_aux):.6f}) on {card}")
+    return out
+
+
+def mesh_entry(torch, card, scan, mesh, steps=30, more=10):
+    """(c) ``launch.train.main --reduced --device cuda`` inside the
+    phase's process group: its (1,1) mesh, the state as DTensors, for
+    ``steps`` steps, then ``--resume`` to ``steps + more`` through
+    ``restore(mesh=, spec_tree=)``; two scan launches a run; each run's
+    final checkpoint equal to its live state bit for bit."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.param import tree_leaves
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        for name, argv, want_start in (
+                ("run", ["--steps", str(steps)], 0),
+                ("resume", ["--steps", str(steps + more), "--resume"],
+                 steps)):
+            before = scan.launches
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                start, state, hist = launch_train.main(
+                    ["--reduced", "--device", "cuda", "--ckpt-dir", tmp]
+                    + argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lines = printed.getvalue().splitlines()
+            launches = scan.launches - before
+            end = int(argv[1])
+            ran = [h["step"] for h in hist if "loss" in h]
+            if start != want_start or ran != list(range(want_start, end)):
+                fail(f"launch.train on the mesh {name}: started at {start}, "
+                     f"ran {ran}")
+            if not lines or not lines[0].endswith("mesh=(1,1) devices=1"):
+                fail(f"launch.train on the mesh {name} printed {lines[:2]}")
+            if name == "resume" and "elastic reshard" not in lines[1]:
+                fail(f"launch.train --resume did not restore onto the mesh: "
+                     f"{lines[1]}")
+            if launches != 2:
+                fail(f"launch.train on the mesh {name} launched "
+                     f"bitweaving_scan {launches} times, not 2")
+            leaves = tree_leaves(state)
+            if not all(hasattr(p, "placements")
+                       for p in tree_leaves(state["params"])):
+                fail(f"launch.train on the mesh {name}: plain parameters")
+            saved = ck.restore(end, device="cuda")[1]
+            same = [torch.equal(a, _whole(b))
+                    for a, b in zip(tree_leaves(saved), leaves)]
+            if len(same) != len(leaves) or not all(same):
+                fail(f"launch.train on the mesh {name}: the step-{end} "
+                     f"checkpoint differs from the live state")
+            losses = [h["loss"] for h in hist if "loss" in h]
+            if not all(np.isfinite(losses)):
+                fail(f"launch.train on the mesh {name}: losses {losses}")
+            out[name] = {"start": start, "end": end, "wall_s": wall,
+                         "scan_launches": launches,
+                         "first_loss": losses[0], "last_loss": losses[-1]}
+            log(f"launch.train on the (1,1) mesh {name}: steps {start}->"
+                f"{end}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                f"{launches} bitweaving_scan launches, state DTensors, "
+                f"step-{end} checkpoint == live state (bit for bit); "
+                f"{lines[1] if name == 'resume' else lines[0]}; wall "
+                f"{wall:.3f} s on {card}")
+    return out
+
+
+def mesh_pieces(torch, card, mesh):
+    """(d) ``compressed_psum`` over the one-rank group equals ``q*s/1``
+    bit for bit; ``pipeline`` with one stage equals the stage applied to
+    each microbatch, with a finite, nonzero gradient; a checkpoint saved
+    without a mesh restores onto the (1,1) mesh bit for bit."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models.param import PartitionSpec as P
+    from repro_torch.runtime.pipeline import pipeline
+    from repro_torch.train.compression import compressed_psum
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    q = torch.randint(-127, 128, (4096,), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((), generator=gen, device="cuda") / 127
+    got = compressed_psum({"g": q}, {"g": s}, "data", 1, mesh=mesh)["g"]
+    if not torch.equal(got, q.to(torch.float32) * s / 1):
+        fail("compressed_psum over one rank is not q*s/1")
+
+    w = (torch.randn((1, 256, 256), generator=gen, device="cuda") * 0.05
+         ).requires_grad_()
+    b = (torch.randn((1, 256), generator=gen, device="cuda") * 0.1
+         ).requires_grad_()
+    x = torch.randn((6, 4, 256), generator=gen, device="cuda")
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    out = pipeline(stage, {"w": w, "b": b}, x, mesh, axis="data")
+    want = torch.stack([stage({"w": w[0], "b": b[0]}, x[m])
+                        for m in range(x.shape[0])])
+    gw, gb = torch.autograd.grad((out ** 2).sum(), [w, b])
+    pipe_err = _max_rel(out, want)
+    if not (torch.allclose(out, want, atol=1e-5, rtol=1e-5)
+            and bool(torch.isfinite(gw).all()) and float(gw.abs().sum()) > 0
+            and bool(torch.isfinite(gb).all())):
+        fail(f"pipeline with one stage: max-rel {pipe_err:.3e} from the "
+             f"sequential application, gradient finite "
+             f"{bool(torch.isfinite(gw).all())}, |gw| {float(gw.abs().sum())}")
+
+    tree = {"params": {"w": torch.randn((48, 16), generator=gen,
+                                        device="cuda"),
+                       "h": torch.randn((8,), generator=gen,
+                                        device="cuda").to(torch.bfloat16)},
+            "step": torch.tensor(5, dtype=torch.int32, device="cuda")}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        ck.save(5, tree, blocking=True)
+        step, back = ck.restore(mesh=mesh, spec_tree={
+            "params": {"w": P("data", "model"), "h": P(None)}})
+    placed = all(hasattr(v, "placements") for v in back["params"].values())
+    same = (step == 5 and torch.equal(back["step"], tree["step"]) and all(
+        torch.equal(_whole(back["params"][k]), tree["params"][k])
+        for k in tree["params"]))
+    if not (placed and same):
+        fail(f"a checkpoint saved without a mesh restored onto the (1,1) "
+             f"mesh: placed {placed}, equal {same}")
+    log(f"mesh pieces on {card}: compressed_psum over the one-rank NCCL "
+        f"group == q*s/1 bit for bit; pipeline with one stage over 6 "
+        f"microbatches max-rel {pipe_err:.3e} from the sequential "
+        f"application (bound 1e-5), gradient finite and nonzero; a "
+        f"checkpoint saved without a mesh restored onto the (1,1) mesh as "
+        f"DTensors bit for bit")
+    return {"pipeline_max_rel": pipe_err}
+
+
+def mesh_phase(torch, card, wrappers, unsharded):
+    """Phase 11: the multi-device layer on one card, over a one-rank NCCL
+    group this phase starts (a ``file://`` store in a temporary
+    directory) and a (1,1) mesh on it: (a) parity, (b) the sharded
+    trainer at full size beside phase 10(b)'s (``unsharded``), (c)
+    ``launch.train`` and its resume, (d) ``compressed_psum``,
+    ``pipeline`` and a restore onto the mesh."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict
+    scan = wrappers["bitweaving_scan"]
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(1, 1)
+            log(f"mesh {mesh_shape_dict(mesh)} on {mesh.device_type}, "
+                f"backend {dist.get_backend()}, world size "
+                f"{dist.get_world_size()}")
+            report["parity"] = mesh_parity(torch, card, mesh)
+            torch.cuda.empty_cache()
+            full = train_full(torch, card, scan, mesh=mesh,
+                              **dict(TRAIN_FULL, steps=MESH_STEPS))
+            report["full"] = full
+            torch.cuda.empty_cache()
+            keys = ("step_ms_median", "step_ms_min", "tokens_per_s",
+                    "max_memory_allocated", "idle_share")
+            report["full_vs_unsharded"] = {
+                k: (full[k], unsharded[k]) for k in keys}
+            log(f"11(b) against 10(b) on this run: step ms median "
+                f"{full['step_ms_median']:.3f} vs "
+                f"{unsharded['step_ms_median']:.3f} (min "
+                f"{full['step_ms_min']:.3f} vs {unsharded['step_ms_min']:.3f}),"
+                f" tokens/s {full['tokens_per_s']:.1f} vs "
+                f"{unsharded['tokens_per_s']:.1f}, peak "
+                f"{full['max_memory_allocated']} B vs "
+                f"{unsharded['max_memory_allocated']} B, idle share "
+                f"{full['idle_share']:.3f} vs {unsharded['idle_share']:.3f}, "
+                f"profiled step kernels {full['profile'].get('kernels', 0)} "
+                f"vs {unsharded['profile'].get('kernels', 0)} on {card}")
+            report["entry"] = mesh_entry(torch, card, scan, mesh)
+            torch.cuda.empty_cache()
+            report["pieces"] = mesh_pieces(torch, card, mesh)
+        finally:
+            dist.destroy_process_group()
+    return report
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(here, "src")
@@ -3321,6 +3683,16 @@ def main() -> int:
         wrappers, "train", lambda: train_phase(torch, card, wrappers))
     log(f"train phase_s={time.perf_counter() - t_phase:.1f} "
         f"report={json.dumps(training)} card: {card}")
+    torch.cuda.empty_cache()
+
+    log("== phase 11: the multi-device layer on the card ((1,1) mesh over "
+        "a one-rank NCCL group)")
+    t_phase = time.perf_counter()
+    meshed, launches["mesh"] = _path_launches(
+        wrappers, "mesh", lambda: mesh_phase(torch, card, wrappers,
+                                             training["full"]))
+    log(f"mesh phase_s={time.perf_counter() - t_phase:.1f} "
+        f"report={json.dumps(meshed)} card: {card}")
 
     kernels = []
     for name, _, source, replaces in KERNELS:

@@ -17,8 +17,15 @@ Properties:
     never corrupts the latest checkpoint.
   * retention: keep_n newest checkpoints are retained.
   * restore lands every leaf on the device it is given (the card unless
-    named). Restoring onto a new mesh (the reference's elastic reshard)
-    is ROADMAP queue 1, item 12.
+    named), or, given a mesh and a spec tree, each leaf of the tree as a
+    DTensor under its spec's placements on the mesh's device: the
+    elastic reshard (the mesh may differ from the one that saved). A
+    leaf is placed before the next is read, so a rank holds its shards
+    and one whole leaf at most on the device.
+  * sharded state (DTensor leaves) is gathered a leaf at a time on every
+    rank (a collective: every rank calls ``save``); only rank 0 copies
+    it to host memory and writes, and the ranks meet at a barrier once
+    the write is done (``wait``, or before a blocking ``save`` returns).
 """
 
 from __future__ import annotations
@@ -31,8 +38,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..core.bitvector import resolve_device
+from ..models.sharding_ctx import checked_mesh, distribute
 
 SEP = "/"
 BF16 = "bfloat16"
@@ -81,24 +91,40 @@ class Checkpointer:
         self.keep_n = keep_n
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False   # a sharded save's ranks have yet to meet
 
     # -- save ------------------------------------------------------------------
 
     def save(self, step: int, tree, blocking: bool = False) -> None:
         # Snapshot to host memory synchronously (cheap), write async.
-        host = [(k, *_to_host(v)) for k, v in _flatten(tree)]
+        items = _flatten(tree)
+        sharded = any(isinstance(v, DTensor) for _, v in items)
+        writer = not sharded or dist.get_rank() == 0
+        host = []
+        for k, v in items:
+            if isinstance(v, DTensor):
+                v = v.full_tensor()     # every rank takes part
+            if writer:
+                host.append((k, *_to_host(v)))
         self.wait()
+        if writer:
+            if blocking:
+                self._write(step, host)
+            else:
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, host), daemon=True)
+                self._thread.start()
+        self._barrier = sharded
         if blocking:
-            self._write(step, host)
-        else:
-            self._thread = threading.Thread(
-                target=self._write, args=(step, host), daemon=True)
-            self._thread.start()
+            self.wait()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _write(self, step: int, host) -> None:
         final = os.path.join(self.dir, f"step_{step:08d}")
@@ -141,12 +167,12 @@ class Checkpointer:
     def restore(self, step: Optional[int] = None, mesh=None,
                 spec_tree=None, device=None) -> Tuple[int, Any]:
         """Load a checkpoint (the latest unless ``step``) onto ``device``
-        (the card unless named)."""
-        if mesh is not None or spec_tree is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh (elastic reshard) is not ported yet "
-                "(ROADMAP queue 1, item 12)")
-        dev = resolve_device(device)
+        (the card unless named); if (mesh, spec_tree) are given, each leaf
+        the spec tree names becomes a DTensor under its spec's placements
+        on the mesh's device - the elastic-resharding path (the mesh may
+        differ from the one that saved)."""
+        dev = resolve_device(device if checked_mesh(mesh) is None else
+                             device or mesh.device_type)
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -154,8 +180,11 @@ class Checkpointer:
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
+        specs = dict(_flatten(spec_tree)) if spec_tree is not None else {}
         items = {}
         for key, meta in manifest["leaves"].items():
             arr = np.load(os.path.join(path, meta["file"]))
             items[key] = _from_host(arr, meta["dtype"], dev)
+            if mesh is not None and key in specs:
+                items[key] = distribute(items[key], mesh, specs[key])
         return step, _unflatten(items)

@@ -4,7 +4,10 @@ The reference stores packed words as ``uint32``; the port stores the
 same bit patterns as ``torch.int32``. These helpers move numpy arrays
 (the reference's arrays after ``np.asarray``) into the port's tensors and
 back with every bit preserved; ``params_from_numpy`` does the same for a
-model's parameter or cache tree.
+model's parameter or cache tree, and ``sharded_from_numpy`` lands such a
+tree on a mesh as DTensors under a spec tree (each rank keeping its
+shards), so the reference's own parameters run through the port's
+sharded paths.
 
 Like every entry point of the port, each helper lands its result on the
 card unless the caller names another device.
@@ -20,6 +23,7 @@ import torch
 from .apps.binary_lm import BitLinear
 from .apps.bitweaving_db import TPCH_COLUMNS, BitWeavingColumn, TpchTable
 from .core.bitvector import BitVector, resolve_device
+from .models.sharding_ctx import distribute
 
 
 def from_numpy_u32(words_u32: np.ndarray, device=None) -> torch.Tensor:
@@ -89,3 +93,14 @@ def state_from_numpy(state: Dict[str, Any], device=None) -> Dict[str, Any]:
     kept; ``step`` stays a 0-d ``int32``."""
     return {"params": params_from_numpy(state["params"], device),
             "opt": params_from_numpy(state["opt"], device)}
+
+
+def sharded_from_numpy(tree: Dict[str, Any], mesh, spec_tree
+                       ) -> Dict[str, Any]:
+    """A reference tree as numpy arrays (parameters, a train state or
+    caches; every rank holds the same arrays) -> the port's tree of
+    DTensors on ``mesh``'s device, each leaf under its spec's placements
+    (``spec_tree`` as ``Model.param_specs`` or ``train.step.state_specs``
+    give it; a spec may stand for a subtree), every bit kept."""
+    return distribute(params_from_numpy(tree, mesh.device_type), mesh,
+                      spec_tree)

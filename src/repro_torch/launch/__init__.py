@@ -1,1 +1,2 @@
-"""Launch layer: the single-device serving and training entry points."""
+"""Launch layer: the serving and training entry points, the device
+meshes they run on, and the HLO text analyses."""

@@ -20,6 +20,7 @@ import torch
 
 from .layers import cast
 from .param import ParamDef
+from .sharding_ctx import axis_size, hint
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 DEFAULT_BLOCK_KV = 1024
@@ -101,6 +102,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = torch.repeat_interleave(v, hq // hkv, dim=2)
     scale = 1.0 / (d ** 0.5)
 
+    # The reference's layout anchors: when the head count does not
+    # divide the TP axis, the q sequence shards over "model" instead.
+    heads_sharded = hq % axis_size("heads") == 0
+    if heads_sharded:
+        q_axes = ("batch", "seq", "heads", None)
+        c_axes = ("batch", "heads", "seq")
+    else:
+        q_axes = ("batch", "attn_q_seq", None, None)
+        c_axes = ("batch", None, "attn_q_seq")
+    kv_heads = "heads" if heads_sharded else None
+    q = hint(q, *q_axes)
+    k = hint(k, "batch", "seq", kv_heads, None)
+    v = hint(v, "batch", "seq", kv_heads, None)
+
     bk = min(block_kv, skv)
     pad = (-skv) % bk
     if pad:
@@ -109,9 +124,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nb = (skv + pad) // bk
     dev = q.device
     q_pos = q_offset + torch.arange(sq, device=dev)
-    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+    m = hint(torch.full((b, hq, sq), NEG_INF, dtype=torch.float32,
+                        device=dev), *c_axes)
+    l = hint(torch.zeros((b, hq, sq), dtype=torch.float32, device=dev),
+             *c_axes)
+    acc = hint(torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev),
+               *c_axes, None)
     for idx in range(nb):
         kblk = k[:, idx * bk:(idx + 1) * bk]
         vblk = v[:, idx * bk:(idx + 1) * bk]
@@ -151,6 +169,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q[:, 0].reshape(b, hkv, g, d)
     scale = 1.0 / (d ** 0.5)
     s = _f32_einsum("bhgd,bkhd->bhgk", qg, k_cache) * scale
+    # scores follow the cache's seq sharding (the reference's anchor)
+    if axis_size("kv_seq") > 1:
+        s = hint(s, "batch", None, None, "kv_seq")
+    else:
+        s = hint(s, "batch", "kv_heads", None, "kv_seq")
     kv_pos = torch.arange(skv, device=q.device)
     mask = kv_pos[None, :] <= pos[:, None]  # (B,Skv)
     if window is not None:

@@ -5,12 +5,15 @@ prefill / decode plus parameter-count accounting used by the roofline
 ``Model`` is an ``nn.Module`` that holds the parameter tree it was given
 (``init`` or ``load``) under the reference's nested keys and stacked
 shapes, so ``model.params`` carries across key for key. Its compute
-methods take the tree explicitly, as the reference's do.
+methods take the tree explicitly, as the reference's do. They take
+``mesh=`` (a ``DeviceMesh``) as the reference's do: each rank computes
+its rows of the batch on the parameters gathered at use
+(``transformer``'s docstring).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -19,7 +22,9 @@ from ..configs.base import ArchConfig
 from ..core.bitvector import resolve_device
 from . import transformer
 from .moe import padded_experts
-from .param import Tree, count_params, init_tree, map_tree
+from .param import (ShardingRules, Tree, count_params, init_tree, map_tree,
+                    spec_tree)
+from .sharding_ctx import checked_mesh
 
 
 def _module_of(tree: Tree) -> nn.Module:
@@ -72,6 +77,10 @@ class Model(nn.Module):
             raise ValueError("no parameters: call init or load first")
         return _tree_of(self.weights)
 
+    def param_specs(self, rules: ShardingRules, mesh_shape: Dict[str, int]
+                    ) -> Tree:
+        return spec_tree(self.param_defs(), rules, mesh_shape)
+
     def n_params(self) -> int:
         return count_params(self.param_defs())
 
@@ -91,20 +100,24 @@ class Model(nn.Module):
     def forward(self, params: Tree, batch, mesh=None, remat=False):
         """Train-mode logits and aux loss; ``remat`` is the reference's
         (False, True or ``"save_attn"``; ``transformer.forward``)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Model.forward over a mesh is not ported yet (ROADMAP "
-                "queue 1, item 12)")
-        return transformer.forward(params, self.cfg, batch, remat=remat)
+        return transformer.forward(params, self.cfg, batch, remat=remat,
+                                   mesh=checked_mesh(mesh))
 
-    def prefill(self, params: Tree, batch, skv: Optional[int] = None):
-        return transformer.prefill(params, self.cfg, batch, skv=skv)
+    def prefill(self, params: Tree, batch, skv: Optional[int] = None,
+                mesh=None):
+        return transformer.prefill(params, self.cfg, batch, skv=skv,
+                                   mesh=checked_mesh(mesh))
 
-    def decode_step(self, params: Tree, caches: Tree, batch):
-        return transformer.decode_step(params, self.cfg, caches, batch)
+    def decode_step(self, params: Tree, caches: Tree, batch, mesh=None):
+        return transformer.decode_step(params, self.cfg, caches, batch,
+                                       mesh=checked_mesh(mesh))
 
     def cache_defs(self, batch: int, skv: int) -> Tree:
         return transformer.cache_defs(self.cfg, batch, skv)
+
+    def cache_specs(self, batch: int, skv: int, rules: ShardingRules,
+                    mesh_shape: Dict[str, int]) -> Tree:
+        return spec_tree(self.cache_defs(batch, skv), rules, mesh_shape)
 
     def init_cache(self, batch: int, skv: int, device=None) -> Tree:
         dev = resolve_device(device)

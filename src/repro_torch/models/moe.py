@@ -17,8 +17,28 @@ one bitvector an expert and popcounts them with ``BulkBitwiseEngine``:
 on the card with ``BulkBitwiseEngine("cuda")`` that is one launch of
 the ``popcount_rows`` kernel.
 
-Expert parallelism over a mesh (the reference's ``shard_map`` paths) is
-ROADMAP queue 1, item 12: ``moe_block`` raises when handed a mesh.
+Over a mesh (the reference's ``shard_map`` paths, written per rank:
+``x`` is the rank's rows of the batch, each weight a ``LocalShard`` that
+the branch gathers as far as it needs):
+
+* EP over ``"model"``: each rank runs the dispatch on its own rows for
+  its ``E / n_model`` experts, the partial outputs are summed over
+  ``"model"`` and the aux loss averaged over ``"model"``, then over the
+  batch axes. Where the experts' spec splits them over ``"model"`` (the
+  default rules), a rank's shard is its own experts' block, gathered
+  only over the other axes;
+* 2-D EP (the expert padding equals ``n_data * n_model`` and the whole
+  batch has at most 4096 tokens): the tokens are all-gathered over the
+  batch axes, each rank runs the one expert slot
+  ``data_rank * n_model + model_rank`` on its first ``capacity``
+  assignments, the outputs are summed over ``("data", "model")`` and each
+  rank takes its rows back;
+* a mesh with no ``"model"`` axis (or one of size 1) runs the
+  single-device dispatch on the whole batch, all-gathered over the
+  batch axes, and takes this rank's rows, as the reference's partitioner
+  does with its one-shard math.
+
+Every collective carries its gradient (``sharding_ctx``).
 """
 
 from __future__ import annotations
@@ -32,6 +52,9 @@ from ..configs.base import ArchConfig, MoEConfig
 from .attention import _f32_einsum
 from .layers import _act, cast
 from .param import ParamDef
+from .sharding_ctx import (LocalShard, all_gather, axis_index, batch_axes,
+                           checked_mesh, gather_param, gathered,
+                           mesh_axis_size, pmean, psum)
 
 
 def padded_experts(moe: MoEConfig, pad_to: Optional[int] = None) -> int:
@@ -140,23 +163,123 @@ def _moe_local(x2d: torch.Tensor, router: torch.Tensor, w1: torch.Tensor,
     return out, moe.n_experts * torch.sum(frac * probs.mean(0))
 
 
+def _moe_ep2d(x, router, w1, w3, w2, *, moe: MoEConfig, e_pad: int,
+              act: str, capacity: int, mesh, b_axes: Tuple[str, ...],
+              n_model: int, aux: bool = True):
+    """2-D expert-parallel path: the rank's rows x (bl, S, d) gathered
+    over the batch axes; this rank runs expert ``data_rank * n_model +
+    model_rank`` on its first ``capacity`` assignments (a stable sort
+    puts them first); the partial outputs are summed over ``("data",
+    "model")`` and the rank's rows come back (batch-major order)."""
+    bl, s, d = x.shape
+    x_all = all_gather(x.reshape(bl * s, d), mesh, b_axes, 0)
+    t = x_all.shape[0]
+    k = moe.top_k
+    dev = x.device
+    logits, gates_k, idx = route(x_all, router, moe, e_pad)
+
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+    flat_g = gates_k.reshape(-1)
+    mine = axis_index(mesh, ("data", "model"))
+    match = flat_e == mine
+    order = torch.argsort((~match).to(torch.int8), stable=True)
+    sel = order[:capacity]
+    valid = match[sel]
+    tok = flat_t[sel]
+    buf = x_all[tok] * valid[:, None].to(x_all.dtype)      # (C, d)
+
+    h = buf @ cast(w1[mine], buf.dtype)
+    u = buf @ cast(w3[mine], buf.dtype)
+    y = (_act(act, h) * u) @ cast(w2[mine], buf.dtype)
+    gate = (flat_g[sel] * valid).to(y.dtype)
+    partial = torch.zeros((t, d), dtype=x_all.dtype, device=dev).index_add(
+        0, tok, y * gate[:, None])
+    out = psum(partial, mesh, ("data", "model"))
+    rows = bl * s
+    out_loc = out[axis_index(mesh, b_axes) * rows:][:rows]
+    if not aux:
+        return out_loc.reshape(bl, s, d), None
+
+    probs = torch.softmax(logits[:, :moe.n_experts], dim=-1)
+    counts = torch.zeros((e_pad,), dtype=torch.float32, device=dev) \
+        .index_add(0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    frac = counts[:moe.n_experts] / (t * k)
+    return (out_loc.reshape(bl, s, d),
+            moe.n_experts * torch.sum(frac * probs.mean(0)))
+
+
+def _own_experts(w, mesh, e_lo: int, n_local: int) -> torch.Tensor:
+    """Experts ``e_lo .. e_lo + n_local - 1`` of an expert-stacked
+    weight, for EP over ``"model"``. A shard whose expert dimension is
+    split over ``"model"`` alone is this rank's block already: it is
+    gathered over the other axes only, and its gradient stays on this
+    rank. Any other weight is gathered whole and sliced."""
+    if isinstance(w, LocalShard):
+        dims = list(mesh.mesh_dim_names)
+        on_experts = [i for i, p in enumerate(w.placements)
+                      if getattr(p, "dim", None) == 0]
+        if on_experts == [dims.index("model")]:
+            return gather_param(w.local, w.mesh, w.placements,
+                                keep=("model",))
+    return gathered(w)[e_lo:e_lo + n_local]
+
+
 def moe_block(p, x: torch.Tensor, cfg: ArchConfig, mesh, act: str,
               aux: bool = True
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """x (B,S,d) -> (out (B,S,d), aux scalar, or None unless ``aux``):
-    every expert on this device, the capacity sized for all B*S
-    tokens."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_block over a mesh (expert parallelism) is not ported yet "
-            "(ROADMAP queue 1, item 12)")
+    """x (B,S,d) -> (out (B,S,d), aux scalar, or None unless ``aux``).
+    Without a mesh every expert runs here, the capacity sized for all
+    B*S tokens; over a mesh x is this rank's rows, ``p``'s leaves may be
+    ``LocalShard``s, and the reference's branch for the mesh runs (the
+    module docstring)."""
     moe = cfg.moe
     e_pad = padded_experts(moe)
     b, s, d = x.shape
-    out, aux = _moe_local(x.reshape(b * s, d), p["router"], p["w1"],
-                          p["w3"], p["w2"], moe=moe, e_pad=e_pad,
-                          n_local=e_pad, e_lo=0, act=act,
+    names = () if checked_mesh(mesh) is None else tuple(mesh.mesh_dim_names)
+    b_axes = batch_axes(mesh) if names else ()
+    n_batch = mesh_axis_size(mesh, b_axes) if b_axes else 1
+    n_model = mesh_axis_size(mesh, "model") if "model" in names else 1
+    router = gathered(p["router"])
+
+    if n_model == 1:
+        x2 = x.reshape(b * s, d)
+        if b_axes:      # the reference's one-shard math on every row
+            x2 = all_gather(x2, mesh, b_axes, 0)
+        w1, w3, w2 = (gathered(p[n]) for n in ("w1", "w3", "w2"))
+        out, aux = _moe_local(x2, router, w1, w3, w2, moe=moe, e_pad=e_pad,
+                              n_local=e_pad, e_lo=0, act=act,
+                              capacity=_capacity(x2.shape[0], moe), aux=aux)
+        if b_axes:
+            out = out[axis_index(mesh, b_axes) * b * s:][:b * s]
+        return out.reshape(b, s, d), aux
+
+    n_data = mesh_axis_size(mesh, "data") if "data" in names else 1
+    if e_pad == n_data * n_model and b * n_batch * s <= 4096 and \
+            "data" in names:
+        w1, w3, w2 = (gathered(p[n]) for n in ("w1", "w3", "w2"))
+        return _moe_ep2d(x, router, w1, w3, w2, moe=moe, e_pad=e_pad,
+                         act=act,
+                         capacity=max(_capacity(b * n_batch * s, moe), 8),
+                         mesh=mesh, b_axes=b_axes, n_model=n_model,
+                         aux=aux)
+
+    # expert parallelism over "model": this rank's experts, its own rows
+    if e_pad % n_model:
+        raise ValueError(f"{e_pad} experts do not split over a {n_model}-way "
+                         f"model axis (pad them: MoEConfig.pad_to)")
+    n_local = e_pad // n_model
+    e_lo = mesh.get_local_rank("model") * n_local
+    w1, w3, w2 = (_own_experts(p[n], mesh, e_lo, n_local)
+                  for n in ("w1", "w3", "w2"))
+    out, aux = _moe_local(x.reshape(b * s, d), router, w1, w3, w2, moe=moe,
+                          e_pad=e_pad, n_local=n_local, e_lo=e_lo, act=act,
                           capacity=_capacity(b * s, moe), aux=aux)
+    out = psum(out, mesh, "model")
+    if aux is not None:
+        aux = pmean(aux, mesh, "model")
+        if b_axes:
+            aux = pmean(aux, mesh, b_axes)
     return out.reshape(b, s, d), aux
 
 

@@ -32,6 +32,7 @@ from ..configs.base import ArchConfig
 from .attention import _f32_einsum
 from .layers import _act, cast, rmsnorm
 from .param import ParamDef
+from .sharding_ctx import hint
 
 
 class SSMDims(NamedTuple):
@@ -197,8 +198,9 @@ def ssm_block(p, x: torch.Tensor, cfg: ArchConfig,
     b, s, d = x.shape
     decode = cache is not None and s == 1 and not return_cache
 
+    x = hint(x, "batch", "seq", None)
     z = x @ cast(p["wz"], x.dtype)
-    xin = x @ cast(p["wx"], x.dtype)
+    xin = hint(x @ cast(p["wx"], x.dtype), "batch", "seq", "ffn")
     bproj = x @ cast(p["wB"], x.dtype)
     cproj = x @ cast(p["wC"], x.dtype)
     dt = (x @ cast(p["wdt"], x.dtype)).to(torch.float32)
@@ -228,7 +230,8 @@ def ssm_block(p, x: torch.Tensor, cfg: ArchConfig,
             .repeat_interleave(rep, dim=1)
         ch = cproj.reshape(b, dims.n_groups, dims.d_state) \
             .repeat_interleave(rep, dim=1)
-        state = cache["state"].to(torch.float32)
+        state = hint(cache["state"].to(torch.float32),
+                     "batch", "ssm_heads", None, None)
         state = state * da[:, :, None, None] + _f32_einsum(
             "bh,bhn,bhp->bhpn", dtv, bh, xh)
         y = _f32_einsum("bhn,bhpn->bhp", ch, state)

@@ -20,8 +20,20 @@ attention output is kept across the boundary as the reference's
 ``checkpoint_name(o, "attn_out")`` policy keeps it; a layer with no
 attention is recomputed whole, as under that policy).
 
-Expert parallelism over a mesh is ROADMAP queue 1, item 12
-(``moe.moe_block`` raises when handed one).
+Over a mesh (``mesh=``, a ``DeviceMesh``), each rank computes its rows
+of the global batch (split over ``("pod", "data")``, the first axis
+major) on plain tensors. Each parameter leaf is a DTensor under its
+``spec_for`` placements, or a plain tensor every rank holds alike; a
+layer gathers the whole of each leaf it uses inside its own body (so
+``remat`` recomputes the gathers and no gathered weight outlives its
+layer), and the gather's backward hands each rank its shard's gradient,
+summed over the ranks that used it. MoE layers run the reference's
+expert-parallel branches (``moe.moe_block``). The logits come back whole
+on every rank (all-gathered over the batch axes); caches come back as
+DTensors split over the batch axes. Ranks along ``"model"`` compute the
+same rows, so a loss taken from the logits is backpropagated divided by
+the mesh's size (``train.step.value_and_grad``), which makes the sum of
+the ranks' gradients the gradient of the loss.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import functools
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
@@ -40,6 +53,9 @@ from .layers import (COMPUTE_DTYPE, cast, embed, embed_defs, mlp, mlp_defs,
                      mrope, rmsnorm, rmsnorm_def, rope, rounded,
                      sinusoidal_positions, unembed)
 from .param import ParamDef, map_tree
+from .sharding_ctx import (LocalShard, all_gather, axis_index, batch_axes,
+                           gathered, gathered_tree, hint, local_shards,
+                           mesh_axis_size)
 
 Tree = Dict[str, Any]
 
@@ -183,8 +199,10 @@ def _residual(x, y):
 def _attn_core(lp, cfg, x, positions, theta, window, block_kv):
     """The attention output o (before ``out_proj``) and the layer's
     rotated k and v."""
-    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.qkv_proj(lp["attn"], h)
+    x = hint(x, "batch", "seq", None)
+    h = rmsnorm(gathered(lp["ln1"]), x, cfg.norm_eps)
+    q, k, v = attn.qkv_proj({n: gathered(w) for n, w in lp["attn"].items()
+                             if n != "wo"}, h)
     q, k = _apply_rope(cfg, q, k, positions, theta)
     o = attn.flash_attention(q, k, v, causal=True, window=window,
                              block_kv=block_kv)
@@ -195,18 +213,23 @@ def _attn_block(lp, cfg, x, positions, theta, window, block_kv):
     """x + attention(x) as ``_residual``'s f32 sum; also returns the
     layer's rotated k and v."""
     o, k, v = _attn_core(lp, cfg, x, positions, theta, window, block_kv)
-    return _residual(x, attn.out_proj(lp["attn"], o)), k, v
+    return _residual(x, _out_proj(lp["attn"], o)), k, v
 
 
-def _ffn_layer(lp, cfg, x, auxes=None):
+def _out_proj(pa, o):
+    return attn.out_proj({"wo": gathered(pa["wo"])}, o)
+
+
+def _ffn_layer(lp, cfg, x, auxes=None, mesh=None):
     """x (the f32 sum of ``_residual``) + mlp(ln2(x)) or moe(ln2(x)), in
     bf16. An MoE layer appends its aux loss to ``auxes`` when given (the
     forward sums them; prefill and decode compute none)."""
-    h = rmsnorm(lp["ln2"], x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
+    x = hint(x, "batch", "seq", None)
+    h = rmsnorm(gathered(lp["ln2"]), x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
     if cfg.moe is None:
-        y = mlp(lp["mlp"], h, cfg.act)
+        y = mlp(gathered_tree(lp["mlp"]), h, cfg.act)
     else:
-        y, aux = moe_mod.moe_block(lp["moe"], h, cfg, None, cfg.act,
+        y, aux = moe_mod.moe_block(lp["moe"], h, cfg, mesh, cfg.act,
                                    aux=auxes is not None)
         if auxes is not None:
             auxes.append(aux)
@@ -227,8 +250,68 @@ def _layers(layers: Tree, n: int) -> List[Tree]:
     ``torch.unbind`` a leaf: the same views as ``_layer``'s, but under
     autograd each leaf's gradient is stacked once, where the backward of
     ``a[i]`` adds a zero-filled copy of the whole stacked leaf a layer."""
-    parts = map_tree(torch.unbind, layers)
+    parts = map_tree(_unbind, layers)
     return [map_tree(lambda t: t[i], parts) for i in range(n)]
+
+
+def _unbind(a):
+    return a.unbind() if isinstance(a, LocalShard) else torch.unbind(a)
+
+
+def _top(params) -> Tree:
+    """The unstacked leaves (embedding, norms) gathered whole; the
+    stacked layer trees as they are."""
+    return {k: v if k in _STACKED else gathered_tree(v)
+            for k, v in params.items()}
+
+
+_STACKED = ("layers", "enc_layers", "shared")
+# batch entries whose batch dimension is not the first
+_BATCH_DIM = {"mrope_positions": 1}
+
+
+def _local_rows(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This rank's rows of ``x`` along ``dim`` (the batch split over the
+    batch axes, the first axis major)."""
+    axes = batch_axes(mesh)
+    if not axes:
+        return x
+    n = mesh_axis_size(mesh, axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"a batch of {x.shape[dim]} does not split over "
+                         f"{n} ranks of {axes}")
+    rows = x.shape[dim] // n
+    return x.narrow(dim, axis_index(mesh, axes) * rows, rows)
+
+
+def _on_mesh(params, batch, mesh):
+    """Each leaf as a ``LocalShard``, and this rank's rows of the batch."""
+    local = {k: _local_rows(v, mesh, _BATCH_DIM.get(k, 0))
+             if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+    return local_shards(params, mesh), local
+
+
+def _whole_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's rows of ``x``, in batch order."""
+    axes = batch_axes(mesh)
+    return all_gather(x, mesh, axes, 0) if axes else x
+
+
+def _cache_shards(caches, mesh):
+    """Per-rank cache rows (batch at dim 1) as DTensors split over the
+    batch axes."""
+    axes = batch_axes(mesh)
+    pl = [Shard(1) if a in axes else Replicate()
+          for a in mesh.mesh_dim_names]
+    return map_tree(lambda c: DTensor.from_local(c, mesh, pl,
+                                                 run_check=False), caches)
+
+
+def _local_caches(caches, mesh):
+    """A rank's rows of the caches: a DTensor's shard, or a plain
+    tensor's rows."""
+    return map_tree(lambda c: c.to_local() if isinstance(c, DTensor)
+                    else _local_rows(c, mesh, 1), caches)
 
 
 def _remat(fn, remat):
@@ -245,7 +328,8 @@ def _scale_embed(cfg, x):
 
 
 def _embed_in(params, cfg, batch) -> torch.Tensor:
-    x = _scale_embed(cfg, embed(params, batch["tokens"]))
+    x = _scale_embed(cfg, hint(embed(params, batch["tokens"]),
+                               "batch", "seq", None))
     if cfg.family == "vlm" and "vision_embeds" in batch:
         bidx = torch.arange(x.shape[0], device=x.device)[:, None]
         x[bidx, batch["vision_positions"].long()] = \
@@ -270,8 +354,17 @@ def _positions(cfg, batch, b, s, device):
 
 
 def forward(params, cfg: ArchConfig, batch, remat=False,
-            block_kv: int = attn.DEFAULT_BLOCK_KV):
-    """Returns (logits (B,S,V), aux_loss scalar)."""
+            block_kv: int = attn.DEFAULT_BLOCK_KV, mesh=None):
+    """Returns (logits (B,S,V), aux_loss scalar); over a mesh the logits
+    of the whole batch on every rank."""
+    if mesh is None:
+        return _forward(params, cfg, batch, remat, block_kv, None)
+    params, batch = _on_mesh(params, batch, mesh)
+    logits, aux = _forward(params, cfg, batch, remat, block_kv, mesh)
+    return _whole_rows(logits, mesh), aux
+
+
+def _forward(params, cfg, batch, remat, block_kv, mesh):
     if cfg.enc_dec:
         return _whisper_forward(params, cfg, batch, remat, block_kv)
     if cfg.family == "ssm":
@@ -280,46 +373,55 @@ def forward(params, cfg: ArchConfig, batch, remat=False,
         return _hybrid_forward(params, cfg, batch, remat, block_kv)
 
     b, s = batch["tokens"].shape
-    x = _embed_in(params, cfg, batch)
+    top = _top(params)
+    x = _embed_in(top, cfg, batch)
     positions = _positions(cfg, batch, b, s, x.device)
     layer = (_save_attn_layer if remat == "save_attn"
              else _remat(_train_layer, remat))
     auxes: List[torch.Tensor] = []
     for lp, (window, theta) in zip(_layers(params["layers"], cfg.n_layers),
                                    _layer_scalars(cfg, s)):
-        x, aux = layer(lp, cfg, x, positions, theta, window, block_kv)
+        x, aux = layer(lp, cfg, x, positions, theta, window, block_kv, mesh)
         if aux is not None:
             auxes.append(aux)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x), sum(auxes, _zero(x.device))
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    return _logits(top, x), sum(auxes, _zero(x.device))
 
 
-def _attn_out_ffn(lp, cfg, x, o):
+def _logits(top, x):
+    return hint(unembed(top, x), "batch", "seq", "vocab")
+
+
+def _attn_out_ffn(lp, cfg, x, o, mesh=None):
     """The decoder layer after its attention core: (x + out_proj(o), then
     the ffn sublayer; the MoE aux loss or None)."""
     auxes: List[torch.Tensor] = []
-    x = _ffn_layer(lp, cfg, _residual(x, attn.out_proj(lp["attn"], o)),
-                   auxes)
+    x = _ffn_layer(lp, cfg, _residual(x, _out_proj(lp["attn"], o)),
+                   auxes, mesh)
     return x, (auxes[0] if auxes else None)
 
 
-def _train_layer(lp, cfg, x, positions, theta, window, block_kv):
+def _train_layer(lp, cfg, x, positions, theta, window, block_kv,
+                 mesh=None):
     """One decoder layer of the forward: (x, the MoE aux loss or None)."""
     o = _attn_core(lp, cfg, x, positions, theta, window, block_kv)[0]
-    return _attn_out_ffn(lp, cfg, x, o)
+    return _attn_out_ffn(lp, cfg, x, o, mesh)
 
 
-def _save_attn_layer(lp, cfg, x, positions, theta, window, block_kv):
+def _save_attn_layer(lp, cfg, x, positions, theta, window, block_kv,
+                     mesh=None):
     """``_train_layer`` with its attention core and the rest checkpointed
     apart: the backward recomputes both, and keeps o between them."""
     o = checkpoint(_attn_core, lp, cfg, x, positions, theta, window,
                    block_kv, use_reentrant=False)[0]
-    return checkpoint(_attn_out_ffn, lp, cfg, x, o, use_reentrant=False)
+    return checkpoint(_attn_out_ffn, lp, cfg, x, o, mesh,
+                      use_reentrant=False)
 
 
 def _ssm_layer(lp, cfg, x, **kw):
     """x + ssm_block(ln(x)); with ``cache`` or ``return_cache`` also the
     layer's new cache."""
+    lp = gathered_tree(lp)
     h = rmsnorm(lp["ln"], x, cfg.norm_eps)
     lp_ssm = {k: v for k, v in lp.items() if k != "ln"}
     out = ssm_mod.ssm_block(lp_ssm, h, cfg, **kw)
@@ -329,12 +431,13 @@ def _ssm_layer(lp, cfg, x, **kw):
 
 
 def _ssm_forward(params, cfg, batch, remat=False):
-    x = _embed_in(params, cfg, batch)
+    top = _top(params)
+    x = _embed_in(top, cfg, batch)
     layer = _remat(_ssm_layer, remat)
     for lp in _layers(params["layers"], cfg.n_layers):
         x = layer(lp, cfg, x)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x), _zero(x.device)
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    return _logits(top, x), _zero(x.device)
 
 
 def _shared_block(sp, cfg, x, positions, block_kv, kv_cache=None, pos=None):
@@ -343,7 +446,7 @@ def _shared_block(sp, cfg, x, positions, block_kv, kv_cache=None, pos=None):
     prefill, or (x, the updated caches) in decode when kv_cache is given.
     The reference runs it outside any ``lax.scan``, op by op, so its
     residual sums round to bf16 as eager adds do."""
-    sl = _layer(sp, 0)
+    sl = gathered_tree(_layer(sp, 0))
     h = rmsnorm(sl["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv_proj(sl["attn"], h)
     q, k = _apply_rope(cfg, q, k, positions, cfg.rope_theta)
@@ -372,7 +475,8 @@ def _hybrid_forward(params, cfg, batch, remat, block_kv):
     """The SSM layers under ``remat``; the shared block never, as in the
     reference (its remat wraps the inner scan only)."""
     b, s = batch["tokens"].shape
-    x = _embed_in(params, cfg, batch)
+    top = _top(params)
+    x = _embed_in(top, cfg, batch)
     positions = _positions(cfg, batch, b, s, x.device)
     layers = _layers(params["layers"], cfg.n_layers)
     layer = _remat(_ssm_layer, remat)
@@ -380,8 +484,8 @@ def _hybrid_forward(params, cfg, batch, remat, block_kv):
         for i in group:
             x = layer(layers[i], cfg, x)
         x, _ = _shared_block(params["shared"], cfg, x, positions, block_kv)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x), _zero(x.device)
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    return _logits(top, x), _zero(x.device)
 
 
 def _encode(params, cfg, batch, block_kv, remat=False):
@@ -394,10 +498,11 @@ def _encode(params, cfg, batch, block_kv, remat=False):
     layer = _remat(_enc_layer, remat)
     for lp in _layers(params["enc_layers"], cfg.n_enc_layers):
         xe = layer(lp, cfg, xe, block_kv)
-    return rmsnorm(params["enc_norm"], xe, cfg.norm_eps)
+    return rmsnorm(gathered(params["enc_norm"]), xe, cfg.norm_eps)
 
 
 def _enc_layer(lp, cfg, xe, block_kv):
+    lp = gathered_tree(lp)
     h = rmsnorm(lp["ln1"], xe, cfg.norm_eps)
     q, k, v = attn.qkv_proj(lp["attn"], h)
     o = attn.flash_attention(q, k, v, causal=False, block_kv=block_kv)
@@ -407,6 +512,7 @@ def _enc_layer(lp, cfg, xe, block_kv):
 def _whisper_layer(lp, cfg, x, enc_out, block_kv):
     """One decoder layer over the whole sequence: (x, k, v, cross k, cross
     v)."""
+    lp = gathered_tree(lp)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv_proj(lp["attn"], h)
     o = attn.flash_attention(q, k, v, causal=True, block_kv=block_kv)
@@ -428,13 +534,14 @@ def _whisper_embed(params, cfg, tokens):
 def _whisper_forward(params, cfg, batch, remat, block_kv):
     """Encoder and decoder layers under ``remat``, each recomputed whole
     (their bodies name no attention output)."""
-    enc_out = _encode(params, cfg, batch, block_kv, remat)
-    x = _whisper_embed(params, cfg, batch["tokens"])
+    top = _top(params)
+    enc_out = _encode(top, cfg, batch, block_kv, remat)
+    x = _whisper_embed(top, cfg, batch["tokens"])
     layer = _remat(_whisper_layer, remat)
     for lp in _layers(params["layers"], cfg.n_layers):
         x = layer(lp, cfg, x, enc_out, block_kv)[0]
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x), _zero(x.device)
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    return _logits(top, x), _zero(x.device)
 
 
 def _cross_qkv(p, x_dec, enc_out):
@@ -454,8 +561,18 @@ def _cross_qkv(p, x_dec, enc_out):
 
 
 def prefill(params, cfg: ArchConfig, batch, skv: Optional[int] = None,
-            block_kv: int = attn.DEFAULT_BLOCK_KV):
-    """Returns (last-token logits (B,V), caches sized for skv)."""
+            block_kv: int = attn.DEFAULT_BLOCK_KV, mesh=None):
+    """Returns (last-token logits (B,V), caches sized for skv); over a
+    mesh the logits of the whole batch on every rank and each rank's
+    cache rows as DTensors."""
+    if mesh is None:
+        return _prefill(params, cfg, batch, skv, block_kv, None)
+    params, batch = _on_mesh(params, batch, mesh)
+    logits, caches = _prefill(params, cfg, batch, skv, block_kv, mesh)
+    return _whole_rows(logits, mesh), _cache_shards(caches, mesh)
+
+
+def _prefill(params, cfg, batch, skv, block_kv, mesh):
     if cfg.enc_dec:
         return _whisper_prefill(params, cfg, batch, skv, block_kv)
     if cfg.family == "ssm":
@@ -465,17 +582,18 @@ def prefill(params, cfg: ArchConfig, batch, skv: Optional[int] = None,
 
     b, s = batch["tokens"].shape
     skv = skv or s
-    x = _embed_in(params, cfg, batch)
+    top = _top(params)
+    x = _embed_in(top, cfg, batch)
     positions = _positions(cfg, batch, b, s, x.device)
     ks, vs = [], []
     for i, (window, theta) in enumerate(_layer_scalars(cfg, skv)):
         lp = _layer(params["layers"], i)
         x, k, v = _attn_block(lp, cfg, x, positions, theta, window, block_kv)
-        x = _ffn_layer(lp, cfg, x)
+        x = _ffn_layer(lp, cfg, x, mesh=mesh)
         ks.append(_pad_cache(k, skv))
         vs.append(_pad_cache(v, skv))
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params, x[:, -1])
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    logits = hint(unembed(top, x[:, -1]), "batch", "vocab")
     return logits, {"self": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
 
@@ -495,20 +613,26 @@ def _stack_trees(trees: List[Tree]) -> Tree:
 
 
 def _ssm_prefill(params, cfg, batch):
-    x = _embed_in(params, cfg, batch)
+    top = _top(params)
+    x = _embed_in(top, cfg, batch)
     caches = []
     for i in range(cfg.n_layers):
         x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x,
                               return_cache=True)
         caches.append(cache)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x[:, -1]), {"ssm": _stack_trees(caches)}
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    return _last_logits(top, x), {"ssm": _stack_trees(caches)}
+
+
+def _last_logits(top, x):
+    return hint(unembed(top, x[:, -1]), "batch", "vocab")
 
 
 def _hybrid_prefill(params, cfg, batch, skv, block_kv):
     b, s = batch["tokens"].shape
     skv = skv or s
-    x = _embed_in(params, cfg, batch)
+    top = _top(params)
+    x = _embed_in(top, cfg, batch)
     positions = _positions(cfg, batch, b, s, x.device)
     ssm_caches, shared_k, shared_v = [], [], []
     for group in _groups(cfg):
@@ -520,27 +644,28 @@ def _hybrid_prefill(params, cfg, batch, skv, block_kv):
                                   block_kv)
         shared_k.append(_pad_cache(k, skv))
         shared_v.append(_pad_cache(v, skv))
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x[:, -1]), {
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    return _last_logits(top, x), {
         "ssm": _stack_trees(ssm_caches),
         "shared": {"k": torch.stack(shared_k), "v": torch.stack(shared_v)},
     }
 
 
 def _whisper_prefill(params, cfg, batch, skv, block_kv):
-    enc_out = _encode(params, cfg, batch, block_kv)
+    top = _top(params)
+    enc_out = _encode(top, cfg, batch, block_kv)
     tokens = batch["tokens"]
     skv = skv or tokens.shape[1]
-    x = _whisper_embed(params, cfg, tokens)
+    x = _whisper_embed(top, cfg, tokens)
     ys = []
     for i in range(cfg.n_layers):
         x, k, v, kc, vc = _whisper_layer(_layer(params["layers"], i), cfg,
                                          x, enc_out, block_kv)
         ys.append((_pad_cache(k, skv), _pad_cache(v, skv),
                    kc.to(COMPUTE_DTYPE), vc.to(COMPUTE_DTYPE)))
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     sk, sv, ck, cv = (torch.stack(t) for t in zip(*ys))
-    return unembed(params, x[:, -1]), {"self": {"k": sk, "v": sv},
+    return _last_logits(top, x), {"self": {"k": sk, "v": sv},
                                        "cross": {"k": ck, "v": cv}}
 
 
@@ -549,8 +674,20 @@ def _whisper_prefill(params, cfg, batch, skv, block_kv):
 # ---------------------------------------------------------------------------
 
 
-def decode_step(params, cfg: ArchConfig, caches, batch):
-    """batch: tokens (B,1), pos (B,). Returns (logits (B,V), new caches)."""
+def decode_step(params, cfg: ArchConfig, caches, batch, mesh=None):
+    """batch: tokens (B,1), pos (B,). Returns (logits (B,V), new caches);
+    over a mesh the caches are each rank's rows (DTensors as ``prefill``
+    gives them, or the whole batch's plain tensors), the logits the
+    whole batch's on every rank and the new caches DTensors."""
+    if mesh is None:
+        return _decode_step(params, cfg, caches, batch, None)
+    params, batch = _on_mesh(params, batch, mesh)
+    logits, new = _decode_step(params, cfg, _local_caches(caches, mesh),
+                               batch, mesh)
+    return _whole_rows(logits, mesh), _cache_shards(new, mesh)
+
+
+def _decode_step(params, cfg, caches, batch, mesh):
     if cfg.enc_dec:
         return _whisper_decode(params, cfg, caches, batch)
     if cfg.family == "ssm":
@@ -560,43 +697,49 @@ def decode_step(params, cfg: ArchConfig, caches, batch):
 
     tokens, pos = batch["tokens"], batch["pos"]
     b = tokens.shape[0]
-    x = _scale_embed(cfg, embed(params, tokens))
+    top = _top(params)
+    x = _scale_embed(cfg, embed(top, tokens))
     skv = caches["self"]["k"].shape[2]
     positions = pos[:, None]
     if cfg.rope_kind == "mrope":
         positions = pos[None, :, None].expand(3, b, 1)
     ks, vs = [], []
     for i, (window, theta) in enumerate(_layer_scalars(cfg, skv)):
-        lp = _layer(params["layers"], i)
+        lp = {k: v if k == "moe" else gathered_tree(v)   # moe_block's own
+              for k, v in _layer(params["layers"], i).items()}
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         q, k, v = attn.qkv_proj(lp["attn"], h)
         q, k = _apply_rope(cfg, q, k, positions, theta)
-        kc, vc = attn.update_cache(caches["self"]["k"][i],
-                                   caches["self"]["v"][i], k, v, pos)
+        kc = hint(caches["self"]["k"][i], "batch", "kv_seq", "kv_heads", None)
+        vc = hint(caches["self"]["v"][i], "batch", "kv_seq", "kv_heads", None)
+        kc, vc = attn.update_cache(kc, vc, k, v, pos)
         o = attn.decode_attention(q, kc, vc, pos, window=window)
         x = _ffn_layer(lp, cfg,
-                       _residual(x, attn.out_proj(lp["attn"], o)))
+                       _residual(x, attn.out_proj(lp["attn"], o)),
+                       mesh=mesh)
         ks.append(kc)
         vs.append(vc)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x[:, -1]), {
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    return _last_logits(top, x), {
         "self": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
 
 def _ssm_decode(params, cfg, caches, batch):
-    x = embed(params, batch["tokens"])
+    top = _top(params)
+    x = embed(top, batch["tokens"])
     new = []
     for i in range(cfg.n_layers):
         x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x,
                               cache=_layer(caches["ssm"], i))
         new.append(cache)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x[:, -1]), {"ssm": _stack_trees(new)}
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    return _last_logits(top, x), {"ssm": _stack_trees(new)}
 
 
 def _hybrid_decode(params, cfg, caches, batch):
     tokens, pos = batch["tokens"], batch["pos"]
-    x = embed(params, tokens)
+    top = _top(params)
+    x = embed(top, tokens)
     positions = pos[:, None]
     new_ssm, new_k, new_v = [], [], []
     for g, group in enumerate(_groups(cfg)):
@@ -610,8 +753,8 @@ def _hybrid_decode(params, cfg, caches, batch):
                                     pos=pos)
         new_k.append(kc)
         new_v.append(vc)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x[:, -1]), {
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    return _last_logits(top, x), {
         "ssm": _stack_trees(new_ssm),
         "shared": {"k": torch.stack(new_k), "v": torch.stack(new_v)},
     }
@@ -620,14 +763,15 @@ def _hybrid_decode(params, cfg, caches, batch):
 def _whisper_decode(params, cfg, caches, batch):
     tokens, pos = batch["tokens"], batch["pos"]
     b = tokens.shape[0]
-    x = embed(params, tokens)
+    top = _top(params)
+    x = embed(top, tokens)
     # sinusoidal position of the current step, gathered per sequence
     skv = caches["self"]["k"].shape[2]
     pos_table = sinusoidal_positions(skv, cfg.d_model, x.device).to(x.dtype)
     x = x + pos_table[pos.long()][:, None]
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = gathered_tree(_layer(params["layers"], i))
         ck, cv = caches["cross"]["k"][i], caches["cross"]["v"][i]
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         q, k, v = attn.qkv_proj(lp["attn"], h)
@@ -646,7 +790,7 @@ def _whisper_decode(params, cfg, caches, batch):
                                           attn.out_proj(lp["cross"], oc)))
         ks.append(kc)
         vs.append(vc)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params, x[:, -1]), {
+    x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
+    return _last_logits(top, x), {
         "self": {"k": torch.stack(ks), "v": torch.stack(vs)},
         "cross": caches["cross"]}

@@ -7,6 +7,11 @@ tensors and returns those trees. A functional update would hold a second
 copy of the parameters and both moments (40.8 GB more for qwen2.5-3b's
 3.40 B float32 parameters, which already take 54.4 GB with their
 gradients and moments); the arithmetic is the reference's, op for op.
+
+Sharded state (DTensor leaves, as ``train.step`` keeps them over a mesh)
+is updated shard by shard in place: the update is elementwise, and
+``global_norm`` is the norm of the whole tree, its squared sums
+all-reduced over the mesh, so clipping scales every shard alike.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..models.param import map_tree, tree_leaves
 
@@ -47,15 +54,42 @@ def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
 def init(params) -> Dict[str, Any]:
     """Zero moments shaped as ``params`` and a 0-d int32 step, on the
     parameters' device."""
-    device = tree_leaves(params)[0].device
+    device = _local(tree_leaves(params)[0]).device
     return {"m": map_tree(torch.zeros_like, params),
             "v": map_tree(torch.zeros_like, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (sharing its storage), or x."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
-                          for l in tree_leaves(tree)))
+    """The norm of every leaf of ``tree``. Over DTensor leaves each
+    rank's squared sums are divided by the leaf's replica count (the
+    ranks that hold its shard alike) and summed over the whole mesh, so
+    every rank gets the norm of the whole tree."""
+    leaves = tree_leaves(tree)
+    sums = [torch.sum(torch.square(_local(l).to(torch.float32)))
+            for l in leaves]
+    sharded = [l for l in leaves if isinstance(l, DTensor)]
+    if sharded:
+        mesh = sharded[0].device_mesh
+        shares = []
+        for s, l in zip(sums, leaves):
+            # a plain leaf is held alike by every rank
+            copies = mesh.size() if not isinstance(l, DTensor) else 1
+            for i, p in enumerate(getattr(l, "placements", ())):
+                if isinstance(p, Replicate):
+                    copies *= mesh.size(i)
+            shares.append(s / copies if copies > 1 else s)
+        stacked = torch.stack(shares)
+        for i in range(mesh.ndim):
+            if mesh.size(i) > 1:
+                dist.all_reduce(stacked, group=mesh.get_group(i))
+        sums = list(stacked.unbind())
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
@@ -64,7 +98,7 @@ def update(cfg: OptimizerConfig, grads, opt_state, params
     """One AdamW step, written in place into ``params`` and ``opt_state``
     (which are returned) and its metrics. A caller that needs the old
     state clones it first."""
-    step = opt_state["step"] + 1
+    step = _local(opt_state["step"]) + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
@@ -72,9 +106,8 @@ def update(cfg: OptimizerConfig, grads, opt_state, params
     bc1 = 1 - b1 ** step.to(torch.float32)
     bc2 = 1 - b2 ** step.to(torch.float32)
 
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(opt_state["m"]),
-                          tree_leaves(opt_state["v"])):
+    for p, g, m, v in zip(*(map(_local, tree_leaves(t)) for t in (
+            params, grads, opt_state["m"], opt_state["v"]))):
         # the reference's expressions, each elementwise op in its order;
         # in-place forms only where they compute the same bits
         g = g.to(torch.float32) * scale
@@ -88,5 +121,5 @@ def update(cfg: OptimizerConfig, grads, opt_state, params
             p.sub_(lr * delta)
         else:
             p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
-    opt_state["step"].copy_(step)
+    _local(opt_state["step"]).copy_(step)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

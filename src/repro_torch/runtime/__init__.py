@@ -1,5 +1,6 @@
-"""Runtime: the fault-tolerant supervisor, straggler watchdog and elastic
-mesh policy."""
+"""Runtime: the fault-tolerant supervisor, straggler watchdog, elastic
+mesh policy and the GPipe pipeline."""
 
 from .fault_tolerance import (HostFailure, StragglerWatchdog, Supervisor,
                               elastic_mesh_shape)
+from .pipeline import bubble_fraction, pipeline

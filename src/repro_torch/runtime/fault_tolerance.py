@@ -6,6 +6,12 @@ and continues - with a *smaller* mesh if hosts were lost (elastic).
 Plain Python, as in the reference; the tests exercise it with injected
 failures (tests/test_torch_train_infra.py).
 
+Over a mesh (sharded state: ``mesh`` and ``spec_tree`` set) every rank
+runs the loop, and its decisions must be the same on every rank, or the
+step's collectives would deadlock: a failure injected (or raised) on any
+rank before a step is agreed over the whole mesh, so every rank restores
+together, onto the mesh (``restore(mesh=, spec_tree=)``).
+
 Straggler mitigation: per-step wall times feed an EWMA; steps slower than
 `threshold x` the EWMA are flagged, and the policy hook decides (re-issue
 the batch / drop the host from the next elastic mesh). At 1000+ nodes this
@@ -16,7 +22,10 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+import torch.distributed as dist
 
 from ..checkpoint.checkpointing import Checkpointer
 
@@ -72,6 +81,23 @@ class Supervisor:
     watchdog: StragglerWatchdog = dataclasses.field(
         default_factory=StragglerWatchdog)
     device: Optional[str] = None    # where a restore lands (the card)
+    mesh: Any = None                # sharded state: the mesh it lies on
+    spec_tree: Any = None           # and its specs (restore places them)
+
+    def _agreed(self, failure: Optional[HostFailure]
+                ) -> Optional[HostFailure]:
+        """The failure any rank of the mesh saw (the most hosts lost), on
+        every rank; None when no rank failed."""
+        if self.mesh is None:
+            return failure
+        lost = torch.tensor([failure.lost_hosts if failure else 0],
+                            dtype=torch.int64,
+                            device=torch.device(self.mesh.device_type))
+        for i in range(self.mesh.ndim):
+            dist.all_reduce(lost, op=dist.ReduceOp.MAX,
+                            group=self.mesh.get_group(i))
+        n = int(lost.item())
+        return failure or (HostFailure(n) if n else None)
 
     def run(self, state, data_fn: Callable[[int], dict],
             step_fn: Callable, start_step: int, n_steps: int,
@@ -87,8 +113,15 @@ class Supervisor:
         while step < n_steps:
             try:
                 t0 = time.monotonic()
+                failure = None
                 if failure_injector is not None:
-                    failure_injector(step)
+                    try:
+                        failure_injector(step)
+                    except HostFailure as e:
+                        failure = e
+                failure = self._agreed(failure)
+                if failure is not None:
+                    raise failure
                 batch = data_fn(step)
                 state, metrics = step_fn(state, batch)
                 dt = time.monotonic() - t0
@@ -102,12 +135,15 @@ class Supervisor:
                 restarts += 1
                 if restarts > self.max_restarts:
                     raise
+                # a save in flight lands first (on every rank, over a
+                # mesh), so every rank sees the same latest step
+                self.checkpointer.wait()
                 restore_step = self.checkpointer.latest_step()
                 if restore_step is None:
                     restore_step, tree = start_step, None
                 else:
-                    self.checkpointer.wait()
                     restore_step, tree = self.checkpointer.restore(
+                        mesh=self.mesh, spec_tree=self.spec_tree,
                         device=self.device)
                 if tree is not None:
                     state = on_restore(tree) if on_restore else tree

@@ -8,8 +8,7 @@ full-precision training (tests/test_torch_train_infra.py checks
 loss parity on a small model).
 
 Wire format: int8 payload (4x smaller than f32) + one f32 scale per leaf.
-The reduction itself (``compressed_psum``) needs a collective across
-devices: ROADMAP queue 1, item 12.
+``compressed_psum`` all-reduces over a mesh axis's process group.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.param import map_tree, tree_leaves, tree_unflatten
 
@@ -40,12 +40,21 @@ def ef_compress_tree(grads, err_tree):
     return tuple(tree_unflatten(grads, list(part)) for part in zip(*out))
 
 
-def compressed_psum(q_tree, scale_tree, axis_name: str, n_shards: int):
-    """All-reduce quantized grads across ``axis_name`` (mean): a
-    collective over a device mesh, which the port does not have yet."""
-    raise NotImplementedError(
-        "compressed_psum needs a collective over a device mesh, which is "
-        "not ported yet (ROADMAP queue 1, item 12)")
+def compressed_psum(q_tree, scale_tree, axis_name: str, n_shards: int,
+                    mesh):
+    """All-reduce quantized grads across ``axis_name`` of ``mesh`` (mean):
+    each rank contributes ``q * s`` (dequantized at the collective's edge,
+    as the reference models it: the sum runs in float32, not on int8) and
+    the sum is divided by ``n_shards``."""
+    group = mesh.get_group(axis_name)
+
+    def dequant_psum(q, s):
+        x = q.to(torch.float32) * s
+        dist.all_reduce(x, group=group)
+        return x / n_shards
+
+    return tree_unflatten(q_tree, [dequant_psum(q, s) for q, s in zip(
+        tree_leaves(q_tree), tree_leaves(scale_tree))])
 
 
 def init_error_state(params):

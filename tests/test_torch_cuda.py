@@ -4,9 +4,13 @@ the binary-LM example through the XNOR-popcount kernel, the DRAM
 model and the PIM runtime on it with their rows on the card against the
 CPU, and the LM path: the document filter through the scan kernel, the
 reduced configs of every family on the card against the CPU, the MoE
-bookkeeping through the popcount kernel, and training: a reduced train
+bookkeeping through the popcount kernel, training: a reduced train
 step against the CPU, the in-place update's memory, a checkpoint
-restored onto the card.
+restored onto the card, and the multi-device layer on a (1,1) mesh over
+a one-rank NCCL group: the sharded train step and the MoE forward
+against the mesh-free ones bit for bit, ``compressed_psum``,
+``pipeline`` and a restore onto the mesh (collectives across more than
+one rank are held on the CPU by tests/test_torch_distributed.py).
 
 Imports nothing of JAX or of the JAX package, so it runs on a GPU machine
 that has only PyTorch:
@@ -871,3 +875,92 @@ def test_checkpoint_restore_lands_on_card(cuda, tmp_path):
                                                             tree["h"])
     assert torch.equal(got["opt"]["step"], tree["opt"]["step"])
     assert ck.restore(device="cpu")[1]["w"].device.type == "cpu"
+
+
+def test_one_rank_nccl_mesh_train_step_on_card(cuda):
+    """A reduced qwen2.5-3b ``make_train_step(mesh=)`` on a (1,1) mesh
+    over a one-rank NCCL group, from ``init_state(mesh=)``, equals the
+    mesh-free step on the card bit for bit (``chip_smoke.py`` phase
+    11(a) at full width)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.optim.optimizer import OptimizerConfig
+    from repro_torch.train import step as train_step
+    from torch_dist_ranks import one_rank_mesh, whole
+    cfg = get_config("qwen2.5-3b").reduced()
+    model = build_model(cfg)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 33))
+                            .astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    opt_cfg = OptimizerConfig(total_steps=10)
+    want, wm = train_step.make_train_step(model, opt_cfg)(
+        train_step.init_state(model, 0, device=cuda), batch)
+    with one_rank_mesh("cuda") as mesh:
+        assert mesh.device_type == "cuda"
+        got, gm = train_step.make_train_step(model, opt_cfg, mesh=mesh)(
+            train_step.init_state(model, 0, device=cuda, mesh=mesh), batch)
+        got = [whole(t) for t in tree_leaves(got)]
+    for k in wm:
+        assert torch.equal(gm[k], wm[k]), k
+    for a, b in zip(got, tree_leaves(want)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_one_rank_nccl_mesh_moe_forward_on_card(cuda):
+    """Reduced granite-moe ``Model.forward(mesh=)`` on sharded parameters
+    equals the mesh-free forward on the card bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import ShardingRules
+    from repro_torch.models.sharding_ctx import distribute, mesh_shape_dict
+    from torch_dist_ranks import one_rank_mesh
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32)).to(cuda)
+    want, want_aux = model.forward(params, {"tokens": toks})
+    with one_rank_mesh("cuda") as mesh:
+        got, got_aux = model.forward(distribute(params, mesh, model.param_specs(
+            ShardingRules(), mesh_shape_dict(mesh))), {"tokens": toks},
+            mesh=mesh)
+    assert torch.equal(got, want) and torch.equal(got_aux, want_aux)
+
+
+def test_one_rank_nccl_mesh_pieces_on_card(cuda, tmp_path):
+    """``compressed_psum`` over the one-rank group is ``q*s/1`` bit for
+    bit; ``pipeline`` with one stage is the stage on each microbatch
+    (1e-5) with a finite nonzero gradient; a checkpoint saved without a
+    mesh restores onto the mesh as DTensors bit for bit."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models.param import PartitionSpec as P
+    from repro_torch.runtime.pipeline import pipeline
+    from repro_torch.train.compression import compressed_psum
+    from torch_dist_ranks import one_rank_mesh
+    gen = torch.Generator(cuda).manual_seed(0)
+    q = torch.randint(-127, 128, (333,), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand((), generator=gen, device=cuda)
+    w = torch.randn((1, 16, 16), generator=gen, device=cuda) \
+        .requires_grad_()
+    x = torch.randn((5, 3, 16), generator=gen, device=cuda)
+    tree = {"w": torch.randn((8, 4), generator=gen, device=cuda),
+            "step": torch.tensor(2, dtype=torch.int32, device=cuda)}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(2, tree, blocking=True)
+    with one_rank_mesh("cuda") as mesh:
+        got = compressed_psum({"g": q}, {"g": s}, "model", 1, mesh=mesh)
+        assert torch.equal(got["g"], q.to(torch.float32) * s / 1)
+        out = pipeline(lambda p, h: torch.tanh(h @ p["w"]), {"w": w}, x,
+                       mesh, axis="data")
+        want = torch.stack([torch.tanh(x[m] @ w[0]) for m in range(5)])
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+        (gw,) = torch.autograd.grad((out ** 2).sum(), [w])
+        assert torch.isfinite(gw).all() and float(gw.abs().sum()) > 0
+        step, back = ck.restore(mesh=mesh, spec_tree={"w": P("data", None)})
+        assert step == 2 and hasattr(back["w"], "placements")
+        assert torch.equal(back["w"].full_tensor(), tree["w"])
+        assert torch.equal(back["step"], tree["step"])

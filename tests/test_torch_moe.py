@@ -197,8 +197,10 @@ def test_moe_block_without_aux_keeps_its_output(arch):
 
 
 def test_moe_block_raises_on_a_mesh():
+    """A mesh must be a ``DeviceMesh`` (the expert-parallel branches are
+    held on 8 ranks by tests/test_torch_distributed.py)."""
     cfg = port_config("granite-moe-3b-a800m").reduced()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tm.moe_block({}, torch.zeros((1, 2, cfg.d_model)), cfg, object(),
                      cfg.act)
 

@@ -67,7 +67,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.optim, repro_torch.optim.optimizer, "
             "repro_torch.train, repro_torch.train.step, "
             "repro_torch.train.compression, repro_torch.checkpoint, "
-            "repro_torch.runtime, repro_torch.launch.train; "
+            "repro_torch.runtime, repro_torch.launch.train, "
+            "repro_torch.launch.hloparse, repro_torch.launch.mesh, "
+            "repro_torch.models.sharding_ctx, repro_torch.runtime.pipeline; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

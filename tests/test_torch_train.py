@@ -35,10 +35,13 @@ from repro.train import step as jstep
 from repro_torch import convert
 from repro_torch.models import build_model
 from repro_torch.models import ssm as tssm
-from repro_torch.models.param import tree_leaves, tree_unflatten
+from repro_torch.models.param import (ShardingRules, map_tree, tree_leaves,
+                                      tree_unflatten)
+from repro_torch.models.sharding_ctx import mesh_shape_dict
 from repro_torch.optim import optimizer as topt
 from repro_torch.train import compression as tcomp
 from repro_torch.train import step as tstep
+from torch_dist_ranks import one_rank_mesh, whole
 
 ARCHS = sorted(REGISTRY)
 EXACT = dict(rtol=1e-6, atol=0)
@@ -260,8 +263,11 @@ def test_ef_compress_tree():
                                            rtol=1e-7, atol=1e-9)
     tree = {"w": np.zeros((1000,)), "b": np.zeros((3, 4))}
     assert tcomp.compression_ratio(tree) == jcomp.compression_ratio(tree)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tcomp.compressed_psum(got[0], got[1], "data", 2)
+    with one_rank_mesh() as mesh:     # the sum of one rank's q * s
+        summed = tcomp.compressed_psum(got[0], got[1], "data", 2, mesh=mesh)
+    for q, s, g in zip(tree_leaves(got[0]), tree_leaves(got[1]),
+                       tree_leaves(summed)):
+        assert torch.equal(g, q.to(torch.float32) * s / 2)
 
 
 # -- gradients where the packages round differently ----------------------------
@@ -385,6 +391,95 @@ def test_arch_train_step(arch):
     for b, a in zip(before, tree_leaves(new_state["params"])):
         assert torch.isfinite(a).all() and not torch.equal(a, b)
     assert int(new_state["opt"]["step"]) == 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_one_rank_mesh_step_is_the_mesh_free_step(arch):
+    """``make_train_step(mesh=)`` on a (1,1) mesh over a one-rank gloo
+    group, from state placed by ``init_state(mesh=)``: the same loss,
+    metrics, parameters and moments as the mesh-free step, bit for bit
+    (one rank adds no arithmetic: its gathers and reductions move or
+    keep the same values), with every leaf a DTensor under its spec."""
+    cfg, _, _, model, batch = _setup(arch)
+    tb = _port_batch(batch)
+    opt_cfg = topt.OptimizerConfig(total_steps=10)
+    want, wm = tstep.make_train_step(model, opt_cfg, remat=False)(
+        tstep.init_state(model, 3, device="cpu"), tb)
+    with one_rank_mesh() as mesh:
+        state = tstep.init_state(model, 3, device="cpu", mesh=mesh)
+        assert all(hasattr(p, "placements")
+                   for p in tree_leaves(state["params"]))
+        got, gm = tstep.make_train_step(model, opt_cfg, mesh=mesh,
+                                        remat=False)(state, tb)
+        got = map_tree(whole, got)
+    assert set(gm) == set(wm)
+    for k in wm:
+        assert torch.equal(gm[k], wm[k]), k
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-moe-3b-a800m"])
+def test_one_rank_mesh_step_calls_no_collective(arch, monkeypatch):
+    """Over a (1,1) mesh every gather and reduction runs over a group of
+    one rank, which the mesh paths skip: a sharded train step (a dense
+    and an MoE stack) calls no collective at all."""
+    import torch.distributed as dist
+    from repro_torch.models import sharding_ctx
+    cfg, _, _, model, batch = _setup(arch)
+    tb = _port_batch(batch)
+    calls = []
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return call
+
+    with one_rank_mesh() as mesh:
+        state = tstep.init_state(model, 3, device="cpu", mesh=mesh)
+        step = tstep.make_train_step(model, topt.OptimizerConfig(
+            total_steps=10), mesh=mesh, remat=False)
+        for mod, name in ((dist, "all_reduce"),
+                          (sharding_ctx, "_gather_into"),
+                          (sharding_ctx, "_scatter_into")):
+            monkeypatch.setattr(mod, name, counted(name, getattr(mod, name)))
+        _, m = step(state, tb)
+    assert np.isfinite(float(m["loss"]))
+    assert calls == []
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_one_rank_mesh_serving_is_mesh_free(arch):
+    """``forward``, ``prefill`` and two ``decode_step``s over a (1,1)
+    mesh on sharded parameters: the mesh-free logits and caches, bit for
+    bit; the caches come back as DTensors."""
+    cfg, _, np_state, model, batch = _setup(arch)
+    tb = {k: v for k, v in _port_batch(batch).items() if k != "labels"}
+    params = convert.params_from_numpy(np_state["params"], "cpu")
+    skv = tb["tokens"].shape[1] + 2
+    runs = []
+    with one_rank_mesh() as mesh:
+        sharded = convert.sharded_from_numpy(
+            np_state["params"], mesh,
+            model.param_specs(ShardingRules(), mesh_shape_dict(mesh)))
+        for p, m in ((params, None), (sharded, mesh)):
+            logits, aux = model.forward(p, tb, mesh=m)
+            out = [logits, aux]
+            lg, caches = model.prefill(p, tb, skv=skv, mesh=m)
+            out.append(lg)
+            for i in range(2):
+                nxt = {"tokens": tb["tokens"][:, i:i + 1],
+                       "pos": torch.full((tb["tokens"].shape[0],), skv - 2 + i,
+                                         dtype=torch.int32)}
+                lg, caches = model.decode_step(p, caches, nxt, mesh=m)
+                out.append(lg)
+            if m is not None:
+                assert all(hasattr(c, "placements")
+                           for c in tree_leaves(caches))
+            runs.append(out + [whole(c) for c in tree_leaves(caches)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_train_step_matches_reference():
@@ -542,8 +637,11 @@ def test_forward_is_the_same_under_remat_and_grad(arch):
 
 
 def test_forward_over_a_mesh_raises():
+    """A mesh must be a ``DeviceMesh`` (the mesh paths themselves are
+    held by ``test_one_rank_mesh_step_is_the_mesh_free_step`` here and
+    by tests/test_torch_distributed.py on 8 ranks)."""
     cfg = get_config("qwen2.5-3b").reduced()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_model(cfg).forward({}, {}, mesh=object())
 
 

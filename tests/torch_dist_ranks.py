@@ -1,0 +1,361 @@
+"""The port's side of ``tests/test_torch_distributed.py``: jobs run on
+gloo ranks on the CPU, one process a rank, which write what they
+computed (rank 0, as numpy arrays) for the test to hold against the
+reference's run.
+
+    python tests/torch_dist_ranks.py port8 <dir>   # spawns 8 ranks
+    python tests/torch_dist_ranks.py port4 <dir>   # spawns 4 ranks
+    python -m torch.distributed.run --standalone --nproc-per-node 8 \\
+        tests/torch_dist_ranks.py train <dir> <launch.train flags...>
+
+``<dir>`` holds ``inputs.npz`` (the reference's parameters and the
+inputs, written by the test) and receives ``<job>.npz``. The ranks meet
+through a ``file://`` store in ``<dir>`` (the ``train`` job through the
+launcher's own rendezvous). Imports no JAX: this module is a helper of
+the test, which pytest does not collect.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+if SRC not in sys.path:
+    sys.path.insert(0, SRC)
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch.mesh import (init_process_group,  # noqa: E402
+                                     make_host_mesh)
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.param import ShardingRules, tree_leaves  # noqa: E402
+from repro_torch.models.sharding_ctx import mesh_shape_dict  # noqa: E402
+from repro_torch.optim.optimizer import OptimizerConfig  # noqa: E402
+from repro_torch.runtime import HostFailure, Supervisor  # noqa: E402
+from repro_torch.runtime.pipeline import bubble_fraction, pipeline  # noqa: E402
+from repro_torch.train import compression  # noqa: E402
+from repro_torch.train import step as tstep  # noqa: E402
+
+# (name, arch, MoE overrides): the two expert-parallel branches on (2,4)
+MOE_CASES = (
+    ("ep", "granite-moe-3b-a800m", {"capacity_factor": 32.0}),
+    ("ep2d", "qwen3-moe-235b-a22b", {"capacity_factor": 32.0, "pad_to": 8}),
+)
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 5}
+PIPE = {"n_stages": 4, "n_micro": 6, "mb": 2, "d": 8}
+
+
+@contextlib.contextmanager
+def one_rank_mesh(device="cpu"):
+    """A (1,1) mesh over a one-rank group this process starts (and ends
+    on leaving), gloo on the CPU, NCCL on the card."""
+    started = init_process_group(device)
+    try:
+        yield make_host_mesh(1, 1, device=device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def moe_config(arch, overrides):
+    cfg = get_config(arch).reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           **overrides))
+
+
+def flat(tree, prefix=""):
+    """{"a/b": leaf} of a nested dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat(tree[k], f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): tree}
+
+
+def unflat(items, prefix):
+    """The nested dict under ``prefix/`` of a flat dict."""
+    root = {}
+    for key, val in items.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        parts = key[len(prefix) + 1:].split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return root
+
+
+def whole(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _np(x):
+    x = whole(x).detach()
+    return x.float().numpy() if x.dtype == torch.bfloat16 else x.numpy()
+
+
+def _rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _own_storage(x) -> bool:
+    """A DTensor's shard (or a plain tensor) holds a storage of its own
+    size, not a view that keeps a whole tensor alive."""
+    local = x.to_local() if hasattr(x, "to_local") else x
+    return local.untyped_storage().nbytes() == \
+        local.numel() * local.element_size()
+
+
+def _ce_only(model, mesh):
+    """The train loss without its aux term (the EP paths' aux averages
+    per-shard statistics by design, as the reference's does)."""
+    def loss_fn(params, batch):
+        logits, _ = model.forward(params, batch, mesh=mesh, remat=False)
+        ce, _ = tstep.cross_entropy(logits, batch["labels"])
+        return ce, {"ce": ce}
+    return loss_fn
+
+
+# -- jobs ----------------------------------------------------------------------
+
+
+def job_port8(rank, workdir, inp):
+    """The (2,4) mesh paths against the mesh-free port on the same
+    weights: MoE expert parallelism, the sharded train step, a sharded
+    save, prefill and decode over the mesh; the pipeline on (4,2)
+    ("pod","data"); compressed_psum over 8 ranks."""
+    out = {}
+    mesh = make_host_mesh(2, 4, device="cpu")
+    for name, arch, kw in MOE_CASES:
+        cfg = moe_config(arch, kw)
+        model = build_model(cfg)
+        params = convert.params_from_numpy(unflat(inp, f"{name}_params"),
+                                           "cpu")
+        toks = torch.from_numpy(inp[f"{name}_tokens"])
+        got, _ = model.forward(params, {"tokens": toks}, mesh=mesh)
+        free, _ = model.forward(params, {"tokens": toks})
+        sharded = convert.sharded_from_numpy(
+            unflat(inp, f"{name}_params"), mesh,
+            model.param_specs(ShardingRules(),
+                              mesh_shape_dict(mesh)))
+        dt, _ = model.forward(sharded, {"tokens": toks}, mesh=mesh)
+        out[f"{name}_logits"] = _np(got)
+        out[f"{name}_free_logits"] = _np(free)
+        out[f"{name}_dtensor_same"] = np.array(torch.equal(dt, got))
+        batch = {"tokens": toks, "labels": toks}
+        (l_mesh, _), g_mesh = tstep.value_and_grad(
+            _ce_only(model, mesh), sharded, batch, mesh)
+        (l_free, _), g_free = tstep.value_and_grad(
+            _ce_only(model, None), params, batch)
+        out[f"{name}_ce"] = np.array([float(l_mesh), float(l_free)])
+        out[f"{name}_grad_rel"] = np.array(
+            [_rel(whole(a), b) for a, b in zip(tree_leaves(g_mesh),
+                                                tree_leaves(g_free))])
+        out[f"{name}_grad_placed"] = np.array(all(
+            hasattr(g, "placements") and g.placements == p.placements
+            for g, p in zip(tree_leaves(g_mesh), tree_leaves(sharded))))
+        if name == "ep":    # serving over the mesh: prefill, 2 decodes
+            pf, caches = model.prefill(sharded, {"tokens": toks}, skv=20,
+                                       mesh=mesh)
+            pf0, caches0 = model.prefill(params, {"tokens": toks}, skv=20)
+            steps, steps0 = [pf], [pf0]
+            for i in range(2):
+                nxt = {"tokens": toks[:, i:i + 1],
+                       "pos": torch.full((toks.shape[0],), 16 + i,
+                                         dtype=torch.int32)}
+                lg, caches = model.decode_step(sharded, caches, nxt,
+                                               mesh=mesh)
+                lg0, caches0 = model.decode_step(params, caches0, nxt)
+                steps.append(lg)
+                steps0.append(lg0)
+            out["serve_logits"] = np.stack([_np(s) for s in steps])
+            out["serve_free_logits"] = np.stack([_np(s) for s in steps0])
+            out["serve_caches_same"] = np.array(all(
+                torch.equal(whole(a), b) for a, b in zip(
+                    tree_leaves(caches), tree_leaves(caches0))))
+
+    # the sharded train step against the mesh-free step
+    cfg = get_config(TRAIN_ARCH).reduced()
+    model = build_model(cfg)
+    placed = tstep.init_state(model, 0, device="cpu", mesh=mesh)
+    drawn = tstep.init_state(model, 0, device="cpu")
+    out["init_same"] = np.array(all(
+        torch.equal(whole(a), b) for a, b in zip(tree_leaves(placed),
+                                                 tree_leaves(drawn))))
+    out["init_own_storage"] = np.array(all(
+        _own_storage(v) for v in tree_leaves(placed)))
+    del placed, drawn
+    np_state = unflat(inp, "train_state")
+    specs = tstep.state_specs(model, mesh)
+    batch = {k: torch.from_numpy(inp[f"train_{k}"])
+             for k in ("tokens", "labels")}
+    opt_cfg = OptimizerConfig(**TRAIN_OPT)
+    state = convert.sharded_from_numpy(np_state, mesh, specs)
+    new, m = tstep.make_train_step(model, opt_cfg, mesh=mesh,
+                                   remat=True)(state, batch)
+    plain = convert.state_from_numpy(np_state, "cpu")
+    new0, m0 = tstep.make_train_step(model, opt_cfg, remat=True)(plain,
+                                                                 batch)
+    for k in ("loss", "grad_norm"):
+        out[f"train_{k}"] = np.array([float(m[k]), float(m0[k])])
+    out.update({f"train_new/{k}": _np(v)
+                for k, v in flat(new["params"]).items()})
+    out.update({f"train_new0/{k}": _np(v)
+                for k, v in flat(new0["params"]).items()})
+    out["train_step"] = np.array(int(whole(new["opt"]["step"])))
+    out["train_sharded"] = np.array(all(
+        hasattr(v, "placements") for v in tree_leaves(new["params"])))
+    loss_fn = tstep.make_loss_fn(model, remat=True)
+    (_, _), g = tstep.value_and_grad(
+        tstep.make_loss_fn(model, mesh=mesh, remat=True),
+        convert.sharded_from_numpy(np_state["params"], mesh,
+                                   specs["params"]), batch, mesh)
+    (_, _), g0 = tstep.value_and_grad(   # (the step updated ``plain``)
+        loss_fn, convert.params_from_numpy(np_state["params"], "cpu"), batch)
+    out["train_grad_rel"] = np.array(
+        [_rel(whole(a), b) for a, b in zip(tree_leaves(g),
+                                            tree_leaves(g0))])
+    out.update({f"train_grad/{k}": _np(v) for k, v in flat(g).items()})
+    out.update({f"train_grad0/{k}": _np(v) for k, v in flat(g0).items()})
+
+    # the supervisor over sharded state: a failure on rank 3 alone, before
+    # step 2, is agreed by every rank, which all restore step 2 together
+    failed = []
+
+    def injector(step):
+        if rank == 3 and step == 2 and not failed:
+            failed.append(step)
+            raise HostFailure()
+
+    sup = Supervisor(Checkpointer(os.path.join(workdir, "sup_ckpt")),
+                     checkpoint_every=1, device="cpu", mesh=mesh,
+                     spec_tree=specs)
+    state, hist = sup.run(convert.sharded_from_numpy(np_state, mesh, specs),
+                          lambda s: batch, tstep.make_train_step(
+                              model, opt_cfg, mesh=mesh), 0, 4,
+                          failure_injector=injector)
+    mine = [(h["step"], "restart" in h) for h in hist]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out["sup_history"] = np.array(mine)
+    out["sup_agree"] = np.array(all(h == mine for h in every))
+    out["sup_sharded"] = np.array(all(
+        hasattr(v, "placements") for v in tree_leaves(state["params"])))
+
+    # a sharded save, to be restored on (1,4)
+    Checkpointer(os.path.join(workdir, "port_ckpt")).save(
+        3, {"params": convert.sharded_from_numpy(
+            np_state["params"], mesh, specs["params"])}, blocking=True)
+
+    # the pipeline: 4 stages over "pod", 6 microbatches
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh42 = init_device_mesh("cpu", (PIPE["n_stages"], 2),
+                              mesh_dim_names=("pod", "data"))
+    pw = torch.from_numpy(inp["pipe_w"]).requires_grad_()
+    pb = torch.from_numpy(inp["pipe_b"]).requires_grad_()
+    x = torch.from_numpy(inp["pipe_x"])
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    got = pipeline(stage, {"w": pw, "b": pb}, x, mesh42, axis="pod")
+    gw, gb = torch.autograd.grad((got ** 2).sum(), [pw, pb])
+    # each stage holds its own slice's gradient: sum them over the stages
+    for gr in (gw, gb):
+        dist.all_reduce(gr, group=mesh42.get_group("pod"))
+    out["pipe_out"] = got.detach().numpy()
+    out["pipe_gw"], out["pipe_gb"] = gw.numpy(), gb.numpy()
+    out["pipe_bubble"] = np.array(bubble_fraction(6, 4))
+
+    # compressed_psum: EF-int8 draws of each rank, reduced over the
+    # "data" axis of an (8,1) mesh (every rank) and of the (2,4) mesh
+    world = dist.get_world_size()
+    g = torch.from_numpy(np.random.default_rng(100 + rank).standard_normal(
+        (3, 5)).astype(np.float32))
+    q, s, _ = compression.ef_quantize(g, torch.zeros_like(g))
+    out["psum_all"] = compression.compressed_psum(
+        {"g": q}, {"g": s}, "data", world,
+        mesh=make_host_mesh(world, 1, device="cpu"))["g"].numpy()
+    out["psum_data"] = compression.compressed_psum(
+        {"g": q}, {"g": s}, "data", 2, mesh=mesh)["g"].numpy()
+    return out
+
+
+def job_port4(rank, workdir, inp):
+    """The elastic restore: the port's (2,4) checkpoint and the
+    reference's, restored onto a (1,4) mesh."""
+    out = {}
+    mesh = make_host_mesh(1, 4, device="cpu")
+    model = build_model(get_config(TRAIN_ARCH).reduced())
+    specs = {"params": model.param_specs(ShardingRules(),
+                                         mesh_shape_dict(mesh))}
+    want = flat(unflat(inp, "train_state")["params"])
+    for name in ("port_ckpt", "ref_ckpt"):
+        step, tree = Checkpointer(os.path.join(workdir, name)).restore(
+            mesh=mesh, spec_tree=specs)
+        got = flat(tree["params"])
+        out[f"{name}_step"] = np.array(step)
+        out[f"{name}_same"] = np.array(
+            sorted(got) == sorted(want) and all(
+                np.array_equal(_np(got[k]), want[k]) for k in want))
+        out[f"{name}_sharded"] = np.array(
+            [str(v.placements) for v in got.values()])
+        out[f"{name}_own_storage"] = np.array(all(
+            _own_storage(v) for v in got.values()))
+    return out
+
+
+def job_train(rank, workdir, argv):
+    """``launch.train.main`` under the launcher; rank 0 writes the
+    losses."""
+    from repro_torch.launch import train as launch_train
+    start, _, hist = launch_train.main(argv)
+    if rank == 0:
+        with open(os.path.join(workdir, "train.json"), "w") as fh:
+            json.dump({"start": start, "losses": [h["loss"] for h in hist
+                                                  if "loss" in h]}, fh)
+
+
+JOBS = {"port8": (8, job_port8), "port4": (4, job_port4)}
+
+
+def _rank(rank, world, job, workdir):
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, job + '.store')}",
+        rank=rank, world_size=world)
+    try:
+        inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+        out = JOBS[job][1](rank, workdir, inp)
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"{job}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv):
+    job, workdir = argv[0], argv[1]
+    if job == "train":
+        torch.set_num_threads(1)
+        job_train(int(os.environ.get("RANK", 0)), workdir, argv[2:])
+        return
+    import torch.multiprocessing as mp
+    mp.spawn(_rank, args=(JOBS[job][0], job, workdir),
+             nprocs=JOBS[job][0])
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
