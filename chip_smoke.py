@@ -140,18 +140,33 @@ without printing the result line):
    arithmetic), and the memory that ``init_state(mesh=)``, a sharded
    ``save`` and ``restore(mesh=, spec_tree=)`` hold above the state,
    each at most two whole leaves (a leaf is drawn, gathered or read
-   whole one at a time), the restore bit for bit; (b) qwen2.5-3b as configured, 3 steps of the sharded
-   trainer on phase 10(b)'s batches (two ``bitweaving_scan`` launches),
-   its step ms, tokens/s, peak memory and one profiled step beside
-   10(b)'s; (c) ``launch.train --reduced --device cuda`` inside the
-   phase's group, 30 steps then ``--resume`` to 40 through
+   whole one at a time), the restore bit for bit; (b) qwen2.5-3b as
+   configured, 3 steps of the sharded trainer on phase 10(b)'s batches
+   (two ``bitweaving_scan`` launches), its step ms, tokens/s, peak
+   memory and one profiled step beside 10(b)'s, then one more step
+   under ``FlopCounterMode`` (for 12(b)); (c) ``launch.train --reduced
+   --device cuda`` inside the phase's group, 30 steps then ``--resume`` to 40 through
    ``restore(mesh=, spec_tree=)``, two scan launches a run, each final
    checkpoint equal to the live (DTensor) state; (d) ``compressed_psum``
    over the group equal to ``q*s/1``, ``pipeline`` with one stage against
    the sequential application (1e-5) with a finite nonzero gradient, a
    checkpoint saved without a mesh restored onto the mesh bit for bit;
    the phase's launch counts are read for this phase alone;
-12. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
+12. the dry-run (``launch.dryrun``) on the card machine, each run in a
+   process of its own over a fake process group, its fake tensors on
+   the card: (a) qwen2.5-3b ``train_4k`` and qwen3-moe-235b-a22b
+   ``decode_32k`` (2-D expert parallelism) on (16,16), mamba2-780m
+   ``long_500k`` (batch 1) on (2,16,16), through the CLI: each prints its
+   OK line, every figure is finite, FLOPs, traffic and collective bytes
+   a rank are positive, the argument bytes equal the spec trees' shards
+   exactly, and each cell's trace time, roofline terms, dominant term and
+   peak against the card's memory are printed; (b) phase 11(b)'s step
+   traced on a (1,1) fake mesh: its FLOPs equal ``FlopCounterMode`` over
+   11(b)'s extra step, its peak above the arguments within 5% of that
+   step's peak above the bytes live before it, its kernel-launching ops
+   and roofline bound printed beside the profiled step's kernels and
+   device ms. It launches no hand-written kernel;
+13. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
    ``{"kernels": [...]}`` JSON line, then the result line.
 
 Each path must launch its own kernels: the four serving kernels on
@@ -3081,7 +3096,8 @@ def train_parity(torch, card, arch, n_layers, seq, batch=2, held=True):
     return out
 
 
-def train_full(torch, card, scan, arch, steps, batch, seq, mesh=None):
+def train_full(torch, card, scan, arch, steps, batch, seq, mesh=None,
+               counted=False):
     """(b) ``arch`` as configured (qwen2.5-3b: 36 layers, 3.40 B float32
     parameters) trained by ``make_train_step`` for ``steps`` steps on
     ``FilteredSyntheticLM``'s batches (its filter: two scan launches):
@@ -3095,7 +3111,10 @@ def train_full(torch, card, scan, arch, steps, batch, seq, mesh=None):
     clip scales the step to nothing), as the reference's own grows with
     depth (``tests/test_torch_train.py``), and the loss stays within its
     batch-to-batch spread (PERF.md). ``launch.train``'s reduced run
-    (phase 10(c)) holds that criterion."""
+    (phase 10(c)) holds that criterion. With ``counted`` (11(b), for
+    phase 12(b)) one more, untimed step runs under ``FlopCounterMode``
+    with the peak memory reset before it: its FLOPs and the most it
+    held above what was live before it are returned."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, FilteredSyntheticLM
     from repro_torch.models import build_model
@@ -3146,6 +3165,8 @@ def train_full(torch, card, scan, arch, steps, batch, seq, mesh=None):
     warm = ms[1:]
     median = statistics.median(warm)
     prof = _cuda_events(torch, lambda: step(state, batch_at(steps)))
+    extra = _counted_step(torch, step, state, batch_at(steps)) \
+        if counted else None
     out = {"arch": arch, "n_layers": cfg.n_layers, "mesh": mesh is not None,
            "params": model.n_params(), "batch": batch, "seq": seq,
            "steps": steps, "init_s": init_s, "losses": losses,
@@ -3158,7 +3179,7 @@ def train_full(torch, card, scan, arch, steps, batch, seq, mesh=None):
            "tokens_per_s": batch * seq / (median / 1e3),
            "max_memory_allocated": peak,
            "state_bytes": 4 * 4 * model.n_params(),
-           "profile": prof,
+           "profile": prof, "counted": extra,
            "idle_share": 1 - prof.get("device_ms", 0.0) / median}
     log(f"train {arch}{' sharded on the (1,1) mesh' if mesh else ''} "
         f"{cfg.n_layers} layers ({model.n_params()} float32 "
@@ -3177,6 +3198,21 @@ def train_full(torch, card, scan, arch, steps, batch, seq, mesh=None):
         f"share {out['idle_share']:.3f} of the median step on {card} "
         f"(measured on the card)")
     return out
+
+
+def _counted_step(torch, step, state, batch) -> dict:
+    """One step under ``FlopCounterMode``: its FLOPs, the bytes live
+    before it and the most it allocated above them (the peak statistics
+    reset just before it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as flops:
+        step(state, batch)
+    torch.cuda.synchronize()
+    return {"flops": flops.get_total_flops(), "live_before": before,
+            "peak_above": torch.cuda.max_memory_allocated() - before}
 
 
 def train_entry(torch, card, scan, steps=30, more=10):
@@ -3571,7 +3607,7 @@ def mesh_phase(torch, card, wrappers, unsharded):
                 f"{dist.get_world_size()}")
             report["parity"] = mesh_parity(torch, card, mesh)
             torch.cuda.empty_cache()
-            full = train_full(torch, card, scan, mesh=mesh,
+            full = train_full(torch, card, scan, mesh=mesh, counted=True,
                               **dict(TRAIN_FULL, steps=MESH_STEPS))
             report["full"] = full
             torch.cuda.empty_cache()
@@ -3595,6 +3631,230 @@ def mesh_phase(torch, card, wrappers, unsharded):
             report["pieces"] = mesh_pieces(torch, card, mesh)
         finally:
             dist.destroy_process_group()
+    return report
+
+
+# -- phase 12 -----------------------------------------------------------------
+
+# 12(a): production cells through the dry-run's CLI (arch, shape, multi-pod)
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", False),
+                ("qwen3-moe-235b-a22b", "decode_32k", False),
+                ("mamba2-780m", "long_500k", True))
+# 12(b): phase 11(b)'s step, traced as one rank of a (1,1) fake mesh
+DRYRUN_CARD = """
+import json, sys
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+arch, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+with dryrun.fake_process_group(1):
+    r = dryrun.analyse_cell(get_config(arch), ShapeConfig(
+        "train_card", seq, batch, "train"), make_host_mesh(1, 1))
+print(json.dumps(r))
+"""
+DRYRUN_PEAK_BOUND = 0.05    # 12(b): the traced peak against the card's
+
+
+def _shard_bytes(defs, specs, ms, dtype=None) -> int:
+    """This rank's bytes of every leaf of a ParamDef tree under its spec
+    tree: each dimension divided by the mesh axes its spec names."""
+    from repro_torch.models.param import tree_leaves
+    total = 0
+    for d, spec in zip(tree_leaves(defs), tree_leaves(specs)):
+        n = 1
+        for size in d.shape:
+            n *= size
+        total += n // _split(spec, ms) * (dtype or d.dtype).itemsize
+    return total
+
+
+def _cell_argument_bytes(torch, arch, shape_name, multi_pod) -> int:
+    """A production cell's argument bytes on one rank from its spec trees
+    alone, as the reference builds the cell: parameters (bf16 to serve),
+    AdamW's moments and its int32 step to train, caches to decode (the
+    experts padded to data*model for 2-D expert parallelism), and the
+    batch."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PRODUCTION_MESHES
+    from repro_torch.models import build_model
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    ms = dict(zip(*reversed(PRODUCTION_MESHES[multi_pod])))
+    ep2d = shape.kind == "decode" and cfg.moe is not None and \
+        cfg.moe.n_experts >= 64
+    if ep2d:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, pad_to=ms["data"] * ms["model"]))
+    model = build_model(cfg)
+    rules = dryrun.sharding_rules_for(shape_name, shape.global_batch, ms,
+                                      ep2d=ep2d)
+    defs, specs = model.param_defs(), model.param_specs(rules, ms)
+    batch = dryrun.input_specs(arch, shape_name)
+    total = sum(v.numel() * v.element_size() // _split(spec, ms)
+                for v, spec in ((batch[k], s) for k, s in dryrun.batch_spec(
+                    batch, rules, ms).items()))
+    if shape.kind == "train":
+        return total + 3 * _shard_bytes(defs, specs, ms) + 4
+    total += _shard_bytes(defs, specs, ms, torch.bfloat16)
+    if shape.kind == "decode":
+        b, s = shape.global_batch, shape.seq_len
+        total += _shard_bytes(model.cache_defs(b, s),
+                              model.cache_specs(b, s, rules, ms), ms)
+    return total
+
+
+def _split(spec, ms) -> int:
+    """The number of shards a spec cuts a tensor into on mesh ``ms``."""
+    n = 1
+    for part in spec:
+        for axis in (() if part is None else (part,) if isinstance(part, str)
+                     else part):
+            n *= ms[axis]
+    return n
+
+
+def _finite_figures(r) -> list:
+    """Every FLOP, byte and collective-byte figure of a dry-run result."""
+    figs = [r[k] for k in ("hlo_flops", "hlo_bytes", "flops_per_chip",
+                           "bytes_per_chip", "collective_bytes",
+                           "model_flops")]
+    figs += list(r["collective_kinds"].values())
+    figs += list(r["memory_analysis"].values()) + list(r["roofline"].values())
+    return figs
+
+
+def dryrun_phase(torch, card, meshed):
+    """Phase 12: the dry-run on the card machine, each run in a process
+    of its own (its fake process group cannot share this process with a
+    real one), all started together: (a) the ``DRYRUN_CELLS`` through
+    ``python -m repro_torch.launch.dryrun`` at its default device (the
+    card): each prints its OK line, every figure is finite, the FLOPs,
+    traffic and collective bytes are positive (a 256- or 512-rank mesh
+    gathers its weights), and the argument bytes equal the spec trees'
+    shard bytes exactly; (b) ``analyse_cell`` on phase 11(b)'s step (the
+    configured qwen2.5-3b, batch x seq as ``TRAIN_FULL``, ``remat=
+    "save_attn"``, a (1,1) mesh over a one-rank fake group) held against
+    what 11(b)'s extra step measured in this run: FLOPs equal, the peak
+    above the live bytes within ``DRYRUN_PEAK_BOUND``; its kernel-launching
+    op count beside the profiled step's kernels and its roofline bound
+    beside the step's device ms, printed."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    total = torch.cuda.get_device_properties(0).total_memory
+    report = {}
+    with tempfile.TemporaryDirectory() as out:
+        procs = {}
+        for arch, shape_name, multi in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape_name, "--out", out]
+            procs[(arch, shape_name, multi)] = subprocess.Popen(
+                cmd + (["--multi-pod"] if multi else []), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        full = TRAIN_FULL
+        procs["card"] = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CARD, full["arch"],
+             str(full["batch"]), str(full["seq"])], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        done = {}
+        try:
+            for key, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    fail(f"dry-run {key} exited {proc.returncode}: "
+                         f"{stdout[-1500:]} {stderr[-3000:]}")
+                done[key] = stdout
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for arch, shape_name, multi in DRYRUN_CELLS:
+            stdout = done[(arch, shape_name, multi)]
+            if not stdout.startswith(f"OK  {arch}"):
+                fail(f"dry-run {arch} {shape_name}: no OK line: "
+                     f"{stdout[-1500:]}")
+            mesh = "multi_pod_2x16x16" if multi else "single_pod_16x16"
+            with open(os.path.join(out, f"{arch}__{shape_name}__{mesh}"
+                                        f".json")) as fh:
+                r = json.load(fh)
+            figs = _finite_figures(r)
+            if not all(np.isfinite(figs)):
+                fail(f"dry-run {arch} {shape_name}: a figure is not "
+                     f"finite: {r}")
+            moved = [r[k] for k in ("flops_per_chip", "bytes_per_chip",
+                                    "collective_bytes")]
+            if not all(v > 0 for v in moved):
+                fail(f"dry-run {arch} {shape_name} on {mesh}: flops, bytes "
+                     f"and collective bytes a rank {moved} must be positive")
+            want = _cell_argument_bytes(torch, arch, shape_name, multi)
+            got = r["memory_analysis"]["argument_size_bytes"]
+            if got != want:
+                fail(f"dry-run {arch} {shape_name}: argument bytes {got} "
+                     f"!= {want} from the spec trees")
+            peak = r["memory_analysis"]["peak_bytes"]
+            report[f"{arch}|{shape_name}|{mesh}"] = {
+                k: r[k] for k in ("trace_s", "flops_per_chip",
+                                  "bytes_per_chip", "collective_bytes",
+                                  "collective_kinds", "collective_counts",
+                                  "kernel_ops", "memory_analysis",
+                                  "roofline", "dominant",
+                                  "roofline_fraction",
+                                  "useful_flops_ratio")}
+            log(f"12(a) {arch} {shape_name} on {mesh} ({r['n_chips']} fake "
+                f"ranks, fake tensors on {r['device']}): trace "
+                f"{r['trace_s']:.1f} s; a rank: {r['flops_per_chip']:.4e} "
+                f"FLOPs, {r['bytes_per_chip']:.4e} B eager traffic, "
+                f"{r['collective_bytes']:.4e} B collectives "
+                f"{r['collective_counts']}; terms compute "
+                f"{r['roofline']['compute_s']:.4e} s, memory "
+                f"{r['roofline']['memory_s']:.4e} s, collective "
+                f"{r['roofline']['collective_s']:.4e} s, dominant "
+                f"{r['dominant']}, roofline fraction "
+                f"{r['roofline_fraction']:.4e}; argument bytes {got} = the "
+                f"spec trees' shards; peak {peak} B = "
+                f"{peak / total:.3f} of the card's {total} B "
+                f"({'fits' if peak <= total else 'does not fit'}) on {card}")
+    card_run = json.loads(done["card"].strip().splitlines()[-1])
+    counted = meshed["full"]["counted"]
+    prof = meshed["full"]["profile"]
+    traced = card_run["memory_analysis"]
+    traced_peak = traced["peak_bytes"] - traced["argument_size_bytes"]
+    gap = counted["peak_above"] - traced_peak
+    bound_ms = max(card_run["roofline"].values()) * 1e3
+    report["card"] = {
+        "flops": card_run["flops_per_chip"], "real_flops": counted["flops"],
+        "traced_peak_above_args": traced_peak,
+        "real_peak_above_live": counted["peak_above"], "gap_bytes": gap,
+        "argument_size_bytes": traced["argument_size_bytes"],
+        "real_live_before": counted["live_before"],
+        "kernel_ops": card_run["kernel_ops"],
+        "profiled_kernels": prof.get("kernels", 0),
+        "roofline": card_run["roofline"], "bound_ms": bound_ms,
+        "device_ms": prof.get("device_ms", 0.0),
+        "step_ms_median": meshed["full"]["step_ms_median"],
+        "trace_s": card_run["trace_s"]}
+    log(f"12(b) {full['arch']} batch {full['batch']} x seq {full['seq']} "
+        f"on a (1,1) fake mesh against 11(b)'s extra step on {card}: "
+        f"FLOPs {card_run['flops_per_chip']:.0f} traced vs "
+        f"{counted['flops']} counted; peak above the arguments "
+        f"{traced_peak} B traced vs {counted['peak_above']} B above the "
+        f"live {counted['live_before']} B on the card (gap {gap} B, "
+        f"{gap / counted['peak_above']:+.4f}); traced arguments "
+        f"{traced['argument_size_bytes']} B; kernel-launching ops "
+        f"{card_run['kernel_ops']} traced vs {prof.get('kernels', 0)} CUDA "
+        f"kernels profiled; roofline bound {bound_ms:.3f} ms "
+        f"({card_run['dominant']}) vs {prof.get('device_ms', 0.0):.3f} "
+        f"device ms profiled, {meshed['full']['step_ms_median']:.3f} ms "
+        f"median step; trace {card_run['trace_s']:.1f} s")
+    if card_run["flops_per_chip"] != counted["flops"]:
+        fail(f"12(b): traced FLOPs {card_run['flops_per_chip']} != the "
+             f"card step's {counted['flops']}")
+    if abs(gap) > DRYRUN_PEAK_BOUND * counted["peak_above"]:
+        fail(f"12(b): the card step's peak above its live bytes "
+             f"{counted['peak_above']} B is {gap} B from the traced "
+             f"{traced_peak} B, past {DRYRUN_PEAK_BOUND:.0%}")
     return report
 
 
@@ -3693,6 +3953,15 @@ def main() -> int:
                                              training["full"]))
     log(f"mesh phase_s={time.perf_counter() - t_phase:.1f} "
         f"report={json.dumps(meshed)} card: {card}")
+
+    torch.cuda.empty_cache()
+
+    log("== phase 12: the dry-run on the card machine (fake process "
+        "groups, fake tensors on the card)")
+    t_phase = time.perf_counter()
+    dry = dryrun_phase(torch, card, meshed)
+    log(f"dryrun phase_s={time.perf_counter() - t_phase:.1f} "
+        f"report={json.dumps(dry)} card: {card}")
 
     kernels = []
     for name, _, source, replaces in KERNELS:

@@ -102,8 +102,15 @@ def mesh_shape_dict(mesh) -> Dict[str, int]:
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:
-    """The mesh axes the batch splits over (``"pod"``, ``"data"``)."""
-    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    """The mesh axes the batch splits over: those of the ambient rules'
+    ``"batch"`` axis that the mesh has (``("pod", "data")`` outside a
+    context, as the default rules map it). Rules that map the batch to
+    no axis (the dry-run's batch-1 cells) leave every rank the whole
+    batch."""
+    ctx = _CTX.get()
+    axes = ("pod", "data") if ctx is None else \
+        ctx[0].lookup().get("batch", ())
+    return tuple(a for a in axes if a in mesh.mesh_dim_names)
 
 
 def _names(axes: Axes) -> Tuple[str, ...]:
@@ -296,6 +303,14 @@ def gathered(x):
 
 def gathered_tree(tree):
     return map_tree(gathered, tree)
+
+
+def whole(x):
+    """A DTensor gathered whole as a plain tensor (``gather_param`` over
+    its splits); a plain tensor, or None, as it is."""
+    if isinstance(x, DTensor):
+        return gather_param(x.to_local(), x.device_mesh, list(x.placements))
+    return x
 
 
 def local_shards(tree, mesh):

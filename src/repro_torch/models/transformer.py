@@ -21,8 +21,12 @@ attention output is kept across the boundary as the reference's
 attention is recomputed whole, as under that policy).
 
 Over a mesh (``mesh=``, a ``DeviceMesh``), each rank computes its rows
-of the global batch (split over ``("pod", "data")``, the first axis
-major) on plain tensors. Each parameter leaf is a DTensor under its
+of the global batch (split over ``sharding_ctx.batch_axes``: ``("pod",
+"data")``, the first axis major, unless the ambient rules map the batch
+elsewhere) on plain tensors. A batch entry or a cache is the whole
+batch's plain tensor, held alike by every rank, or a DTensor (as the
+dry-run's in-shardings give them): a split over other axes is gathered
+whole at each use. Each parameter leaf is a DTensor under its
 ``spec_for`` placements, or a plain tensor every rank holds alike; a
 layer gathers the whole of each leaf it uses inside its own body (so
 ``remat`` recomputes the gathers and no gathered weight outlives its
@@ -54,8 +58,8 @@ from .layers import (COMPUTE_DTYPE, cast, embed, embed_defs, mlp, mlp_defs,
                      sinusoidal_positions, unembed)
 from .param import ParamDef, map_tree
 from .sharding_ctx import (LocalShard, all_gather, axis_index, batch_axes,
-                           gathered, gathered_tree, hint, local_shards,
-                           mesh_axis_size)
+                           gather_param, gathered, gathered_tree, hint,
+                           local_shards, mesh_axis_size)
 
 Tree = Dict[str, Any]
 
@@ -272,8 +276,19 @@ _BATCH_DIM = {"mrope_positions": 1}
 
 def _local_rows(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     """This rank's rows of ``x`` along ``dim`` (the batch split over the
-    batch axes, the first axis major)."""
+    batch axes, the first axis major), as a plain tensor. A plain ``x``
+    is the whole batch, held alike by every rank. A DTensor is gathered
+    whole along every split but the batch axes' split of ``dim`` (a
+    decode cache split over its sequence is gathered whole at each use);
+    where it does not split ``dim`` over exactly the batch axes, its
+    rows are then cut as a plain tensor's are."""
     axes = batch_axes(mesh)
+    if isinstance(x, DTensor):
+        names, pl = list(mesh.mesh_dim_names), list(x.placements)
+        split = tuple(a for a, p in zip(names, pl) if p == Shard(dim))
+        if split == axes:
+            return gather_param(x.to_local(), mesh, pl, keep=axes)
+        x = gather_param(x.to_local(), mesh, pl)
     if not axes:
         return x
     n = mesh_axis_size(mesh, axes)
@@ -308,10 +323,9 @@ def _cache_shards(caches, mesh):
 
 
 def _local_caches(caches, mesh):
-    """A rank's rows of the caches: a DTensor's shard, or a plain
-    tensor's rows."""
-    return map_tree(lambda c: c.to_local() if isinstance(c, DTensor)
-                    else _local_rows(c, mesh, 1), caches)
+    """A rank's rows of the caches (batch at dim 1), DTensors or the
+    whole batch's plain tensors (``_local_rows``)."""
+    return map_tree(lambda c: _local_rows(c, mesh, 1), caches)
 
 
 def _remat(fn, remat):

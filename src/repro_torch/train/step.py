@@ -11,7 +11,9 @@ Over a mesh (``mesh=``, a ``DeviceMesh``) the state's leaves are
 DTensors under ``spec_for``'s placements (``init_state(mesh=)``,
 ``Checkpointer.restore(mesh=, spec_tree=)``), so each rank holds its
 share of the parameters and moments. Every rank takes the same global
-batch and computes its rows of it (``Model.forward(mesh=)``), every rank
+batch (whole, or as DTensors split over the batch axes, whose labels the
+loss gathers whole) and computes its rows of it
+(``Model.forward(mesh=)``), every rank
 holds the same loss, and each backpropagates the loss divided by the
 mesh's size: the parameter gathers' backward sums the ranks' gradients,
 so each shard receives its part of the gradient of the loss. AdamW then
@@ -29,7 +31,8 @@ from ..core.bitvector import resolve_device
 from ..models.model import Model
 from ..models.param import (ShardingRules, PartitionSpec, init_leaf,
                             tree_leaves, tree_unflatten)
-from ..models.sharding_ctx import distribute_leaf, mesh_shape_dict, spec_map
+from ..models.sharding_ctx import (distribute_leaf, mesh_shape_dict,
+                                   spec_map, whole)
 from ..optim import optimizer as opt
 
 AUX_LOSS_WEIGHT = 0.01
@@ -56,8 +59,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def make_loss_fn(model: Model, mesh=None, remat="save_attn"):
     def loss_fn(params, batch):
         logits, aux = model.forward(params, batch, mesh=mesh, remat=remat)
-        ce, zl = cross_entropy(logits, batch["labels"],
-                               batch.get("loss_mask"))
+        ce, zl = cross_entropy(logits, whole(batch["labels"]),
+                               whole(batch.get("loss_mask")))
         loss = ce + AUX_LOSS_WEIGHT * aux + Z_LOSS_WEIGHT * zl
         metrics = {"loss": loss, "ce": ce, "aux": aux, "ppl_log": ce}
         return loss, metrics

@@ -69,7 +69,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.train.compression, repro_torch.checkpoint, "
             "repro_torch.runtime, repro_torch.launch.train, "
             "repro_torch.launch.hloparse, repro_torch.launch.mesh, "
-            "repro_torch.models.sharding_ctx, repro_torch.runtime.pipeline; "
+            "repro_torch.models.sharding_ctx, repro_torch.runtime.pipeline, "
+            "repro_torch.launch.dryrun; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -260,6 +261,45 @@ def test_train_entry_points_default_to_the_card(entry, monkeypatch,
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
     assert make(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["analyse_cell", "build_cell",
+                                   "launch.dryrun"])
+def test_dryrun_entry_points_default_to_the_card(entry, monkeypatch,
+                                                 tmp_path):
+    """The dry-run's fake tensors lie on the card unless the caller names
+    the CPU, and its entry points raise without a card."""
+    import json
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2.5-3b").reduced()
+    shape = ShapeConfig("decode_32k", 16, 2, "decode")
+
+    def built(**kw):
+        with dryrun.fake_mode():
+            return dryrun.build_cell("qwen2.5-3b", "decode_32k", None,
+                                     **kw)[1][2]["pos"]
+
+    def launched(**kw):
+        dryrun.main(["--arch", "mamba2-780m", "--shape", "long_500k",
+                     "--out", str(tmp_path)]
+                    + (["--device", kw["device"]] if kw else []))
+        with open(tmp_path / "mamba2-780m__long_500k__single_pod_16x16"
+                  ".json") as fh:
+            return json.load(fh)["device"]
+
+    make = {
+        "analyse_cell": lambda **kw: dryrun.analyse_cell(
+            cfg, shape, None, **kw)["device"],
+        "build_cell": built,
+        "launch.dryrun": launched,
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    out = make(device="cpu")
+    assert (out.device.type if isinstance(out, torch.Tensor) else out) \
+        == "cpu"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -5,11 +5,13 @@ reference's run.
 
     python tests/torch_dist_ranks.py port8 <dir>   # spawns 8 ranks
     python tests/torch_dist_ranks.py port4 <dir>   # spawns 4 ranks
+    python tests/torch_dist_ranks.py dryrun8 <dir> # spawns 8 ranks
     python -m torch.distributed.run --standalone --nproc-per-node 8 \\
         tests/torch_dist_ranks.py train <dir> <launch.train flags...>
 
 ``<dir>`` holds ``inputs.npz`` (the reference's parameters and the
-inputs, written by the test) and receives ``<job>.npz``. The ranks meet
+inputs, written by the test; ``dryrun8`` reads none) and receives
+``<job>.npz``. The ranks meet
 through a ``file://`` store in ``<dir>`` (the ``train`` job through the
 launcher's own rendezvous). Imports no JAX: this module is a helper of
 the test, which pytest does not collect.
@@ -50,6 +52,14 @@ MOE_CASES = (
     ("ep", "granite-moe-3b-a800m", {"capacity_factor": 32.0}),
     ("ep2d", "qwen3-moe-235b-a22b", {"capacity_factor": 32.0, "pad_to": 8}),
 )
+# the dry-run's (2,4) cells, at ``.reduced()`` and batch 4 x 64: (arch,
+# shape name, kind); the name picks the reference's rules
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "train"),
+                ("qwen2.5-3b", "prefill_32k", "prefill"),
+                ("qwen2.5-3b", "decode_32k", "decode"),
+                ("gemma3-1b", "train_4k", "train"),
+                ("granite-moe-3b-a800m", "train_4k", "train"))
+DRYRUN_BATCH, DRYRUN_SEQ = 4, 64
 TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 5}
 PIPE = {"n_stages": 4, "n_micro": 6, "mb": 2, "d": 8}
@@ -318,6 +328,25 @@ def job_port4(rank, workdir, inp):
     return out
 
 
+def dryrun_cell(arch, name, kind):
+    """(reduced config, shape) of a ``DRYRUN_CELLS`` entry."""
+    from repro_torch.configs import ShapeConfig
+    return get_config(arch).reduced(), ShapeConfig(name, DRYRUN_SEQ,
+                                                   DRYRUN_BATCH, kind)
+
+
+def job_dryrun8(rank, workdir, inp):
+    """The dry-run's trace of each ``DRYRUN_CELLS`` step on real tensors
+    (zeros) over the (2,4) mesh: rank 0's FLOPs, traffic, collectives and
+    memory, as JSON."""
+    from repro_torch.launch import dryrun
+    mesh = make_host_mesh(2, 4, device="cpu")
+    out = {f"{arch}|{name}": dryrun.trace_cell(
+        *dryrun_cell(arch, name, kind), mesh, torch.device("cpu"))
+        for arch, name, kind in DRYRUN_CELLS}
+    return {"json": np.array(json.dumps(out))}
+
+
 def job_train(rank, workdir, argv):
     """``launch.train.main`` under the launcher; rank 0 writes the
     losses."""
@@ -329,7 +358,8 @@ def job_train(rank, workdir, argv):
                                                   if "loss" in h]}, fh)
 
 
-JOBS = {"port8": (8, job_port8), "port4": (4, job_port4)}
+JOBS = {"port8": (8, job_port8), "port4": (4, job_port4),
+        "dryrun8": (8, job_dryrun8)}
 
 
 def _rank(rank, world, job, workdir):
@@ -338,7 +368,8 @@ def _rank(rank, world, job, workdir):
         "gloo", init_method=f"file://{os.path.join(workdir, job + '.store')}",
         rank=rank, world_size=world)
     try:
-        inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+        path = os.path.join(workdir, "inputs.npz")
+        inp = dict(np.load(path)) if os.path.exists(path) else {}
         out = JOBS[job][1](rank, workdir, inp)
         if rank == 0:
             np.savez(os.path.join(workdir, f"{job}.npz"), **out)
