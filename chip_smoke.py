@@ -137,7 +137,8 @@ without printing the result line):
    ``init_state(mesh=)`` against the mesh-free step, and granite-moe at
    full width, 2 layers, ``Model.forward(mesh=)`` on sharded parameters
    against the mesh-free forward, both bit for bit (one rank adds no
-   arithmetic), and the memory that ``init_state(mesh=)``, a sharded
+   arithmetic) and calling no collective (each printed), and the memory
+   that ``init_state(mesh=)``, a sharded
    ``save`` and ``restore(mesh=, spec_tree=)`` hold above the state,
    each at most two whole leaves (a leaf is drawn, gathered or read
    whole one at a time), the restore bit for bit; (b) qwen2.5-3b as
@@ -160,7 +161,9 @@ without printing the result line):
    OK line, every figure is finite, FLOPs, traffic and collective bytes
    a rank are positive, the argument bytes equal the spec trees' shards
    exactly, and each cell's trace time, roofline terms, dominant term and
-   peak against the card's memory are printed; (b) phase 11(b)'s step
+   peak against the card's memory are printed, its FLOPs, collective
+   bytes and peak a rank beside those of the design before the mesh
+   paths split the work over "model" (``DRYRUN_BEFORE``); (b) phase 11(b)'s step
    traced on a (1,1) fake mesh: its FLOPs equal ``FlopCounterMode`` over
    11(b)'s extra step, its peak above the arguments within 5% of that
    step's peak above the bytes live before it, its kernel-launching ops
@@ -3315,6 +3318,38 @@ def _whole(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
+class _Collectives:
+    """Counts the collectives the mesh paths call (``all_reduce``, the
+    gathers and reduce-scatters of ``sharding_ctx``) while it is
+    entered."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        from repro_torch.models import sharding_ctx
+        self.calls = {}
+        self._sites = [(dist, "all_reduce"), (sharding_ctx, "_gather_into"),
+                       (sharding_ctx, "_scatter_into")]
+        self._saved = []
+
+    def __enter__(self):
+        for mod, name in self._sites:
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._counted(name, fn))
+        return self
+
+    def _counted(self, name, fn):
+        def call(*args, **kw):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
 def mesh_parity(torch, card, mesh, n_layers=2, batch=2, seq=128):
     """(a) qwen2.5-3b at full width, ``n_layers`` layers: one step of
     ``make_train_step(mesh=)`` from ``init_state(mesh=)`` against the
@@ -3324,7 +3359,9 @@ def mesh_parity(torch, card, mesh, n_layers=2, batch=2, seq=128):
     forward. On one rank the mesh path adds no arithmetic (its gathers
     and reductions copy or keep values), so both are held bit for bit:
     the initial state, the loss and every metric, every updated
-    parameter and moment, the logits and the aux loss. The device
+    parameter and moment, the logits and the aux loss; and the mesh step
+    and forward call no collective (``_Collectives``): over a (1,1) mesh
+    every ``"model"`` and batch axis has one rank. The device
     memory that ``init_state(mesh=)``, ``save`` of the sharded
     parameters and ``restore(mesh=, spec_tree=)`` of them hold above
     the state (their transients) is read from the allocator's peak and
@@ -3363,10 +3400,13 @@ def mesh_parity(torch, card, mesh, n_layers=2, batch=2, seq=128):
         model, opt_cfg, remat="save_attn")(free, data)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    new_mesh, m_mesh = train_step.make_train_step(
-        model, opt_cfg, mesh=mesh, remat="save_attn")(placed, data)
-    torch.cuda.synchronize()
+    with _Collectives() as coll:
+        new_mesh, m_mesh = train_step.make_train_step(
+            model, opt_cfg, mesh=mesh, remat="save_attn")(placed, data)
+        torch.cuda.synchronize()
     t2 = time.perf_counter()
+    if coll.calls:
+        fail(f"the (1,1) mesh step called collectives: {coll.calls}")
     differ = [k for (k, a), (_, b) in zip(_named_leaves(new_free),
                                           _named_leaves(new_mesh))
               if not torch.equal(a, _local(b))]
@@ -3381,14 +3421,15 @@ def mesh_parity(torch, card, mesh, n_layers=2, batch=2, seq=128):
                     "loss": metrics["loss"][0],
                     "grad_norm": metrics["grad_norm"][0],
                     "leaves": len(tree_leaves(new_free)),
-                    "step_s_free": t1 - t0, "step_s_mesh": t2 - t1}
+                    "step_s_free": t1 - t0, "step_s_mesh": t2 - t1,
+                    "collectives": coll.calls}
     log(f"mesh parity {LM_ARCH} full width, {n_layers} layers, batch "
         f"{batch} x {seq}, remat save_attn: the (1,1) mesh step equals the "
         f"mesh-free step bit for bit (loss {metrics['loss'][0]:.6f}, "
         f"grad_norm {metrics['grad_norm'][0]:.6f}, "
         f"{len(tree_leaves(new_free))} leaves of params, m and v, every "
-        f"metric); first steps {t1 - t0:.3f} s mesh-free, {t2 - t1:.3f} s "
-        f"on the mesh, on {card}")
+        f"metric) and calls collectives {coll.calls} (none); first steps "
+        f"{t1 - t0:.3f} s mesh-free, {t2 - t1:.3f} s on the mesh, on {card}")
     del free, placed, new_free
 
     # the sharded save and the restore onto the mesh, a leaf at a time
@@ -3436,18 +3477,26 @@ def mesh_parity(torch, card, mesh, n_layers=2, batch=2, seq=128):
         want, want_aux = model.forward(params, {"tokens": toks})
         sharded = distribute(params, mesh, model.param_specs(
             ShardingRules(), mesh_shape_dict(mesh)))
-        got, got_aux = model.forward(sharded, {"tokens": toks}, mesh=mesh)
+        with _Collectives() as coll:
+            got, got_aux = model.forward(sharded, {"tokens": toks},
+                                         mesh=mesh)
+            torch.cuda.synchronize()
+        got = _whole(got)       # the logits come back as a DTensor
+    if coll.calls:
+        fail(f"{MESH_FAMILY} forward on the (1,1) mesh called collectives: "
+             f"{coll.calls}")
     if not (torch.equal(got, want) and torch.equal(got_aux, want_aux)):
         fail(f"{MESH_FAMILY} forward on the (1,1) mesh differs from the "
              f"mesh-free forward: logits max-rel {_max_rel(got, want):.3e}, "
              f"aux {float(got_aux)} vs {float(want_aux)}")
     out[MESH_FAMILY] = {"n_layers": n_layers, "batch": batch, "seq": seq,
-                        "aux": float(want_aux)}
+                        "aux": float(want_aux), "collectives": coll.calls}
     log(f"mesh parity {MESH_FAMILY} full width ({cfg.moe.n_experts} experts "
         f"padded to 48, top-{cfg.moe.top_k}), {n_layers} layers, batch "
         f"{batch} x {seq}: Model.forward(mesh=) on sharded parameters "
         f"equals the mesh-free forward bit for bit (logits and aux "
-        f"{float(want_aux):.6f}) on {card}")
+        f"{float(want_aux):.6f}) and calls collectives {coll.calls} (none) "
+        f"on {card}")
     return out
 
 
@@ -3640,6 +3689,16 @@ def mesh_phase(torch, card, wrappers, unsharded):
 DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", False),
                 ("qwen3-moe-235b-a22b", "decode_32k", False),
                 ("mamba2-780m", "long_500k", True))
+# the same cells' figures a rank (FLOPs, collective bytes, peak bytes) as
+# this script's phase 12 printed them on an H100 80GB HBM3 at 700.00 W
+# before the mesh paths split the work over "model" (every rank gathered
+# each weight whole and computed its rows whole; the logits of the whole
+# batch on every rank), printed beside this run's
+DRYRUN_BEFORE = {
+    ("qwen2.5-3b", "train_4k", False): (1.7873e15, 7.2030e11, 3207549863960),
+    ("qwen3-moe-235b-a22b", "decode_32k", False): (9.8537e11, 1.0957e12,
+                                                   162657794112),
+    ("mamba2-780m", "long_500k", True): (1.5973e9, 1.5341e9, 666952760)}
 # 12(b): phase 11(b)'s step, traced as one rank of a (1,1) fake mesh
 DRYRUN_CARD = """
 import json, sys
@@ -3816,6 +3875,14 @@ def dryrun_phase(torch, card, meshed):
                 f"spec trees' shards; peak {peak} B = "
                 f"{peak / total:.3f} of the card's {total} B "
                 f"({'fits' if peak <= total else 'does not fit'}) on {card}")
+            flops0, coll0, peak0 = DRYRUN_BEFORE[(arch, shape_name, multi)]
+            log(f"12(a) {arch} {shape_name} on {mesh} against the gather "
+                f"design: FLOPs a rank {r['flops_per_chip']:.4e} vs "
+                f"{flops0:.4e} ({r['flops_per_chip'] / flops0:.4f}x), "
+                f"collective bytes {r['collective_bytes']:.4e} vs "
+                f"{coll0:.4e} ({r['collective_bytes'] / coll0:.4f}x), peak "
+                f"{peak} B vs {peak0} B ({peak / peak0:.4f}x), useful "
+                f"FLOPs ratio {r['useful_flops_ratio']:.4f}")
     card_run = json.loads(done["card"].strip().splitlines()[-1])
     counted = meshed["full"]["counted"]
     prof = meshed["full"]["profile"]

@@ -6,6 +6,11 @@ materialized. Masks (causal / sliding-window / full) are computed from
 position arithmetic inside each block; ``window`` is a per-layer number
 so heterogeneous stacks (gemma3's 5:1 local:global pattern) run one body.
 
+Over a mesh the callers hand these functions a rank's share: its query
+heads with the kv heads they read (``heads_for``), its block of query
+rows (``q_offset``), or its block of a decode cache split over the
+sequence (``decode_attention_block``, joined by ``decode_combine``).
+
 Plain PyTorch, as the reference is plain ``jnp``. A bf16 x bf16 product
 the reference accumulates in f32 (``preferred_element_type``) runs here
 on f32 copies of its operands: products of bf16 values are exact in f32,
@@ -20,7 +25,7 @@ import torch
 
 from .layers import cast
 from .param import ParamDef
-from .sharding_ctx import axis_size, hint
+from .sharding_ctx import axis_size, hint, pmax, psum
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 DEFAULT_BLOCK_KV = 1024
@@ -87,13 +92,15 @@ def _f32_einsum(spec: str, *operands):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0,
-                    block_kv: int = DEFAULT_BLOCK_KV) -> torch.Tensor:
+                    block_kv: int = DEFAULT_BLOCK_KV,
+                    p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Online-softmax attention over KV blocks.
 
     q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D); Hq % Hkv == 0.
     window: attend only to kv in (q_pos - window, q_pos]; None = unbounded
     (plain causal/full). KV heads are repeated to Hq first, as in the
-    reference.
+    reference. The probabilities are cast to ``p_dtype`` (v's dtype
+    unless named) for the PV product.
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -145,7 +152,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        pv = _f32_einsum("bhqk,bkhd->bhqd", p.to(vblk.dtype), vblk)
+        pv = _f32_einsum("bhqk,bkhd->bhqd", p.to(p_dtype or vblk.dtype),
+                         vblk)
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]
@@ -163,6 +171,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B,1,Hq,D); caches (B,Skv,Hkv,D); pos (B,) = index of the new token
     (entries kv_pos <= pos are valid). Single-pass softmax over the cache,
     GQA in grouped form (the cache is read once, not Hq/Hkv times)."""
+    m, l, o = decode_attention_block(q, k_cache, v_cache, pos, window)
+    return decode_output(o, l, q)
+
+
+def decode_attention_block(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos: torch.Tensor,
+                           window: Optional[int] = None, kv_offset: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """``decode_attention`` over a block of the cache whose first position
+    is ``kv_offset``, unnormalized: its f32 max (B,Hkv,G,1), normalizer
+    (B,Hkv,G) and PV sum (B,Hkv,G,D). The blocks of a cache split over its
+    sequence join by a max and two sums (``decode_combine``)."""
     b, _, hq, d = q.shape
     skv, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -174,7 +195,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         s = hint(s, "batch", None, None, "kv_seq")
     else:
         s = hint(s, "batch", "kv_heads", None, "kv_seq")
-    kv_pos = torch.arange(skv, device=q.device)
+    kv_pos = torch.arange(kv_offset, kv_offset + skv, device=q.device)
     mask = kv_pos[None, :] <= pos[:, None]  # (B,Skv)
     if window is not None:
         mask = mask & (kv_pos[None, :] > (pos[:, None] - window))
@@ -185,8 +206,46 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.exp(s - m)
     l = p.sum(-1)
     o = _f32_einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+    return m, l, o
+
+
+def decode_output(o: torch.Tensor, l: torch.Tensor, q: torch.Tensor
+                  ) -> torch.Tensor:
+    """The normalized output (B,1,Hq,D) of a PV sum and its normalizer."""
+    b, _, hq, d = q.shape
     o = o / torch.clamp(l, min=1e-20)[..., None]
     return o.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def decode_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                   mesh, axes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The normalizer and PV sum of the whole sequence from each rank's
+    block (``decode_attention_block``) over the ranks along ``axes``: the
+    blocks' max, then the sums rescaled to it (the split-K softmax). A
+    block with no valid position has the max ``NEG_INF`` and adds
+    nothing."""
+    top = pmax(m, mesh, axes)
+    c = torch.exp(m - top)
+    return psum(l * c[..., 0], mesh, axes), psum(o * c, mesh, axes)
+
+
+def heads_for(k: torch.Tensor, kv_lo: int, q_lo: int, n_q: int,
+              group: int) -> torch.Tensor:
+    """The kv heads that query heads ``q_lo .. q_lo + n_q - 1`` read (head
+    ``j`` reads kv head ``j // group``), from ``k`` (B,S,Hk,D) whose first
+    head is kv head ``kv_lo``: the reference's repeat-then-shard. A
+    contiguous run each query head's group finds in order is a view
+    (the attention repeats it); else the heads are picked one a query
+    head."""
+    ids = [j // group - kv_lo for j in range(q_lo, q_lo + n_q)]
+    if ids[0] < 0 or ids[-1] >= k.shape[2]:
+        raise ValueError(f"query heads {q_lo}..{q_lo + n_q - 1} read kv "
+                         f"heads this rank does not hold")
+    n_kv = ids[-1] - ids[0] + 1
+    if n_q % n_kv == 0 and ids == [ids[0] + i // (n_q // n_kv)
+                                   for i in range(n_q)]:
+        return k.narrow(2, ids[0], n_kv)
+    return k.index_select(2, torch.tensor(ids, device=k.device))
 
 
 def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,

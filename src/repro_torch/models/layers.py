@@ -4,6 +4,12 @@ Pure functions over ParamDef-described trees of tensors; compute dtype is
 bf16 with f32 for normalization statistics and softmax accumulators
 (MaxText-style mixed precision). Weights stay in their stored dtype until
 cast at use.
+
+Over a mesh the MLP and embedding leaves may be ``LocalShard``s: the MLP
+is column-parallel over ``ffn`` (``w1``, ``w3``) and row-parallel into
+``w2``, the embedding lookup vocabulary-parallel and the unembedding
+column-parallel over ``vocab``, each as far as its spec splits the
+dimension over ``"model"`` (``sharding_ctx.tp_leaf``).
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from typing import Tuple
 import torch
 
 from .param import ParamDef
+from .sharding_ctx import (TP, column_in, psum, row_parallel, tp_blocks,
+                           tp_leaf)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -136,9 +144,19 @@ def _act(name: str, x):
     return x * (1.0 / (torch.exp(-x) + 1.0))
 
 
-def mlp(p, x, act: str = "silu"):
-    h = _act(act, x @ cast(p["w1"], x.dtype)) * (x @ cast(p["w3"], x.dtype))
-    return h @ cast(p["w2"], x.dtype)
+def mlp(p, x, act: str = "silu", res=None):
+    """The gated MLP (plus ``res``, the residual stream, when given, added
+    in x's dtype); over a mesh ``w1``/``w3`` give this rank's ``ffn``
+    columns and ``w2`` sums its rows over ``"model"`` (one ``psum``,
+    ``row_parallel``)."""
+    w1, w3, w2 = tp_leaf(p["w1"], 1), tp_leaf(p["w3"], 1), tp_leaf(p["w2"], 0)
+    if not w1.n == w3.n == w2.n:
+        raise ValueError(f"the MLP's ffn splits differ over 'model': "
+                         f"{w1.n}, {w3.n}, {w2.n}")
+    mesh = w1.mesh if w1.n > 1 else None
+    h = _act(act, column_in(x, cast(w1.t, x.dtype), mesh)) * \
+        column_in(x, cast(w3.t, x.dtype), mesh)
+    return row_parallel(h, w2.t, w2, res, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -155,12 +173,34 @@ def embed_defs(vocab: int, d: int, tie: bool, dtype=torch.float32):
 
 
 def embed(p, tokens: torch.Tensor, dtype=COMPUTE_DTYPE) -> torch.Tensor:
+    """The table's rows of ``tokens``. Where ``"model"`` splits the
+    vocabulary, each rank reads the rows of its slice, zero for the
+    others, and the ranks' rows are summed over ``"model"``."""
     # the reference casts the whole table, then indexes; indexing first
     # gives the same bits and reads only the rows it needs
-    return cast(p["embed"][tokens.long()], dtype)
+    table = tp_leaf(p["embed"], 0)
+    if table.n == 1:
+        return cast(table.t[tokens.long()], dtype)
+    rows = table.t.shape[0]
+    idx = tokens.long() - table.r * rows
+    own = ((idx >= 0) & (idx < rows))[..., None]
+    got = cast(table.t[idx.clamp(0, rows - 1)], dtype)
+    return psum(torch.where(own, got, torch.zeros((), dtype=dtype,
+                                                  device=got.device)),
+                table.mesh, TP)
+
+
+def vocab_blocks(p) -> int:
+    """How many blocks ``"model"`` splits the vocabulary of the
+    unembedding into (1: whole)."""
+    if "unembed" in p:
+        return tp_blocks(p["unembed"], 1)
+    return tp_blocks(p["embed"], 0)
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    if "unembed" in p:
-        return x @ cast(p["unembed"], x.dtype)
-    return x @ cast(p["embed"], x.dtype).T
+    """The logits; over a mesh those of this rank's vocabulary block
+    (``vocab_blocks``)."""
+    w = tp_leaf(p["unembed"], 1) if "unembed" in p else tp_leaf(p["embed"], 0)
+    wb = cast(w.t, x.dtype) if "unembed" in p else cast(w.t, x.dtype).T
+    return column_in(x, wb, w.mesh if w.n > 1 else None)

@@ -7,8 +7,10 @@ prefill / decode plus parameter-count accounting used by the roofline
 shapes, so ``model.params`` carries across key for key. Its compute
 methods take the tree explicitly, as the reference's do. They take
 ``mesh=`` (a ``DeviceMesh``) as the reference's do: each rank computes
-its rows of the batch on the parameters gathered at use
-(``transformer``'s docstring).
+its share of the batch as the reference's rules place it (its rows, and
+over ``"model"`` its heads, FFN columns, vocabulary block and cache
+block), and the logits come back as a DTensor (``transformer``'s
+docstring).
 """
 
 from __future__ import annotations

@@ -32,7 +32,9 @@ the branch gathers as far as it needs):
   batch axes, each rank runs the one expert slot
   ``data_rank * n_model + model_rank`` on its first ``capacity``
   assignments, the outputs are summed over ``("data", "model")`` and each
-  rank takes its rows back;
+  rank takes its rows back. Each expert weight is still gathered whole
+  at use here (the reference reshards them to one expert a rank;
+  ROADMAP);
 * a mesh with no ``"model"`` axis (or one of size 1) runs the
   single-device dispatch on the whole batch, all-gathered over the
   batch axes, and takes this rank's rows, as the reference's partitioner

@@ -14,10 +14,18 @@ groups of a ``DeviceMesh``'s axes (``psum``, ``all_gather``), each a
 ``torch.autograd.Function`` whose backward is the collective's adjoint:
 the sum of a gradient over the ranks for an all-reduce, a reduce-scatter
 for an all-gather. ``LocalShard`` is a rank's shard of a parameter with
-its placements, and ``gathered`` makes the whole parameter of it: its
-backward sums each rank's gradient into the shard, so a rank that used
-the whole weight hands back only its shard's gradient, summed over every
-rank that used it. ``shard_map`` runs a function on each rank's local
+its placements. A layer takes each leaf as ``tp_leaf`` gives it: gathered
+over every axis it is not computed on (the FSDP split of ``embed`` over
+``"data"``), and kept as this rank's block where ``"model"`` splits the
+dimension the layer computes on (``heads``, ``kv_heads``, ``ffn``,
+``vocab``: tensor parallelism). A product over such a block is
+column-parallel (the output dimension split, no collective) or
+row-parallel (the contracted dimension split, ``row_parallel``: one
+``psum`` over ``"model"``). The backward of a gather sums each rank's
+gradient into its shard, and a leaf every ``"model"`` rank holds alike
+has its ranks' partial gradients summed (``gather_param``). ``gathered``
+makes a whole parameter of a shard, for the layers that still compute
+whole (ROADMAP). ``shard_map`` runs a function on each rank's local
 tensors.
 """
 
@@ -25,7 +33,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, \
+    Union
 
 import torch
 import torch.distributed as dist
@@ -48,6 +57,12 @@ def axis_rules(rules: ShardingRules, mesh_shape: Dict[str, int]):
         yield
     finally:
         _CTX.reset(token)
+
+
+def current_rules() -> ShardingRules:
+    """The ambient rules, or the default ones outside a context."""
+    ctx = _CTX.get()
+    return ShardingRules() if ctx is None else ctx[0]
 
 
 def axis_size(logical: str) -> int:
@@ -101,16 +116,20 @@ def mesh_shape_dict(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
+def rule_axes(logical: str, mesh) -> Tuple[str, ...]:
+    """The axes of ``mesh`` that the ambient rules (the default ones
+    outside a context) map ``logical`` to."""
+    return tuple(a for a in current_rules().lookup().get(logical, ())
+                 if a in mesh.mesh_dim_names)
+
+
 def batch_axes(mesh) -> Tuple[str, ...]:
     """The mesh axes the batch splits over: those of the ambient rules'
     ``"batch"`` axis that the mesh has (``("pod", "data")`` outside a
     context, as the default rules map it). Rules that map the batch to
     no axis (the dry-run's batch-1 cells) leave every rank the whole
     batch."""
-    ctx = _CTX.get()
-    axes = ("pod", "data") if ctx is None else \
-        ctx[0].lookup().get("batch", ())
-    return tuple(a for a in axes if a in mesh.mesh_dim_names)
+    return rule_axes("batch", mesh)
 
 
 def _names(axes: Axes) -> Tuple[str, ...]:
@@ -175,6 +194,20 @@ class _SumGrad(torch.autograd.Function):
         return g, None
 
 
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group-rank order."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _gather_into(out, x, group=group)
+    if dim == 0:
+        return out
+    shape = list(x.shape)
+    shape[dim] *= n
+    return out.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
+
+
 class _AllGather(torch.autograd.Function):
     """Concatenate each rank's ``x`` along ``dim`` in group-rank order;
     the adjoint reduce-scatters the gradient. The ranks' blocks are
@@ -184,17 +217,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
-        n = dist.get_world_size(group)
-        x = x.contiguous()
-        out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        _gather_into(out, x, group=group)
-        if dim == 0:
-            return out
-        shape = list(x.shape)
-        shape[dim] *= n
-        return out.view((n,) + tuple(x.shape)).movedim(0, dim) \
-            .reshape(shape)
+        return _gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -222,6 +245,18 @@ def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
 
 def pmean(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     return psum(x, mesh, axes) / mesh_axis_size(mesh, axes)
+
+
+def pmax(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks along ``axes``
+    (``lax.pmax``), as a constant: a softmax's shift, which its gradient
+    does not depend on."""
+    x = x.detach()
+    for a in _names(axes):
+        if mesh_axis_size(mesh, a) > 1:
+            x = x.contiguous().clone()
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    return x
 
 
 def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
@@ -311,6 +346,289 @@ def whole(x):
     if isinstance(x, DTensor):
         return gather_param(x.to_local(), x.device_mesh, list(x.placements))
     return x
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over "model"
+# ---------------------------------------------------------------------------
+
+TP = "model"
+
+
+def tp_size(mesh) -> int:
+    """The number of ranks along ``"model"`` (1 without a mesh or one)."""
+    if mesh is None or TP not in mesh.mesh_dim_names:
+        return 1
+    return mesh_axis_size(mesh, TP)
+
+
+class TPLeaf(NamedTuple):
+    """A leaf as a layer computes on it: ``t`` is this rank's block ``r``
+    of ``n`` along the dimension the layer computes on (``n == 1``: the
+    whole leaf), gathered over every other axis; ``mesh`` is None for a
+    plain tensor."""
+    t: torch.Tensor
+    n: int
+    r: int
+    mesh: Any
+
+
+def tp_blocks(x, dim: int) -> int:
+    """How many blocks ``"model"`` splits dimension ``dim`` of ``x`` (a
+    ``LocalShard`` or a plain tensor) into, read from its placements.
+    Raises where ``"model"`` splits another dimension, or where another
+    axis splits ``dim`` with it: a layout no layer computes on."""
+    if not isinstance(x, LocalShard):
+        return 1
+    names = list(x.mesh.mesh_dim_names)
+    n = 1
+    for i, p in enumerate(x.placements):
+        if not isinstance(p, Shard) or x.mesh.size(i) == 1:
+            continue
+        if names[i] == TP and p.dim != dim:
+            raise ValueError(f"'model' splits dimension {p.dim} of a leaf "
+                             f"computed on its dimension {dim}")
+        if names[i] == TP:
+            n = x.mesh.size(i)
+    if n > 1 and any(isinstance(p, Shard) and p.dim == dim and
+                     names[i] != TP and x.mesh.size(i) > 1
+                     for i, p in enumerate(x.placements)):
+        raise ValueError(f"dimension {dim} is split over 'model' and "
+                         f"another axis: {x.placements}")
+    return n
+
+
+def tp_leaf(x, dim: int) -> TPLeaf:
+    """``x`` (a ``LocalShard``, or a plain tensor every rank holds alike)
+    for a layer that computes on its dimension ``dim``: gathered over
+    every axis but a ``"model"`` split of ``dim``, which stays this
+    rank's block (its gradient stays here). A leaf that ``"model"`` does
+    not split is gathered whole, and the backward sums the ``"model"``
+    ranks' partial gradients of it (``gather_param``)."""
+    if not isinstance(x, LocalShard):
+        return TPLeaf(x, 1, 0, None)
+    n = tp_blocks(x, dim)
+    if n == 1:
+        return TPLeaf(gather_param(x.local, x.mesh, x.placements), 1, 0,
+                      x.mesh)
+    return TPLeaf(gather_param(x.local, x.mesh, x.placements, keep=(TP,)),
+                  n, x.mesh.get_local_rank(TP), x.mesh)
+
+
+class _MeanGrad(torch.autograd.Function):
+    """Identity forward; the gradient averaged over a group, in f32: where
+    a value every rank of the group holds alike enters each rank's own
+    share of a layer (Megatron's "f"), whose gradients differ."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        dtype = g.dtype
+        g = g.to(torch.float32).contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return (g / dist.get_world_size(ctx.group)).to(dtype), None
+
+
+def tp_in(x: torch.Tensor, mesh, f32: bool = False) -> torch.Tensor:
+    """``x``, held alike by the ``"model"`` ranks, as the input of their
+    own shares of a computation: its gradient is the ranks' mean
+    (``_MeanGrad``; over one rank, ``x`` as it is), so that every rank
+    holds the same share of it. With ``f32`` x comes as an f32 tensor of
+    its values, whose gradient the ranks sum in f32 before the cast back
+    rounds it once, as the mesh-free computation rounds its own sum."""
+    if tp_size(mesh) == 1:
+        return x
+    if f32:
+        x = x.to(torch.float32)
+    return _MeanGrad.apply(x, mesh.get_group(TP))
+
+
+class _ColumnIn(torch.autograd.Function):
+    """``x @ w`` of ``x``, held alike by the group's ranks, and this
+    rank's columns ``w``: the mesh-free layer's product, column for
+    column. The backward gives x the gradient the mesh-free product gives
+    it, divided by the group's size: the ranks' f32 products of their
+    columns summed over the group, then rounded once. So every rank holds
+    the same gradient of x, whose sum over the ranks is the whole
+    gradient (``_AddPsum`` relies on it)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
+        ctx.group = group
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = g.to(torch.float32) @ w.to(torch.float32).T
+        dist.all_reduce(dx, group=ctx.group)
+        dx = (dx / dist.get_world_size(ctx.group)).to(x.dtype)
+        dw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return dx, dw, None
+
+
+def column_in(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """``x @ w``: over a mesh with more than one ``"model"`` rank, this
+    rank's columns of a product whose columns the ranks share out
+    (``_ColumnIn``); else (``mesh`` None) the plain product."""
+    if tp_size(mesh) == 1:
+        return x @ w
+    return _ColumnIn.apply(x, w, mesh.get_group(TP))
+
+
+class _RowsIn(torch.autograd.Function):
+    """This rank's block of rows (along ``dim``) of a tensor every rank of
+    the group holds alike; the backward gathers every rank's rows'
+    gradient and divides it by the group's size, so that every rank
+    holds the same share of the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        rows = x.shape[dim] // n
+        return x.narrow(dim, dist.get_rank(group) * rows, rows).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        return _gather(g, ctx.group, ctx.dim) / n, None, None
+
+
+def rows_in(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """``_RowsIn`` over ``"model"``: this rank's block of x's rows."""
+    return _RowsIn.apply(x, dim, mesh.get_group(TP))
+
+
+class _KvShare(torch.autograd.Function):
+    """Identity forward on this rank's run ``lo .. lo + n - 1`` of the kv
+    heads (dimension -2) of a tensor of ``kv`` heads. The backward sums
+    each kv head's gradient over the ranks whose query heads read it, in
+    f32 and rounded once, as the mesh-free attention's
+    ``repeat_interleave`` sums its query heads', and divides it by the
+    number of ranks that hold the head, so that their shares sum to
+    it."""
+
+    @staticmethod
+    def forward(ctx, t, lo, kv, holders, group):
+        ctx.lo, ctx.kv, ctx.holders, ctx.group = lo, kv, holders, group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[-2]
+        full = g.new_zeros(g.shape[:-2] + (ctx.kv, g.shape[-1]),
+                           dtype=torch.float32)
+        full.narrow(-2, ctx.lo, n).copy_(g)
+        dist.all_reduce(full, group=ctx.group)
+        per = torch.tensor(ctx.holders[ctx.lo:ctx.lo + n], dtype=g.dtype,
+                           device=g.device)
+        mine = full.narrow(-2, ctx.lo, n).to(g.dtype)
+        return mine / per[:, None], None, None, None, None
+
+
+def kv_share(t: torch.Tensor, lo: int, kv: int, holders, mesh
+             ) -> torch.Tensor:
+    """``_KvShare`` of ``t`` over ``"model"``; ``holders[h]`` is the number
+    of ranks holding kv head ``h``."""
+    return _KvShare.apply(t, lo, kv, list(holders), mesh.get_group(TP))
+
+
+class _AddPsum(torch.autograd.Function):
+    """``res + psum(part)`` with the sum rounded to ``dtype`` first: a
+    row-parallel product joining the residual stream. The stream's
+    gradient is the same on every rank (each rank's own share of a layer
+    takes the stream through ``column_in``, ``rows_in`` or ``tp_in``), so
+    the all-reduce's adjoint, the sum of the ranks' gradients, is ``n``
+    times this rank's: the backward moves nothing."""
+
+    @staticmethod
+    def forward(ctx, res, part, group, dtype):
+        ctx.dtype, ctx.n = dtype, dist.get_world_size(group)
+        y = part.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return res + y.to(dtype).to(res.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the sum's gradient as the mesh-free layer's bf16 product gets it
+        return g, g.to(ctx.dtype).to(torch.float32) * ctx.n, None, None
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, leaf: TPLeaf,
+                 res: Optional[torch.Tensor] = None, res_dtype=None
+                 ) -> torch.Tensor:
+    """``x @ w`` in x's dtype (plus ``res``, the residual stream, when
+    given: both cast to ``res_dtype`` and summed in it), where ``leaf``
+    says how ``"model"`` splits the contracted dimension: whole, the
+    plain product; split (x and w this rank's blocks), the f32 products
+    of the bf16 blocks summed over ``"model"`` and rounded once (the
+    mesh-free product rounds its own f32 sum once), joined to ``res`` by
+    ``_AddPsum``."""
+    w = w.to(x.dtype)
+    if leaf.n == 1:
+        y = x @ w
+        return y if res is None else res.to(res_dtype) + y.to(res_dtype)
+    part = x.to(torch.float32) @ w.to(torch.float32)
+    if res is None:
+        return psum(part, leaf.mesh, TP).to(x.dtype)
+    return _AddPsum.apply(res.to(res_dtype), part, leaf.mesh.get_group(TP),
+                          x.dtype)
+
+
+def local_rows(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This rank's rows of ``x`` along ``dim`` (the batch split over the
+    batch axes, the first axis major), as a plain tensor. A plain ``x``
+    is the whole batch, held alike by every rank. A DTensor is gathered
+    whole along every split but the batch axes' split of ``dim``; where
+    it does not split ``dim`` over exactly the batch axes, its rows are
+    then cut as a plain tensor's are."""
+    axes = batch_axes(mesh)
+    if isinstance(x, DTensor):
+        names, pl = list(mesh.mesh_dim_names), list(x.placements)
+        split = tuple(a for a, p in zip(names, pl) if p == Shard(dim))
+        if split == axes:
+            return gather_param(x.to_local(), mesh, pl, keep=axes)
+        x = gather_param(x.to_local(), mesh, pl)
+    if not axes:
+        return x
+    n = mesh_axis_size(mesh, axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"a batch of {x.shape[dim]} does not split over "
+                         f"{n} ranks of {axes}")
+    rows = x.shape[dim] // n
+    return x.narrow(dim, axis_index(mesh, axes) * rows, rows)
+
+
+def rows_dtensor(local: torch.Tensor, mesh, vocab_blocks: int = 1
+                 ) -> DTensor:
+    """``local`` (this rank's rows along dim 0, and its block of the last
+    dimension when ``vocab_blocks`` > 1) as a DTensor: the rows split
+    over the batch axes, the last dimension over ``"model"``."""
+    axes = batch_axes(mesh)
+    last = local.ndim - 1
+    pl = [Shard(0) if a in axes else
+          Shard(last) if a == TP and vocab_blocks > 1 else Replicate()
+          for a in mesh.mesh_dim_names]
+    shape = list(local.shape)
+    shape[0] *= mesh_axis_size(mesh, axes) if axes else 1
+    shape[last] *= vocab_blocks
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.insert(0, acc)
+        acc *= n
+    return tuple(stride)
 
 
 def local_shards(tree, mesh):

@@ -20,30 +20,61 @@ attention output is kept across the boundary as the reference's
 ``checkpoint_name(o, "attn_out")`` policy keeps it; a layer with no
 attention is recomputed whole, as under that policy).
 
-Over a mesh (``mesh=``, a ``DeviceMesh``), each rank computes its rows
-of the global batch (split over ``sharding_ctx.batch_axes``: ``("pod",
-"data")``, the first axis major, unless the ambient rules map the batch
-elsewhere) on plain tensors. A batch entry or a cache is the whole
-batch's plain tensor, held alike by every rank, or a DTensor (as the
-dry-run's in-shardings give them): a split over other axes is gathered
-whole at each use. Each parameter leaf is a DTensor under its
-``spec_for`` placements, or a plain tensor every rank holds alike; a
-layer gathers the whole of each leaf it uses inside its own body (so
-``remat`` recomputes the gathers and no gathered weight outlives its
-layer), and the gather's backward hands each rank its shard's gradient,
-summed over the ranks that used it. MoE layers run the reference's
-expert-parallel branches (``moe.moe_block``). The logits come back whole
-on every rank (all-gathered over the batch axes); caches come back as
-DTensors split over the batch axes. Ranks along ``"model"`` compute the
-same rows, so a loss taken from the logits is backpropagated divided by
-the mesh's size (``train.step.value_and_grad``), which makes the sum of
-the ranks' gradients the gradient of the loss.
+Over a mesh (``mesh=``, a ``DeviceMesh``), each rank computes its share
+of the global batch as the reference's rules and hints place it under
+GSPMD, on plain tensors:
+
+* its rows of the batch (split over ``sharding_ctx.batch_axes``:
+  ``("pod", "data")``, the first axis major, unless the ambient rules map
+  the batch elsewhere). The residual stream is these rows, whole over
+  ``"model"``, as the reference's ``hint(x, "batch", "seq", None)``;
+* in the dense, VLM and MoE decoder layers, tensor parallelism over
+  ``"model"`` where a leaf's spec splits it there: the attention on the
+  rank's query heads (q column-parallel, k and v over ``kv_heads`` where
+  that divides, else whole, the rank taking the kv heads its query heads
+  read) and ``wo`` row-parallel with one ``psum``; where the heads do not
+  divide the axis, the reference's ``attn_q_seq`` branch: the rank's
+  block of query rows against whole k and v, its rows of the output
+  gathered back over ``"model"``. The dense MLP is column-parallel over
+  ``ffn`` into a row-parallel ``w2`` (one ``psum``); an MoE layer runs
+  the reference's expert-parallel branches (``moe.moe_block``) on the
+  replicated residual stream;
+* in every family, the vocabulary-parallel embedding lookup and the
+  unembedding column-parallel over ``vocab`` (``layers.embed``,
+  ``layers.unembed``): the logits come back as a DTensor, the rows split
+  over the batch axes and the vocabulary over ``"model"`` (whole over it
+  where the vocabulary does not divide it), as the reference's
+  ``("batch", "seq", "vocab")`` hint places them. A caller that wants the
+  whole logits takes ``sharding_ctx.whole`` of them;
+* in decode, the rank's block of the cache as its spec places it: under
+  the decode rules (``kv_seq`` on ``"model"``) each rank writes the new
+  token only where its sequence block holds ``pos`` and attends over its
+  block, the blocks joined by a max and two ``psum``s
+  (``attention.decode_combine``); a cache split over its kv heads is
+  read by the query heads of the rank's own. The caches come back as
+  DTensors under the same placements, never gathered whole; ``prefill``
+  returns each rank's block under the cache spec of the ambient rules.
+
+A batch entry is the whole batch's plain tensor, held alike by every
+rank, or a DTensor (as the dry-run's in-shardings give them). Each
+parameter leaf is a DTensor under its ``spec_for`` placements, or a
+plain tensor every rank holds alike; a layer gathers each leaf it uses
+inside its own body over the axes it does not compute on (the FSDP split
+over ``"data"``; ``remat`` recomputes the gathers), and the gather's
+backward hands each rank its shard's gradient, summed over the ranks
+that used it. The SSM layers, zamba2's shared block and whisper's
+encoder and decoder layers still gather each leaf whole and compute
+their rows whole over ``"model"`` (ROADMAP). A loss every rank holds
+alike (``train.step.cross_entropy`` on the logits' DTensor) is
+backpropagated divided by the mesh's size (``train.step.value_and_grad``):
+the collectives' adjoints then sum the ranks' parts into the gradient of
+the loss.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -55,11 +86,16 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (COMPUTE_DTYPE, cast, embed, embed_defs, mlp, mlp_defs,
                      mrope, rmsnorm, rmsnorm_def, rope, rounded,
-                     sinusoidal_positions, unembed)
-from .param import ParamDef, map_tree
-from .sharding_ctx import (LocalShard, all_gather, axis_index, batch_axes,
-                           gather_param, gathered, gathered_tree, hint,
-                           local_shards, mesh_axis_size)
+                     sinusoidal_positions, unembed, vocab_blocks)
+from .param import ParamDef, map_tree, placements, spec_for
+from .sharding_ctx import (TP, LocalShard, all_gather, axis_index,
+                           batch_axes, contiguous_stride, current_rules,
+                           gathered,
+                           gathered_tree, hint, local_rows, local_shards,
+                           mesh_axis_size, mesh_shape_dict, row_parallel,
+                           rows_dtensor, rows_in, rule_axes, tp_blocks,
+                           tp_in, column_in, kv_share,
+                           tp_leaf, tp_size)
 
 Tree = Dict[str, Any]
 
@@ -183,12 +219,15 @@ def _layer_scalars(cfg: ArchConfig, skv: int):
 
 
 def _apply_rope(cfg: ArchConfig, q, k, positions, theta):
+    return _rope(cfg, q, positions, theta), _rope(cfg, k, positions, theta)
+
+
+def _rope(cfg: ArchConfig, t, positions, theta):
     if cfg.rope_kind == "none":
-        return q, k
+        return t
     if cfg.rope_kind == "mrope":
-        return (mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
-                mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
-    return rope(q, positions, theta), rope(k, positions, theta)
+        return mrope(t, positions, cfg.rope_theta, cfg.mrope_sections)
+    return rope(t, positions, theta)
 
 
 def _residual(x, y):
@@ -200,28 +239,192 @@ def _residual(x, y):
     return x.to(torch.float32) + y.to(torch.float32)
 
 
-def _attn_core(lp, cfg, x, positions, theta, window, block_kv):
+class _Split(NamedTuple):
+    """How a rank computes a decoder layer's attention: ``kind`` "heads"
+    (its block ``r`` of ``n`` of the query heads), "rows" (its block of
+    the query rows, the reference's ``attn_q_seq`` branch) or None
+    (whole)."""
+    kind: Optional[str]
+    n: int
+    r: int
+
+
+def _attn_split(pa, cfg, s: int, mesh) -> _Split:
+    """The reference's choice (``attention.py``'s ``heads_sharded``): the
+    heads where they divide the ``heads`` axis, else the query rows
+    over ``attn_q_seq``. The heads are this rank's where ``wq``'s spec
+    splits them over ``"model"``; the rows where ``attn_q_seq`` maps to
+    ``"model"`` and ``s`` divides it (the spec's fallback leaves them
+    whole)."""
+    n = tp_blocks(pa["wq"], 1)
+    if n > 1:
+        return _Split("heads", n, mesh.get_local_rank(TP))
+    m = tp_size(mesh)
+    heads_axis = rule_axes("heads", mesh) if m > 1 else ()
+    if not heads_axis or \
+            cfg.n_heads % mesh_axis_size(mesh, heads_axis) == 0:
+        return _Split(None, 1, 0)
+    rows_axis = rule_axes("attn_q_seq", mesh)
+    if rows_axis not in ((), (TP,)):
+        raise ValueError(f"query rows over {rows_axis}: only 'model' is "
+                         f"handled")
+    if not rows_axis or s % m:
+        return _Split(None, 1, 0)
+    return _Split("rows", m, mesh.get_local_rank(TP))
+
+
+def _qkv(pa, hq, hkv, kv: Optional[Tuple[int, int]] = None,
+         split: Optional[str] = None, mesh=None):
+    """q of ``hq``, k and v of ``hkv``, each over the heads its leaves
+    give this rank (``tp_leaf``); where ``"model"`` does not split the kv
+    heads, ``kv = (lo, n)`` names the ones to compute. Under a "heads"
+    split the products are this rank's columns (``column_in``). Also the
+    k leaf's split."""
+    w = {n: tp_leaf(pa[n], 1) for n in ("wq", "wk", "wv")}
+    b = {n: tp_leaf(pa[n], 0) for n in ("bq", "bk", "bv") if n in pa}
+    if w["wk"].n != w["wv"].n or any(
+            b[n].n != w["w" + n[1]].n for n in b):
+        raise ValueError("the attention's leaves split their heads "
+                         "differently over 'model'")
+    wk, wv = w["wk"].t, w["wv"].t
+    bk, bv = (b[n].t if n in b else None for n in ("bk", "bv"))
+    if kv is not None and w["wk"].n == 1 and kv[1] < wk.shape[1]:
+        wk, wv = wk.narrow(1, *kv), wv.narrow(1, *kv)
+        if b:
+            bk, bv = bk.narrow(0, *kv), bv.narrow(0, *kv)
+    proj = functools.partial(_proj_in,
+                             mesh=mesh if split == "heads" else None)
+    q = proj(hq, w["wq"].t)
+    k, v = proj(hkv, wk), proj(hkv, wv)
+    if b:
+        q = q + cast(b["bq"].t, hq.dtype)
+        k = k + cast(bk, hkv.dtype)
+        v = v + cast(bv, hkv.dtype)
+    return q, k, v, w["wk"]
+
+
+def _proj_in(x, w, mesh=None):
+    """``attention._proj`` as this rank's columns (``column_in``)."""
+    if mesh is None:
+        return attn._proj(x, w)
+    d, h, e = w.shape
+    return column_in(x, cast(w, x.dtype).reshape(d, h * e), mesh) \
+        .reshape(x.shape[:-1] + (h, e))
+
+
+def _kv_range(cfg, split: "_Split", r: int) -> Tuple[int, int]:
+    """(first, count) of the kv heads that rank ``r``'s query heads read
+    under ``split``, where ``"model"`` splits the query heads and not the
+    kv heads (the reference's repeat-then-shard: a rank projects only
+    those); all of them where the ranks' counts differ."""
+    heads, kv = cfg.n_heads, cfg.n_kv_heads
+    if split.kind != "heads":
+        return 0, kv
+    per, group = heads // split.n, heads // kv
+
+    def run(rank):
+        lo = rank * per // group
+        return lo, (rank * per + per - 1) // group + 1 - lo
+
+    if len({run(i)[1] for i in range(split.n)}) > 1:
+        return 0, kv
+    return run(r)
+
+
+def _kv_holders(cfg, split: "_Split") -> List[int]:
+    """How many ranks hold each kv head (``_kv_range``)."""
+    count = [0] * cfg.n_kv_heads
+    for r in range(split.n):
+        lo, n = _kv_range(cfg, split, r)
+        for h in range(lo, lo + n):
+            count[h] += 1
+    return count
+
+
+def _kv_whole(t: torch.Tensor, cfg, split: "_Split", mesh) -> torch.Tensor:
+    """Every kv head of ``t`` (.., this rank's ``_kv_range`` of the kv
+    heads, head dim): the ranks' runs gathered over ``"model"``, each
+    head taken from the first rank that holds it."""
+    kv = cfg.n_kv_heads
+    if t.shape[-2] == kv:
+        return t
+    runs = [_kv_range(cfg, split, r) for r in range(split.n)]
+    n = runs[0][1]
+    idx = [next(r * n + h - lo for r, (lo, _) in enumerate(runs)
+                if lo <= h < lo + n) for h in range(kv)]
+    t = all_gather(t, mesh, TP, t.ndim - 2)
+    return t.index_select(t.ndim - 2, torch.tensor(idx, device=t.device))
+
+
+def _attn_core(lp, cfg, x, positions, theta, window, block_kv, mesh=None):
     """The attention output o (before ``out_proj``) and the layer's
-    rotated k and v."""
+    rotated k and v. Over a mesh o is this rank's share (``_attn_split``:
+    its query heads, or its query rows); k and v hold, over every row,
+    this rank's kv heads where ``"model"`` splits them, else those its
+    query heads read (``_kv_range``)."""
     x = hint(x, "batch", "seq", None)
     h = rmsnorm(gathered(lp["ln1"]), x, cfg.norm_eps)
-    q, k, v = attn.qkv_proj({n: gathered(w) for n, w in lp["attn"].items()
-                             if n != "wo"}, h)
-    q, k = _apply_rope(cfg, q, k, positions, theta)
-    o = attn.flash_attention(q, k, v, causal=True, window=window,
-                             block_kv=block_kv)
+    split = _attn_split(lp["attn"], cfg, x.shape[1], mesh)
+    hq, pos_q, q_offset, p_dtype = h, positions, 0, None
+    if split.kind == "rows":
+        rows = x.shape[1] // split.n
+        q_offset = split.r * rows
+        hq = rows_in(h, mesh, 1)
+        pos_q = positions.narrow(-1, q_offset, rows)
+    kv = _kv_range(cfg, split, split.r)
+    q, k, v, wk = _qkv(lp["attn"], hq, h, kv, split.kind, mesh)
+    q, k = _rope(cfg, q, pos_q, theta), _rope(cfg, k, positions, theta)
+    kq, vq = k, v
+    if split.kind == "rows":
+        # every rank's query rows read all of k and v: the ranks' f32
+        # gradients of the repeated heads are summed before they round,
+        # as the mesh-free attention's single product rounds its own
+        group = cfg.n_heads // cfg.n_kv_heads
+        kq, vq = (tp_in(torch.repeat_interleave(t, group, dim=2), mesh,
+                        f32=True) for t in (k, v))
+        p_dtype = v.dtype
+    if split.kind == "heads":
+        per = cfg.n_heads // split.n
+        group = cfg.n_heads // cfg.n_kv_heads
+        kv_lo = wk.r * k.shape[2] if wk.n > 1 else kv[0]
+        if wk.n == 1:
+            holders = _kv_holders(cfg, split)
+            if max(holders) > 1:
+                k, v = (kv_share(t, kv_lo, cfg.n_kv_heads, holders, mesh)
+                        for t in (k, v))
+        kq, vq = (attn.heads_for(t, kv_lo, split.r * per, per, group)
+                  for t in (k, v))
+    o = attn.flash_attention(q, kq, vq, causal=True, window=window,
+                             q_offset=q_offset, block_kv=block_kv,
+                             p_dtype=p_dtype)
     return o, k, v
 
 
-def _attn_block(lp, cfg, x, positions, theta, window, block_kv):
+def _attn_block(lp, cfg, x, positions, theta, window, block_kv, mesh=None):
     """x + attention(x) as ``_residual``'s f32 sum; also returns the
     layer's rotated k and v."""
-    o, k, v = _attn_core(lp, cfg, x, positions, theta, window, block_kv)
-    return _residual(x, _out_proj(lp["attn"], o)), k, v
+    o, k, v = _attn_core(lp, cfg, x, positions, theta, window, block_kv,
+                         mesh)
+    return _attn_residual(lp["attn"], cfg, x, o, mesh), k, v
 
 
-def _out_proj(pa, o):
-    return attn.out_proj({"wo": gathered(pa["wo"])}, o)
+def _attn_residual(pa, cfg, x, o, mesh=None):
+    """``_residual(x, out_proj(o))`` of a rank's share o (``_attn_core``):
+    row-parallel over its query heads (one ``psum`` over ``"model"``), or
+    over its query rows, gathered back over ``"model"``."""
+    split = _attn_split(pa, cfg, x.shape[1], mesh)
+    wo = tp_leaf(pa["wo"], 0)
+    if wo.n != (split.n if split.kind == "heads" else 1):
+        raise ValueError("wo and wq split their heads differently over "
+                         "'model'")
+    if split.kind == "heads":
+        hl, e, d = wo.t.shape
+        return row_parallel(o.reshape(o.shape[:-2] + (hl * e,)),
+                            wo.t.reshape(hl * e, d), wo, x, torch.float32)
+    y = attn.out_proj({"wo": wo.t}, o)
+    if split.kind == "rows":
+        y = all_gather(y, mesh, TP, 1)
+    return _residual(x, y)
 
 
 def _ffn_layer(lp, cfg, x, auxes=None, mesh=None):
@@ -231,12 +434,11 @@ def _ffn_layer(lp, cfg, x, auxes=None, mesh=None):
     x = hint(x, "batch", "seq", None)
     h = rmsnorm(gathered(lp["ln2"]), x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
     if cfg.moe is None:
-        y = mlp(gathered_tree(lp["mlp"]), h, cfg.act)
-    else:
-        y, aux = moe_mod.moe_block(lp["moe"], h, cfg, mesh, cfg.act,
-                                   aux=auxes is not None)
-        if auxes is not None:
-            auxes.append(aux)
+        return mlp(lp["mlp"], h, cfg.act, x)
+    y, aux = moe_mod.moe_block(lp["moe"], tp_in(h, mesh), cfg, mesh,
+                               cfg.act, aux=auxes is not None)
+    if auxes is not None:
+        auxes.append(aux)
     return x.to(COMPUTE_DTYPE) + y
 
 
@@ -263,58 +465,145 @@ def _unbind(a):
 
 
 def _top(params) -> Tree:
-    """The unstacked leaves (embedding, norms) gathered whole; the
-    stacked layer trees as they are."""
-    return {k: v if k in _STACKED else gathered_tree(v)
+    """The unstacked leaves: the norms gathered whole, the embedding and
+    unembedding as they are (``layers.embed`` and ``unembed`` take their
+    vocabulary split over ``"model"``), the stacked layer trees as they
+    are."""
+    return {k: v if k in _STACKED + _VOCAB else gathered_tree(v)
             for k, v in params.items()}
 
 
 _STACKED = ("layers", "enc_layers", "shared")
+_VOCAB = ("embed", "unembed")
 # batch entries whose batch dimension is not the first
 _BATCH_DIM = {"mrope_positions": 1}
 
 
-def _local_rows(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
-    """This rank's rows of ``x`` along ``dim`` (the batch split over the
-    batch axes, the first axis major), as a plain tensor. A plain ``x``
-    is the whole batch, held alike by every rank. A DTensor is gathered
-    whole along every split but the batch axes' split of ``dim`` (a
-    decode cache split over its sequence is gathered whole at each use);
-    where it does not split ``dim`` over exactly the batch axes, its
-    rows are then cut as a plain tensor's are."""
-    axes = batch_axes(mesh)
-    if isinstance(x, DTensor):
-        names, pl = list(mesh.mesh_dim_names), list(x.placements)
-        split = tuple(a for a, p in zip(names, pl) if p == Shard(dim))
-        if split == axes:
-            return gather_param(x.to_local(), mesh, pl, keep=axes)
-        x = gather_param(x.to_local(), mesh, pl)
-    if not axes:
-        return x
-    n = mesh_axis_size(mesh, axes)
-    if x.shape[dim] % n:
-        raise ValueError(f"a batch of {x.shape[dim]} does not split over "
-                         f"{n} ranks of {axes}")
-    rows = x.shape[dim] // n
-    return x.narrow(dim, axis_index(mesh, axes) * rows, rows)
-
-
 def _on_mesh(params, batch, mesh):
     """Each leaf as a ``LocalShard``, and this rank's rows of the batch."""
-    local = {k: _local_rows(v, mesh, _BATCH_DIM.get(k, 0))
+    local = {k: local_rows(v, mesh, _BATCH_DIM.get(k, 0))
              if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
     return local_shards(params, mesh), local
 
 
-def _whole_rows(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Every rank's rows of ``x``, in batch order."""
+def _decoder(cfg) -> bool:
+    """The stacks whose layers compute their tensor-parallel share: the
+    dense, VLM and MoE decoders."""
+    return not cfg.enc_dec and cfg.family not in ("ssm", "hybrid")
+
+
+class _Cache(NamedTuple):
+    """This rank's block of a decoder's stacked kv cache (layers, batch,
+    skv, kv heads, head dim): its mesh ``placements``, the axes splitting
+    the sequence (``seq_axes``) and the first position of its block
+    (``seq_lo``), the blocks ``"model"`` splits the kv heads into
+    (``heads``) and the whole sequence length ``skv``."""
+    placements: Any
+    seq_axes: Tuple[str, ...]
+    seq_lo: int
+    heads: int
+    skv: int
+
+
+_WHOLE_CACHE = _Cache(None, (), 0, 1, 0)
+
+
+def _cache_layout(pl, mesh, skv: int) -> _Cache:
+    """The ``_Cache`` of a stacked cache under placements ``pl``. Only the
+    batch, the sequence and (over ``"model"``) the kv heads may be split;
+    any other split raises."""
+    names, seq, heads = list(mesh.mesh_dim_names), [], 1
+    for i, p in enumerate(pl):
+        if not isinstance(p, Shard) or mesh.size(i) == 1:
+            continue
+        if p.dim == 2:
+            seq.append(names[i])
+        elif p.dim == 3 and names[i] == TP:
+            heads = mesh.size(i)
+        elif p.dim != 1:
+            raise ValueError(f"a cache split over {names[i]} along its "
+                             f"dimension {p.dim} is not handled")
+    seq_axes = tuple(seq)
+    n = mesh_axis_size(mesh, seq_axes) if seq_axes else 1
+    lo = axis_index(mesh, seq_axes) * (skv // n) if seq_axes else 0
+    return _Cache(list(pl), seq_axes, lo, heads, skv)
+
+
+def _prefill_cache(cfg, mesh, batch: int, skv: int) -> _Cache:
+    """The layout of the caches ``prefill`` returns: the cache spec under
+    the ambient rules (the default ones outside a context)."""
+    d = cache_defs(cfg, batch, skv)["self"]["k"]
+    spec = spec_for(d, current_rules(), mesh_shape_dict(mesh))
+    return _cache_layout(placements(spec, mesh), mesh, skv)
+
+
+def _cache_block(c: torch.Tensor, cl: _Cache, cfg, mesh) -> torch.Tensor:
+    """This rank's block of one layer's cache (batch rows, skv, kv heads
+    of this rank where ``"model"`` splits them in the projection, else
+    all, head dim) under ``cl``, in a storage of its own."""
+    if cl.placements is None:
+        return c
+    if cl.seq_axes:
+        size = cl.skv // mesh_axis_size(mesh, cl.seq_axes)
+        c = c.narrow(1, cl.seq_lo, size)
+    c = _cache_heads(c, cfg, cl, mesh)
+    if c.untyped_storage().nbytes() > c.numel() * c.element_size():
+        c = c.clone(memory_format=torch.contiguous_format)
+    return c
+
+
+def _cache_heads(t: torch.Tensor, cfg, cl: _Cache, mesh) -> torch.Tensor:
+    """``t`` (.., kv heads, head dim), this rank's block of the kv heads
+    or all of them, as the cache holds them: its block where ``"model"``
+    splits the cache's heads, else all."""
+    kv = cfg.n_kv_heads
+    if cl.heads > 1:
+        if t.shape[-2] == kv:
+            per = kv // cl.heads
+            return t.narrow(-2, mesh.get_local_rank(TP) * per, per)
+        return t
+    if t.shape[-2] < kv:
+        return all_gather(t, mesh, TP, t.ndim - 2)
+    return t
+
+
+def _stacked_dtensor(local: torch.Tensor, cl: _Cache, cfg, mesh,
+                     batch: int) -> DTensor:
+    """This rank's block of a stacked cache of the global ``batch`` as a
+    DTensor under ``cl``'s placements."""
+    shape = (local.shape[0], batch, cl.skv, cfg.n_kv_heads, cfg.head_dim)
+    return DTensor.from_local(local, mesh, cl.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def _decoder_cache_in(caches, cfg, mesh):
+    """This rank's blocks of a decoder's caches and their ``_Cache``: a
+    DTensor keeps its local block (its batch split over the batch axes),
+    a plain tensor (the whole batch) gives its rows."""
     axes = batch_axes(mesh)
-    return all_gather(x, mesh, axes, 0) if axes else x
+    names = list(mesh.mesh_dim_names)
+    out, layouts = {}, []
+    for key, c in caches["self"].items():
+        if isinstance(c, DTensor):
+            pl, local = list(c.placements), c.to_local()
+            split = tuple(a for a, p in zip(names, pl) if p == Shard(1))
+            if split != axes:
+                raise ValueError(f"a cache's batch split over {split}, not "
+                                 f"the batch axes {axes}")
+        else:
+            local = local_rows(c, mesh, 1)
+            pl = [Shard(1) if a in axes else Replicate() for a in names]
+        out[key] = local
+        layouts.append(_cache_layout(pl, mesh, c.shape[2]))
+    if layouts[0] != layouts[1]:
+        raise ValueError("k and v caches lie under different placements")
+    return {"self": out}, layouts[0]
 
 
 def _cache_shards(caches, mesh):
     """Per-rank cache rows (batch at dim 1) as DTensors split over the
-    batch axes."""
+    batch axes (the families that compute their layers whole)."""
     axes = batch_axes(mesh)
     pl = [Shard(1) if a in axes else Replicate()
           for a in mesh.mesh_dim_names]
@@ -324,8 +613,9 @@ def _cache_shards(caches, mesh):
 
 def _local_caches(caches, mesh):
     """A rank's rows of the caches (batch at dim 1), DTensors or the
-    whole batch's plain tensors (``_local_rows``)."""
-    return map_tree(lambda c: _local_rows(c, mesh, 1), caches)
+    whole batch's plain tensors (``sharding_ctx.local_rows``; a split
+    over another axis is gathered whole at each use)."""
+    return map_tree(lambda c: local_rows(c, mesh, 1), caches)
 
 
 def _remat(fn, remat):
@@ -370,12 +660,12 @@ def _positions(cfg, batch, b, s, device):
 def forward(params, cfg: ArchConfig, batch, remat=False,
             block_kv: int = attn.DEFAULT_BLOCK_KV, mesh=None):
     """Returns (logits (B,S,V), aux_loss scalar); over a mesh the logits
-    of the whole batch on every rank."""
+    are a DTensor (the module docstring)."""
     if mesh is None:
         return _forward(params, cfg, batch, remat, block_kv, None)
     params, batch = _on_mesh(params, batch, mesh)
     logits, aux = _forward(params, cfg, batch, remat, block_kv, mesh)
-    return _whole_rows(logits, mesh), aux
+    return rows_dtensor(logits, mesh, vocab_blocks(params)), aux
 
 
 def _forward(params, cfg, batch, remat, block_kv, mesh):
@@ -410,7 +700,7 @@ def _attn_out_ffn(lp, cfg, x, o, mesh=None):
     """The decoder layer after its attention core: (x + out_proj(o), then
     the ffn sublayer; the MoE aux loss or None)."""
     auxes: List[torch.Tensor] = []
-    x = _ffn_layer(lp, cfg, _residual(x, _out_proj(lp["attn"], o)),
+    x = _ffn_layer(lp, cfg, _attn_residual(lp["attn"], cfg, x, o, mesh),
                    auxes, mesh)
     return x, (auxes[0] if auxes else None)
 
@@ -418,7 +708,7 @@ def _attn_out_ffn(lp, cfg, x, o, mesh=None):
 def _train_layer(lp, cfg, x, positions, theta, window, block_kv,
                  mesh=None):
     """One decoder layer of the forward: (x, the MoE aux loss or None)."""
-    o = _attn_core(lp, cfg, x, positions, theta, window, block_kv)[0]
+    o = _attn_core(lp, cfg, x, positions, theta, window, block_kv, mesh)[0]
     return _attn_out_ffn(lp, cfg, x, o, mesh)
 
 
@@ -427,14 +717,16 @@ def _save_attn_layer(lp, cfg, x, positions, theta, window, block_kv,
     """``_train_layer`` with its attention core and the rest checkpointed
     apart: the backward recomputes both, and keeps o between them."""
     o = checkpoint(_attn_core, lp, cfg, x, positions, theta, window,
-                   block_kv, use_reentrant=False)[0]
+                   block_kv, mesh, use_reentrant=False)[0]
     return checkpoint(_attn_out_ffn, lp, cfg, x, o, mesh,
                       use_reentrant=False)
 
 
 def _ssm_layer(lp, cfg, x, **kw):
     """x + ssm_block(ln(x)); with ``cache`` or ``return_cache`` also the
-    layer's new cache."""
+    layer's new cache. Over a mesh each leaf is gathered whole at use and
+    a rank computes its rows whole (``conv_dim`` and ``ssm_heads`` over
+    ``"model"`` are not split yet; ROADMAP)."""
     lp = gathered_tree(lp)
     h = rmsnorm(lp["ln"], x, cfg.norm_eps)
     lp_ssm = {k: v for k, v in lp.items() if k != "ln"}
@@ -459,7 +751,9 @@ def _shared_block(sp, cfg, x, positions, block_kv, kv_cache=None, pos=None):
     length-1 'layers' dim (sliced here). Returns (x, (k,v)) in forward and
     prefill, or (x, the updated caches) in decode when kv_cache is given.
     The reference runs it outside any ``lax.scan``, op by op, so its
-    residual sums round to bf16 as eager adds do."""
+    residual sums round to bf16 as eager adds do. Over a mesh its leaves
+    are gathered whole at use and a rank computes its rows whole
+    (ROADMAP)."""
     sl = gathered_tree(_layer(sp, 0))
     h = rmsnorm(sl["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv_proj(sl["attn"], h)
@@ -516,6 +810,8 @@ def _encode(params, cfg, batch, block_kv, remat=False):
 
 
 def _enc_layer(lp, cfg, xe, block_kv):
+    """One whisper encoder layer; over a mesh its leaves are gathered
+    whole at use and a rank computes its rows whole (ROADMAP)."""
     lp = gathered_tree(lp)
     h = rmsnorm(lp["ln1"], xe, cfg.norm_eps)
     q, k, v = attn.qkv_proj(lp["attn"], h)
@@ -525,7 +821,8 @@ def _enc_layer(lp, cfg, xe, block_kv):
 
 def _whisper_layer(lp, cfg, x, enc_out, block_kv):
     """One decoder layer over the whole sequence: (x, k, v, cross k, cross
-    v)."""
+    v). Over a mesh its leaves are gathered whole at use and a rank
+    computes its rows whole (ROADMAP)."""
     lp = gathered_tree(lp)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv_proj(lp["attn"], h)
@@ -577,16 +874,24 @@ def _cross_qkv(p, x_dec, enc_out):
 def prefill(params, cfg: ArchConfig, batch, skv: Optional[int] = None,
             block_kv: int = attn.DEFAULT_BLOCK_KV, mesh=None):
     """Returns (last-token logits (B,V), caches sized for skv); over a
-    mesh the logits of the whole batch on every rank and each rank's
-    cache rows as DTensors."""
+    mesh the logits as a DTensor and each rank's cache block as DTensors
+    (the module docstring)."""
     if mesh is None:
         return _prefill(params, cfg, batch, skv, block_kv, None)
+    b, s = batch["tokens"].shape
+    skv = skv or s
     params, batch = _on_mesh(params, batch, mesh)
-    logits, caches = _prefill(params, cfg, batch, skv, block_kv, mesh)
-    return _whole_rows(logits, mesh), _cache_shards(caches, mesh)
+    cl = _prefill_cache(cfg, mesh, b, skv) if _decoder(cfg) else None
+    logits, caches = _prefill(params, cfg, batch, skv, block_kv, mesh, cl)
+    if cl is None:
+        caches = _cache_shards(caches, mesh)
+    else:
+        caches = {"self": {k: _stacked_dtensor(c, cl, cfg, mesh, b)
+                           for k, c in caches["self"].items()}}
+    return rows_dtensor(logits, mesh, vocab_blocks(params)), caches
 
 
-def _prefill(params, cfg, batch, skv, block_kv, mesh):
+def _prefill(params, cfg, batch, skv, block_kv, mesh, cl=None):
     if cfg.enc_dec:
         return _whisper_prefill(params, cfg, batch, skv, block_kv)
     if cfg.family == "ssm":
@@ -596,16 +901,22 @@ def _prefill(params, cfg, batch, skv, block_kv, mesh):
 
     b, s = batch["tokens"].shape
     skv = skv or s
+    cl = cl or _WHOLE_CACHE
     top = _top(params)
     x = _embed_in(top, cfg, batch)
     positions = _positions(cfg, batch, b, s, x.device)
     ks, vs = [], []
     for i, (window, theta) in enumerate(_layer_scalars(cfg, skv)):
         lp = _layer(params["layers"], i)
-        x, k, v = _attn_block(lp, cfg, x, positions, theta, window, block_kv)
+        x, k, v = _attn_block(lp, cfg, x, positions, theta, window, block_kv,
+                              mesh)
         x = _ffn_layer(lp, cfg, x, mesh=mesh)
-        ks.append(_pad_cache(k, skv))
-        vs.append(_pad_cache(v, skv))
+        if mesh is not None and cl.heads == 1:
+            split = _attn_split(lp["attn"], cfg, s, mesh)
+            k, v = (_kv_whole(t.to(COMPUTE_DTYPE), cfg, split, mesh)
+                    for t in (k, v))
+        ks.append(_cache_block(_pad_cache(k, skv), cl, cfg, mesh))
+        vs.append(_cache_block(_pad_cache(v, skv), cl, cfg, mesh))
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     logits = hint(unembed(top, x[:, -1]), "batch", "vocab")
     return logits, {"self": {"k": torch.stack(ks), "v": torch.stack(vs)}}
@@ -690,18 +1001,27 @@ def _whisper_prefill(params, cfg, batch, skv, block_kv):
 
 def decode_step(params, cfg: ArchConfig, caches, batch, mesh=None):
     """batch: tokens (B,1), pos (B,). Returns (logits (B,V), new caches);
-    over a mesh the caches are each rank's rows (DTensors as ``prefill``
-    gives them, or the whole batch's plain tensors), the logits the
-    whole batch's on every rank and the new caches DTensors."""
+    over a mesh the caches are DTensors (as ``prefill`` gives them) or the
+    whole batch's plain tensors, and the logits and the new caches come
+    back as DTensors (the module docstring)."""
     if mesh is None:
         return _decode_step(params, cfg, caches, batch, None)
     params, batch = _on_mesh(params, batch, mesh)
-    logits, new = _decode_step(params, cfg, _local_caches(caches, mesh),
-                               batch, mesh)
-    return _whole_rows(logits, mesh), _cache_shards(new, mesh)
+    vocab = vocab_blocks(params)
+    if not _decoder(cfg):
+        logits, new = _decode_step(params, cfg, _local_caches(caches, mesh),
+                                   batch, mesh)
+        return rows_dtensor(logits, mesh, vocab), _cache_shards(new, mesh)
+    b = batch["tokens"].shape[0] * (mesh_axis_size(mesh, batch_axes(mesh))
+                                    if batch_axes(mesh) else 1)
+    local, cl = _decoder_cache_in(caches, cfg, mesh)
+    logits, new = _decode_step(params, cfg, local, batch, mesh, cl)
+    return rows_dtensor(logits, mesh, vocab), {
+        "self": {k: _stacked_dtensor(c, cl, cfg, mesh, b)
+                 for k, c in new["self"].items()}}
 
 
-def _decode_step(params, cfg, caches, batch, mesh):
+def _decode_step(params, cfg, caches, batch, mesh, cl=None):
     if cfg.enc_dec:
         return _whisper_decode(params, cfg, caches, batch)
     if cfg.family == "ssm":
@@ -713,29 +1033,72 @@ def _decode_step(params, cfg, caches, batch, mesh):
     b = tokens.shape[0]
     top = _top(params)
     x = _scale_embed(cfg, embed(top, tokens))
-    skv = caches["self"]["k"].shape[2]
+    cl = cl or _WHOLE_CACHE._replace(skv=caches["self"]["k"].shape[2])
     positions = pos[:, None]
     if cfg.rope_kind == "mrope":
         positions = pos[None, :, None].expand(3, b, 1)
     ks, vs = [], []
-    for i, (window, theta) in enumerate(_layer_scalars(cfg, skv)):
-        lp = {k: v if k == "moe" else gathered_tree(v)   # moe_block's own
-              for k, v in _layer(params["layers"], i).items()}
-        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = attn.qkv_proj(lp["attn"], h)
-        q, k = _apply_rope(cfg, q, k, positions, theta)
+    for i, (window, theta) in enumerate(_layer_scalars(cfg, cl.skv)):
+        lp = _layer(params["layers"], i)
         kc = hint(caches["self"]["k"][i], "batch", "kv_seq", "kv_heads", None)
         vc = hint(caches["self"]["v"][i], "batch", "kv_seq", "kv_heads", None)
-        kc, vc = attn.update_cache(kc, vc, k, v, pos)
-        o = attn.decode_attention(q, kc, vc, pos, window=window)
-        x = _ffn_layer(lp, cfg,
-                       _residual(x, attn.out_proj(lp["attn"], o)),
-                       mesh=mesh)
+        y, kc, vc = _decode_attn(lp, cfg, x, kc, vc, pos, positions, theta,
+                                 window, cl, mesh)
+        x = _ffn_layer(lp, cfg, _residual(x, y), mesh=mesh)
         ks.append(kc)
         vs.append(vc)
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     return _last_logits(top, x), {
         "self": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def _decode_attn(lp, cfg, x, kc, vc, pos, positions, theta, window,
+                 cl: _Cache, mesh):
+    """One decoder layer's attention of a decoded token: (out_proj of it,
+    the layer's updated k and v caches). Over a mesh the rank's query
+    heads read its block of the cache (``cl``): where the cache splits
+    the sequence over ``"model"``, every query head, joined over the
+    blocks (``attention.decode_combine``); else its own heads, against
+    the kv heads they read. ``wo`` sums the rank's heads over
+    ``"model"``."""
+    h = rmsnorm(gathered(lp["ln1"]), x, cfg.norm_eps)
+    pa = lp["attn"]
+    q, k, v, _ = _qkv(pa, h, h)
+    q, k = _apply_rope(cfg, q, k, positions, theta)
+    k, v = (_cache_heads(t, cfg, cl, mesh) for t in (k, v))
+    lo = cl.seq_lo
+    kc, vc = attn.update_cache(kc, vc, k, v, pos - lo if lo else pos)
+    heads, group = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
+    n_q = q.shape[2]
+    q_lo = mesh.get_local_rank(TP) * n_q if n_q < heads else 0
+    if n_q < heads and TP in cl.seq_axes:
+        q, q_lo, n_q = all_gather(q, mesh, TP, 2), 0, heads
+    kq, vq = kc, vc
+    if n_q < heads or cl.heads > 1:
+        kv_lo = mesh.get_local_rank(TP) * kc.shape[2] if cl.heads > 1 else 0
+        kq, vq = (attn.heads_for(t, kv_lo, q_lo, n_q, group)
+                  for t in (kc, vc))
+    m, l, o = attn.decode_attention_block(q, kq, vq, pos, window=window,
+                                          kv_offset=lo)
+    if cl.seq_axes:
+        l, o = attn.decode_combine(m, l, o, mesh, cl.seq_axes)
+    o = attn.decode_output(o, l, q)
+    wo = tp_leaf(pa["wo"], 0)
+    if wo.n > 1:
+        per = heads // wo.n
+        if n_q == heads:
+            o = o.narrow(2, wo.r * per, per)
+        elif (q_lo, n_q) != (wo.r * per, per):
+            raise ValueError("wo and wq split their heads differently over "
+                             "'model'")
+        hl, e, d = wo.t.shape
+        y = row_parallel(o.reshape(o.shape[:-2] + (hl * e,)),
+                         wo.t.reshape(hl * e, d), wo)
+    else:
+        if n_q < heads:
+            o = all_gather(o, mesh, TP, 2)
+        y = attn.out_proj({"wo": wo.t}, o)
+    return y, kc, vc
 
 
 def _ssm_decode(params, cfg, caches, batch):

@@ -16,7 +16,10 @@ its own copy of a loss taken from them, and the gradient enters the
 pipeline on the last stage from that stage's own copy (the outputs are
 one value, not a sum of the ranks' copies), so each stage's parameters
 receive the gradient of the loss. Bubble fraction = (S-1)/(T+S-1); pick
-n_micro >> n_stages.
+n_micro >> n_stages. A stage runs its function on whatever it is given:
+the stages over "pod" are not yet tied to the decoder stacks'
+tensor-parallel layers (``models.transformer``), whose parameters a
+stage function would gather whole at use (ROADMAP).
 """
 
 from __future__ import annotations

@@ -911,12 +911,13 @@ def test_one_rank_nccl_mesh_train_step_on_card(cuda):
 
 def test_one_rank_nccl_mesh_moe_forward_on_card(cuda):
     """Reduced granite-moe ``Model.forward(mesh=)`` on sharded parameters
-    equals the mesh-free forward on the card bit for bit."""
+    equals the mesh-free forward on the card bit for bit (the logits come
+    back as a DTensor)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.param import ShardingRules
     from repro_torch.models.sharding_ctx import distribute, mesh_shape_dict
-    from torch_dist_ranks import one_rank_mesh
+    from torch_dist_ranks import one_rank_mesh, whole
     cfg = get_config("granite-moe-3b-a800m").reduced()
     model = build_model(cfg)
     params = model.init(0, device=cuda)
@@ -927,6 +928,7 @@ def test_one_rank_nccl_mesh_moe_forward_on_card(cuda):
         got, got_aux = model.forward(distribute(params, mesh, model.param_specs(
             ShardingRules(), mesh_shape_dict(mesh))), {"tokens": toks},
             mesh=mesh)
+        got = whole(got)
     assert torch.equal(got, want) and torch.equal(got_aux, want_aux)
 
 

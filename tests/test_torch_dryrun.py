@@ -12,16 +12,18 @@ the reference's (``repro.launch.dryrun``) and against real gloo ranks.
   ``fake_mode`` on a fake group of the mesh's size, and each is its
   spec's shard.
 - The (2,4) mesh on a fake 8-rank group, at ``.reduced()`` and batch 4 x
-  64: FLOPs a rank are the one-device FLOPs over the "data" size,
-  exactly (dense archs, an even split; "model" ranks compute the same
-  rows); the argument bytes equal the reference's per-device
-  ``argument_size_in_bytes`` of its (2,4) compile (a subprocess on 8
-  host devices with ``test_torch_distributed.AUTO_AXES``; compiled with
+  64: FLOPs a rank within 10% of the reference's per-device
+  ``dot_flops`` of its (2,4) compile (dense archs; both split the rows
+  over "data" and the heads, the FFN and the vocabulary over "model");
+  the argument bytes equal the reference's per-device
+  ``argument_size_in_bytes`` of it (a subprocess on 8 host devices with
+  ``test_torch_distributed.AUTO_AXES``; compiled with
   ``keep_unused=True``, as the port's step holds every argument it is
   given); the reference's collective kinds and bytes are printed beside
-  the port's (GSPMD and the port's gather-whole design differ on
-  purpose). ``Model.forward(mesh=)`` all-gathers exactly the bytes the
-  spec tree predicts, leaf by leaf.
+  the port's (GSPMD picks its own collectives). ``Model.forward(mesh=)``
+  moves exactly the bytes the spec tree predicts: each leaf all-gathered
+  over "data" alone, one all-reduce over "model" a sublayer, no
+  logits.
 - Fake equals real: the fake group's collective kinds, counts and bytes,
   its FLOPs, traffic and memory equal those of the same steps on 8 real
   gloo ranks (``tests/torch_dist_ranks.py dryrun8``).
@@ -304,20 +306,32 @@ def _fake24(arch, name, kind):
 
 
 @pytest.mark.parametrize("arch,name,kind", SPLIT_CELLS)
-def test_mesh_splits_flops_over_data_and_matches_argument_bytes(
+def test_mesh_flops_match_reference_and_argument_bytes(
         mesh_runs, arch, name, kind):
+    """A rank's FLOPs on (2,4) within 10% of the reference's per-device
+    ``dot_flops`` of the same step, and its argument bytes equal. Both
+    split the rows over "data" and the heads, the FFN columns and the
+    vocabulary over "model", each rank projecting only the kv heads its
+    query heads read (2 kv heads do not split 4 ways). Measured: prefill
+    and decode equal exactly; in train the port is above by exactly one
+    attention-sized product a layer (2 * b * h * s * s * d, b and h the
+    rank's rows and heads: qwen2.5-3b +1.75%, gemma3-1b +2.13%), which
+    the reference's one-device program forms as the port does
+    (``test_torch_dryrun_compiled.py``: equal there) and its partitioned
+    program does not."""
     reference, _ = mesh_runs
     want = reference[f"{arch}|{name}"]
     cfg, shape = ranks.dryrun_cell(arch, name, kind)
     with dryrun.fake_mode():
         one = dryrun.trace_cell(cfg, shape, None, CPU)
     got = _fake24(arch, name, kind)
-    print(f"{arch} {name}: port (2,4) flops {got['flops_per_chip']} = one "
-          f"device {one['flops_per_chip']} / 2; reference (2,4) dot flops "
-          f"{want['dot_flops']}; collectives port "
+    ratio = got["flops_per_chip"] / want["dot_flops"]
+    print(f"{arch} {name}: port (2,4) flops {got['flops_per_chip']} "
+          f"(one device {one['flops_per_chip']}); reference (2,4) dot "
+          f"flops {want['dot_flops']}: {ratio:.4f}; collectives port "
           f"{got['collective_kinds']} ({got['collective_counts']}) vs "
           f"reference {want['collective_kinds']}")
-    assert got["flops_per_chip"] * 2 == one["flops_per_chip"]
+    assert 0.9 <= ratio <= 1.1
     assert got["memory_analysis"]["argument_size_bytes"] == \
         want["argument_size_bytes"]
 
@@ -336,8 +350,9 @@ def test_fake_group_counts_equal_real_gloo_ranks(mesh_runs, arch, name,
 
 
 def _gathered_bytes(shape, dtype, spec, mesh) -> int:
-    """``gather_param``'s all-gather bytes (result plus operand) for one
-    leaf of ``shape`` under ``spec``: the last mesh dimension first."""
+    """``tp_leaf``'s all-gather bytes (result plus operand) for one leaf
+    of ``shape`` under ``spec``: over each mesh dimension that splits it
+    but "model" (whose split a layer keeps), the last first."""
     pl = placements(spec, mesh)
     n = math.prod(shape)
     for i, p in enumerate(pl):
@@ -346,7 +361,8 @@ def _gathered_bytes(shape, dtype, spec, mesh) -> int:
     size = torch.empty((), dtype=dtype).element_size()
     total = 0
     for i in reversed(range(mesh.ndim)):
-        if hasattr(pl[i], "dim") and mesh.size(i) > 1:
+        if hasattr(pl[i], "dim") and mesh.size(i) > 1 and \
+                mesh.mesh_dim_names[i] != "model":
             total += (n + n * mesh.size(i)) * size
             n *= mesh.size(i)
     return total
@@ -354,9 +370,11 @@ def _gathered_bytes(shape, dtype, spec, mesh) -> int:
 
 def test_forward_gathers_what_the_spec_tree_predicts():
     """qwen2.5-3b reduced, ``Model.forward(mesh=)`` on (2,4) with the
-    whole batch on every rank: each stacked leaf is gathered once a
-    layer and each other leaf once; the logits of the rank's rows are
-    gathered over "data". Nothing else is gathered."""
+    whole batch on every rank: each stacked leaf is all-gathered over
+    "data" alone once a layer and each other leaf once (a "model" split
+    is kept); the vocabulary-parallel lookup's bf16 rows of the rank and
+    each sublayer's f32 row-parallel sum are all-reduced over "model";
+    the logits stay the rank's (nothing else moves)."""
     cfg, shape = ranks.dryrun_cell("qwen2.5-3b", "train_4k", "train")
     model = build_model(cfg)
     b, s = shape.global_batch, shape.seq_len
@@ -374,16 +392,19 @@ def test_forward_gathers_what_the_spec_tree_predicts():
                         d.shape[1:], d.dtype, tuple(spec)[1:], mesh)
                 else:
                     want += _gathered_bytes(d.shape, d.dtype, spec, mesh)
-        rows = b // 2 * s * cfg.vocab * 2        # bf16 logits of a rank
-        want += rows + 2 * rows
+        rows = b // 2 * s * cfg.d_model      # a rank's residual stream
+        # an all-reduce moves its operand and its result
+        reduced = 2 * (rows * 2 + cfg.n_layers * 2 * rows * 4)
         with dryrun.fake_mode():
             params = spec_map(lambda d, sp: dryrun._placed(d, sp, mesh, CPU),
                               defs, specs)
             tokens = torch.zeros((b, s), dtype=torch.int32)
-            _, an = dryrun.trace(lambda p, t: model.forward(
+            (logits, _), an = dryrun.trace(lambda p, t: model.forward(
                 p, {"tokens": t}, mesh=mesh), (params, tokens))
-    assert set(an["collective_kinds"]) == {"all-gather"}
-    assert an["collective_kinds"]["all-gather"] == want
+        assert tuple(logits.to_local().shape) == (b // 2, s, cfg.vocab // 4)
+    assert an["collective_kinds"] == {"all-gather": want,
+                                      "all-reduce": reduced}
+    assert an["collective_counts"]["all-reduce"] == 1 + 2 * cfg.n_layers
 
 
 def test_cli_writes_what_roofline_renders(tmp_path):

@@ -453,7 +453,7 @@ def test_one_rank_mesh_step_calls_no_collective(arch, monkeypatch):
 def test_one_rank_mesh_serving_is_mesh_free(arch):
     """``forward``, ``prefill`` and two ``decode_step``s over a (1,1)
     mesh on sharded parameters: the mesh-free logits and caches, bit for
-    bit; the caches come back as DTensors."""
+    bit; the logits and the caches come back as DTensors."""
     cfg, _, np_state, model, batch = _setup(arch)
     tb = {k: v for k, v in _port_batch(batch).items() if k != "labels"}
     params = convert.params_from_numpy(np_state["params"], "cpu")
@@ -476,7 +476,8 @@ def test_one_rank_mesh_serving_is_mesh_free(arch):
                 out.append(lg)
             if m is not None:
                 assert all(hasattr(c, "placements")
-                           for c in tree_leaves(caches))
+                           for c in tree_leaves(caches) + [out[0], out[2]])
+                out = [whole(t) for t in out]
             runs.append(out + [whole(c) for c in tree_leaves(caches)])
     for a, b in zip(*runs):
         assert torch.equal(a, b)

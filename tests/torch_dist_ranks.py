@@ -28,6 +28,7 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 if SRC not in sys.path:
@@ -39,8 +40,12 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.mesh import (init_process_group,  # noqa: E402
                                      make_host_mesh)
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.param import ShardingRules, tree_leaves  # noqa: E402
-from repro_torch.models.sharding_ctx import mesh_shape_dict  # noqa: E402
+from repro_torch.models.param import (PartitionSpec,  # noqa: E402
+                                      ShardingRules, placements, tree_leaves)
+from repro_torch.models.sharding_ctx import (LocalShard,  # noqa: E402
+                                             axis_rules, distribute,
+                                             distribute_leaf,
+                                             mesh_shape_dict)
 from repro_torch.optim.optimizer import OptimizerConfig  # noqa: E402
 from repro_torch.runtime import HostFailure, Supervisor  # noqa: E402
 from repro_torch.runtime.pipeline import bubble_fraction, pipeline  # noqa: E402
@@ -61,6 +66,8 @@ DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "train"),
                 ("granite-moe-3b-a800m", "train_4k", "train"))
 DRYRUN_BATCH, DRYRUN_SEQ = 4, 64
 TRAIN_ARCH = "qwen2.5-3b"
+QROWS_HEADS = 6             # heads that do not divide a 4-way "model" axis
+DECODE_BATCH, DECODE_STEPS = 4, 4
 TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 5}
 PIPE = {"n_stages": 4, "n_micro": 6, "mb": 2, "d": 8}
 
@@ -145,8 +152,10 @@ def _ce_only(model, mesh):
 def job_port8(rank, workdir, inp):
     """The (2,4) mesh paths against the mesh-free port on the same
     weights: MoE expert parallelism, the sharded train step, a sharded
-    save, prefill and decode over the mesh; the pipeline on (4,2)
-    ("pod","data"); compressed_psum over 8 ranks."""
+    save, prefill and decode over the mesh (and under the decode rules),
+    the query-row split of heads that do not divide "model", the
+    vocabulary-parallel loss; the pipeline on (4,2) ("pod","data");
+    compressed_psum over 8 ranks."""
     out = {}
     mesh = make_host_mesh(2, 4, device="cpu")
     for name, arch, kw in MOE_CASES:
@@ -162,9 +171,9 @@ def job_port8(rank, workdir, inp):
             model.param_specs(ShardingRules(),
                               mesh_shape_dict(mesh)))
         dt, _ = model.forward(sharded, {"tokens": toks}, mesh=mesh)
-        out[f"{name}_logits"] = _np(got)
+        out[f"{name}_logits"] = _np(dt)
+        out[f"{name}_plain_logits"] = _np(got)
         out[f"{name}_free_logits"] = _np(free)
-        out[f"{name}_dtensor_same"] = np.array(torch.equal(dt, got))
         batch = {"tokens": toks, "labels": toks}
         (l_mesh, _), g_mesh = tstep.value_and_grad(
             _ce_only(model, mesh), sharded, batch, mesh)
@@ -196,6 +205,10 @@ def job_port8(rank, workdir, inp):
             out["serve_caches_same"] = np.array(all(
                 torch.equal(whole(a), b) for a, b in zip(
                     tree_leaves(caches), tree_leaves(caches0))))
+
+    out.update(_query_rows(mesh, inp))
+    out.update(_decode_rules(mesh, inp))
+    out.update(_vocab_parallel_loss(mesh, rank))
 
     # the sharded train step against the mesh-free step
     cfg = get_config(TRAIN_ARCH).reduced()
@@ -302,6 +315,142 @@ def job_port8(rank, workdir, inp):
     out["psum_data"] = compression.compressed_psum(
         {"g": q}, {"g": s}, "data", 2, mesh=mesh)["g"].numpy()
     return out
+
+
+def _query_rows(mesh, inp):
+    """qwen2.5-3b reduced with 6 heads, which do not divide the 4-way
+    "model" axis: each rank takes its block of the query rows (the
+    reference's ``attn_q_seq`` branch). The (2,4) forward and train step
+    against the mesh-free ones, from the same draw."""
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(),
+                              n_heads=QROWS_HEADS)
+    model = build_model(cfg)
+    batch = {k: torch.from_numpy(inp[f"train_{k}"])
+             for k in ("tokens", "labels")}
+    state = tstep.init_state(model, 0, device="cpu", mesh=mesh)
+    plain = tstep.init_state(model, 0, device="cpu")
+    attn0 = {k: LocalShard.of(v, mesh)[0]
+             for k, v in state["params"]["layers"]["attn"].items()}
+    split = transformer._attn_split(attn0, cfg, batch["tokens"].shape[1],
+                                    mesh)
+    got, _ = model.forward(state["params"], {"tokens": batch["tokens"]},
+                           mesh=mesh)
+    want, _ = model.forward(plain["params"], {"tokens": batch["tokens"]})
+    out = {"qrows_split": np.array(str(split.kind)),
+           "qrows_logits": _np(got), "qrows_free_logits": _np(want)}
+    old = {k: _np(v).copy() for k, v in flat(plain["params"]).items()}
+    (_, _), g = tstep.value_and_grad(
+        tstep.make_loss_fn(model, mesh=mesh, remat=True), state["params"],
+        batch, mesh)
+    (_, _), g0 = tstep.value_and_grad(tstep.make_loss_fn(model, remat=True),
+                                      plain["params"], batch)
+    out["qrows_grad_rel"] = np.array(
+        [_rel(whole(a), b) for a, b in zip(tree_leaves(g), tree_leaves(g0))])
+    opt_cfg = OptimizerConfig(**TRAIN_OPT)
+    new, m = tstep.make_train_step(model, opt_cfg, mesh=mesh, remat=True)(
+        state, batch)
+    new0, m0 = tstep.make_train_step(model, opt_cfg, remat=True)(plain,
+                                                                 batch)
+    for k in ("loss", "grad_norm"):
+        out[f"qrows_{k}"] = np.array([float(m[k]), float(m0[k])])
+    new, new0 = flat(new["params"]), flat(new0["params"])
+    out["qrows_update_rel"] = np.array([
+        float(np.linalg.norm((_np(new[k]) - old[k]) - (_np(new0[k]) - old[k]))
+              / max(np.linalg.norm(_np(new0[k]) - old[k]), 1e-30))
+        for k in sorted(old)])
+    return out
+
+
+def _decode_rules(mesh, inp):
+    """qwen2.5-3b reduced under the dry-run's decode rules (``kv_seq`` on
+    "model", no FSDP): prefill then four decode steps on (2,4) against
+    the mesh-free ones, each rank's caches its spec's block; the
+    collectives of one decode step, traced."""
+    from repro_torch.launch import dryrun
+    cfg = get_config(TRAIN_ARCH).reduced()
+    model = build_model(cfg)
+    ms = mesh_shape_dict(mesh)
+    rules = dryrun.sharding_rules_for("decode_32k", DECODE_BATCH, ms)
+    toks = torch.from_numpy(inp["train_tokens"])
+    params = convert.params_from_numpy(unflat(inp, "train_state")["params"],
+                                       "cpu")
+    b, skv = toks.shape[0], toks.shape[1] + DECODE_STEPS
+    out = {}
+    with axis_rules(rules, ms):
+        sharded = distribute(params, mesh, model.param_specs(rules, ms))
+        specs = model.cache_specs(b, skv, rules, ms)
+        logits, caches = model.prefill(sharded, {"tokens": toks}, skv=skv,
+                                       mesh=mesh)
+        logits0, caches0 = model.prefill(params, {"tokens": toks}, skv=skv)
+        steps, steps0 = [logits], [logits0]
+        for i in range(DECODE_STEPS):
+            nxt = {"tokens": toks[:, i:i + 1],
+                   "pos": torch.full((b,), toks.shape[1] + i,
+                                     dtype=torch.int32)}
+            if i == 0:
+                (lg, caches), an = dryrun.trace(
+                    lambda c, n: model.decode_step(sharded, c, n, mesh=mesh),
+                    (caches, nxt))
+                out["dec_collectives"] = np.array(json.dumps(
+                    [an["collective_kinds"], an["collective_counts"]]))
+            else:
+                lg, caches = model.decode_step(sharded, caches, nxt,
+                                               mesh=mesh)
+            lg0, caches0 = model.decode_step(params, caches0, nxt)
+            steps.append(lg)
+            steps0.append(lg0)
+        out["dec_placed"] = np.array(all(
+            tuple(c.placements) == tuple(placements(sp, mesh)) and
+            list(c.to_local().shape) == _block_shape(c.shape, sp, mesh)
+            for c, sp in zip(tree_leaves(caches), tree_leaves(specs))))
+    out["dec_block_bytes"] = np.array(
+        tree_leaves(caches)[0].to_local()[0].nbytes)
+    out["dec_logits"] = np.stack([_np(t) for t in steps])
+    out["dec_free_logits"] = np.stack([_np(t) for t in steps0])
+    for key, c, c0 in zip(("k", "v"), tree_leaves(caches),
+                          tree_leaves(caches0)):
+        out[f"dec_cache_{key}"] = _np(c)
+        out[f"dec_free_cache_{key}"] = _np(c0)
+    return out
+
+
+def _block_shape(shape, spec, mesh):
+    local = list(shape)
+    for i, p in enumerate(placements(spec, mesh)):
+        if hasattr(p, "dim"):
+            local[p.dim] //= mesh.size(i)
+    return local
+
+
+def _vocab_parallel_loss(mesh, rank):
+    """``cross_entropy`` on bf16 logits split over the rows ("data") and
+    the vocabulary ("model") against it on the whole logits: the CE and
+    z-loss, and the gradient of a rank's loss / 8 on its block against
+    the block of the whole loss's gradient."""
+    rng = np.random.default_rng(7)
+    whole_logits = torch.from_numpy((rng.standard_normal((4, 32, 512)) * 4)
+                                    .astype(np.float32)).to(torch.bfloat16)
+    labels = torch.from_numpy(rng.integers(0, 512, (4, 32)).astype(np.int32))
+    mask = torch.from_numpy((rng.random((4, 32)) < 0.8).astype(np.float32))
+    spec = PartitionSpec("data", None, "model")
+    placed = distribute_leaf(whole_logits, mesh, spec)
+    local = placed.to_local().detach().requires_grad_()
+    dt = DTensor.from_local(local, mesh, placed.placements, run_check=False)
+    ce, zl = tstep.cross_entropy(dt, labels, mask)
+    grad = torch.autograd.grad((ce + tstep.Z_LOSS_WEIGHT * zl) / 8, local)[0]
+    x = whole_logits.detach().requires_grad_()
+    ce0, zl0 = tstep.cross_entropy(x, labels, mask)
+    grad0 = torch.autograd.grad(ce0 + tstep.Z_LOSS_WEIGHT * zl0, x)[0]
+    d, m = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    block = grad0[d * 2:(d + 1) * 2, :, m * 128:(m + 1) * 128]
+    rel = float((grad.double() - block.double()).norm()
+                / block.double().norm())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, rel)
+    return {"ce_terms": np.array([float(ce), float(ce0), float(zl),
+                                  float(zl0)]),
+            "ce_grad_rel": np.array(every)}
 
 
 def job_port4(rank, workdir, inp):
