@@ -137,7 +137,13 @@ without printing the result line):
    ``init_state(mesh=)`` against the mesh-free step, and granite-moe at
    full width, 2 layers, ``Model.forward(mesh=)`` on sharded parameters
    against the mesh-free forward, both bit for bit (one rank adds no
-   arithmetic) and calling no collective (each printed), and the memory
+   arithmetic) and calling no collective (each printed); mamba2-780m (2
+   layers over 300 tokens), zamba2-2.7b (6 layers: one group and its
+   shared block) and whisper-small (2+2 layers at 1500 frames) at full
+   width, each through ``forward``, ``prefill`` and 3 ``decode_step``
+   on the mesh, and mamba2 through one ``make_train_step(mesh=)`` step,
+   bit for bit against the mesh-free calls with no collective (their
+   layers split over "model" as the decoders' do); and the memory
    that ``init_state(mesh=)``, a sharded
    ``save`` and ``restore(mesh=, spec_tree=)`` hold above the state,
    each at most two whole leaves (a leaf is drawn, gathered or read
@@ -155,15 +161,16 @@ without printing the result line):
    the phase's launch counts are read for this phase alone;
 12. the dry-run (``launch.dryrun``) on the card machine, each run in a
    process of its own over a fake process group, its fake tensors on
-   the card: (a) qwen2.5-3b ``train_4k`` and qwen3-moe-235b-a22b
-   ``decode_32k`` (2-D expert parallelism) on (16,16), mamba2-780m
-   ``long_500k`` (batch 1) on (2,16,16), through the CLI: each prints its
+   the card: (a) qwen2.5-3b ``train_4k``, qwen3-moe-235b-a22b
+   ``decode_32k`` (2-D expert parallelism) and zamba2-2.7b ``train_4k``
+   on (16,16), mamba2-780m ``long_500k`` (batch 1) on (2,16,16),
+   through the CLI: each prints its
    OK line, every figure is finite, FLOPs, traffic and collective bytes
    a rank are positive, the argument bytes equal the spec trees' shards
    exactly, and each cell's trace time, roofline terms, dominant term and
    peak against the card's memory are printed, its FLOPs, collective
-   bytes and peak a rank beside those of the design before the mesh
-   paths split the work over "model" (``DRYRUN_BEFORE``); (b) phase 11(b)'s step
+   bytes and peak a rank beside those of the design before its layers
+   split over "model" (``DRYRUN_BEFORE``); (b) phase 11(b)'s step
    traced on a (1,1) fake mesh: its FLOPs equal ``FlopCounterMode`` over
    11(b)'s extra step, its peak above the arguments within 5% of that
    step's peak above the bytes live before it, its kernel-launching ops
@@ -3500,6 +3507,135 @@ def mesh_parity(torch, card, mesh, n_layers=2, batch=2, seq=128):
     return out
 
 
+# 11(a): the SSM, hybrid and encoder-decoder families on the mesh (depth
+# and prompt tokens as FAMILY_PARITY: mamba2 2 layers over 300 tokens,
+# zamba2 one group and its shared block, whisper 2+2 layers at 1500
+# frames); mamba2 also takes one sharded train step
+MESH_FAMILIES = ("mamba2-780m", "zamba2-2.7b", "whisper-small")
+MESH_FAMILY_TRAIN = "mamba2-780m"
+
+
+def mesh_families(torch, card, mesh, batch=2, steps=3):
+    """(a) each of ``MESH_FAMILIES`` at full width, its depth cut as
+    ``FAMILY_PARITY``: ``Model.forward(mesh=)``, ``prefill(mesh=)`` and
+    ``steps`` ``decode_step(mesh=)`` on sharded parameters against the
+    mesh-free calls on the same weights, tokens and (whisper) frames, and
+    ``MESH_FAMILY_TRAIN``'s ``make_train_step(mesh=)`` step from
+    ``init_state(mesh=)`` against the mesh-free step. On one rank the
+    mesh paths add no arithmetic: the logits, the aux loss, every cache
+    leaf, the metrics and every updated leaf are held bit for bit, and
+    the mesh calls call no collective (``_Collectives``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.param import ShardingRules, tree_leaves
+    from repro_torch.models.sharding_ctx import distribute, mesh_shape_dict
+    from repro_torch.optim.optimizer import OptimizerConfig
+    from repro_torch.train import step as train_step
+    out = {}
+    for arch in MESH_FAMILIES:
+        n_layers, prompt = FAMILY_PARITY[arch]
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                                  n_enc_layers=2 if cfg.enc_dec else 0)
+        model = build_model(cfg)
+        params = model.init(SEED, device="cuda")
+        sharded = distribute(params, mesh, model.param_specs(
+            ShardingRules(), mesh_shape_dict(mesh)))
+        rng = np.random.default_rng(SEED)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (batch, prompt + steps)).astype(np.int32)).cuda()
+        extra = {}
+        if cfg.enc_dec:
+            extra["frames"] = torch.from_numpy(rng.standard_normal(
+                (batch, cfg.n_frames, cfg.d_model)).astype(np.float32)
+            ).cuda()
+        runs, calls = [], {}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for p, m in ((params, None), (sharded, mesh)):
+                with _Collectives() as coll:
+                    logits, aux = model.forward(p, dict(extra, tokens=toks),
+                                                mesh=m)
+                    got = [_local(logits), aux]
+                    lg, caches = model.prefill(
+                        p, dict(extra, tokens=toks[:, :prompt]),
+                        skv=prompt + steps, mesh=m)
+                    got.append(_local(lg))
+                    for i in range(steps):
+                        nxt = {"tokens": toks[:, prompt + i:prompt + i + 1],
+                               "pos": torch.full((batch,), prompt + i,
+                                                 dtype=torch.int32,
+                                                 device="cuda")}
+                        lg, caches = model.decode_step(p, caches, nxt, mesh=m)
+                        got.append(_local(lg))
+                    torch.cuda.synchronize()
+                placed = m is None or all(hasattr(c, "placements")
+                                          for c in tree_leaves(caches))
+                runs.append(got + [_local(c) for c in tree_leaves(caches)])
+                calls = coll.calls
+        wall = time.perf_counter() - t0
+        differ = [i for i, (a, b) in enumerate(zip(*runs))
+                  if not torch.equal(a, b)]
+        if differ or len(runs[0]) != len(runs[1]) or not placed:
+            fail(f"{arch} on the (1,1) mesh differs from the mesh-free "
+                 f"calls: outputs {differ} (of {len(runs[0])}; logits, aux, "
+                 f"prefill, {steps} decodes, then each cache leaf), caches "
+                 f"as DTensors {placed}")
+        if calls:
+            fail(f"{arch} on the (1,1) mesh called collectives: {calls}")
+        out[arch] = {"n_layers": n_layers, "prompt": prompt,
+                     "outputs": len(runs[0]), "wall_s": wall,
+                     "collectives": calls}
+        enc = (f" + {cfg.n_enc_layers} encoder layers at {cfg.n_frames} "
+               f"frames" if cfg.enc_dec else "")
+        line = (f"mesh parity {arch} full width, {n_layers} layers{enc}, "
+                f"batch {batch} x {prompt}: forward, prefill and {steps} "
+                f"decode steps on the (1,1) mesh equal the mesh-free calls "
+                f"bit for bit ({len(runs[0])} tensors: logits, aux, every "
+                f"cache leaf, the caches DTensors) and call collectives "
+                f"{calls} (none)")
+        del runs, params, sharded
+        if arch == MESH_FAMILY_TRAIN:
+            data = _tree_to(_train_batch(torch, cfg, batch, prompt), "cuda")
+            opt_cfg = OptimizerConfig(**TRAIN_OPT)
+            free = train_step.init_state(model, SEED, device="cuda")
+            placed_state = train_step.init_state(model, SEED, device="cuda",
+                                                 mesh=mesh)
+            new_free, m_free = train_step.make_train_step(
+                model, opt_cfg, remat="save_attn")(free, data)
+            with _Collectives() as coll:
+                new_mesh, m_mesh = train_step.make_train_step(
+                    model, opt_cfg, mesh=mesh, remat="save_attn")(
+                        placed_state, data)
+                torch.cuda.synchronize()
+            differ = [k for (k, a), (_, b) in zip(_named_leaves(new_free),
+                                                  _named_leaves(new_mesh))
+                      if not torch.equal(a, _local(b))]
+            if differ or any(not torch.equal(m_free[k], m_mesh[k])
+                             for k in m_free):
+                fail(f"{arch}: the (1,1) mesh step differs from the "
+                     f"mesh-free step: {len(differ)} leaves (first "
+                     f"{differ[:4]}), loss {float(m_free['loss'])} vs "
+                     f"{float(m_mesh['loss'])}")
+            if coll.calls:
+                fail(f"{arch}: the (1,1) mesh step called collectives: "
+                     f"{coll.calls}")
+            out[arch].update(loss=float(m_free["loss"]),
+                             grad_norm=float(m_free["grad_norm"]),
+                             step_collectives=coll.calls)
+            line += (f"; one make_train_step(mesh=) step (remat save_attn) "
+                     f"equals the mesh-free step bit for bit (loss "
+                     f"{float(m_free['loss']):.6f}, grad_norm "
+                     f"{float(m_free['grad_norm']):.6f}, "
+                     f"{len(tree_leaves(new_free))} leaves) and calls "
+                     f"collectives {coll.calls} (none)")
+            del free, placed_state, new_free, new_mesh
+        log(f"{line}; wall {wall:.3f} s on {card}")
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_entry(torch, card, scan, mesh, steps=30, more=10):
     """(c) ``launch.train.main --reduced --device cuda`` inside the
     phase's process group: its (1,1) mesh, the state as DTensors, for
@@ -3656,6 +3792,7 @@ def mesh_phase(torch, card, wrappers, unsharded):
                 f"{dist.get_world_size()}")
             report["parity"] = mesh_parity(torch, card, mesh)
             torch.cuda.empty_cache()
+            report["families"] = mesh_families(torch, card, mesh)
             full = train_full(torch, card, scan, mesh=mesh, counted=True,
                               **dict(TRAIN_FULL, steps=MESH_STEPS))
             report["full"] = full
@@ -3688,17 +3825,20 @@ def mesh_phase(torch, card, wrappers, unsharded):
 # 12(a): production cells through the dry-run's CLI (arch, shape, multi-pod)
 DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", False),
                 ("qwen3-moe-235b-a22b", "decode_32k", False),
-                ("mamba2-780m", "long_500k", True))
+                ("mamba2-780m", "long_500k", True),
+                ("zamba2-2.7b", "train_4k", False))
 # the same cells' figures a rank (FLOPs, collective bytes, peak bytes) as
-# this script's phase 12 printed them on an H100 80GB HBM3 at 700.00 W
-# before the mesh paths split the work over "model" (every rank gathered
-# each weight whole and computed its rows whole; the logits of the whole
-# batch on every rank), printed beside this run's
+# the dry-run printed them on an H100 80GB HBM3 at 700.00 W before the
+# mesh paths split each cell's layers over "model" (every rank gathered
+# those layers' weights whole and computed its rows whole; PERF.md),
+# printed beside this run's
 DRYRUN_BEFORE = {
     ("qwen2.5-3b", "train_4k", False): (1.7873e15, 7.2030e11, 3207549863960),
     ("qwen3-moe-235b-a22b", "decode_32k", False): (9.8537e11, 1.0957e12,
                                                    162657794112),
-    ("mamba2-780m", "long_500k", True): (1.5973e9, 1.5341e9, 666952760)}
+    ("mamba2-780m", "long_500k", True): (1.5973e9, 1.5341e9, 666952760),
+    ("zamba2-2.7b", "train_4k", False): (1.5385e15, 4.0478e10,
+                                         1131691022624)}
 # 12(b): phase 11(b)'s step, traced as one rank of a (1,1) fake mesh
 DRYRUN_CARD = """
 import json, sys
@@ -3877,7 +4017,7 @@ def dryrun_phase(torch, card, meshed):
                 f"({'fits' if peak <= total else 'does not fit'}) on {card}")
             flops0, coll0, peak0 = DRYRUN_BEFORE[(arch, shape_name, multi)]
             log(f"12(a) {arch} {shape_name} on {mesh} against the gather "
-                f"design: FLOPs a rank {r['flops_per_chip']:.4e} vs "
+                f"design (DRYRUN_BEFORE): FLOPs a rank {r['flops_per_chip']:.4e} vs "
                 f"{flops0:.4e} ({r['flops_per_chip'] / flops0:.4f}x), "
                 f"collective bytes {r['collective_bytes']:.4e} vs "
                 f"{coll0:.4e} ({r['collective_bytes'] / coll0:.4f}x), peak "

@@ -24,9 +24,9 @@ row-parallel (the contracted dimension split, ``row_parallel``: one
 ``psum`` over ``"model"``). The backward of a gather sums each rank's
 gradient into its shard, and a leaf every ``"model"`` rank holds alike
 has its ranks' partial gradients summed (``gather_param``). ``gathered``
-makes a whole parameter of a shard, for the layers that still compute
-whole (ROADMAP). ``shard_map`` runs a function on each rank's local
-tensors.
+makes a whole parameter of a shard, for the leaves whose spec does not
+split them over ``"model"`` (the norms). ``shard_map`` runs a function on
+each rank's local tensors.
 """
 
 from __future__ import annotations
@@ -537,6 +537,71 @@ def kv_share(t: torch.Tensor, lo: int, kv: int, holders, mesh
     """``_KvShare`` of ``t`` over ``"model"``; ``holders[h]`` is the number
     of ranks holding kv head ``h``."""
     return _KvShare.apply(t, lo, kv, list(holders), mesh.get_group(TP))
+
+
+class _RowWeight(torch.autograd.Function):
+    """``a * w`` with ``w`` cast to a's dtype and broadcast over a's
+    leading dimensions: the mesh-free layer's product. The backward gives
+    ``w`` the sum over this rank's rows of the bf16 products of the
+    mesh-free backward, in f32 and unrounded: the ranks' sums (the
+    adjoint of ``gather_param``) then add up to what the mesh-free
+    backward sums over every row before it rounds once, where the sum of
+    each rank's rounded partial sum may not (a sum near zero rounds to
+    zero on one rank, and its update changes sign)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        wc = w.to(a.dtype)
+        ctx.save_for_backward(a, wc)
+        ctx.dtype = w.dtype
+        return a * wc
+
+    @staticmethod
+    def backward(ctx, g):
+        a, wc = ctx.saved_tensors
+        gw = (g * a).to(torch.float32).reshape((-1,) + tuple(wc.shape)) \
+            .sum(0)
+        return g * wc, gw.to(ctx.dtype)
+
+
+def row_weight(a: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``a * w`` (``w`` cast to a's dtype) for a weight ``w`` that every
+    rank of ``mesh`` holds alike and whose gradient sums over the rows:
+    over more than one rank ``_RowWeight``, else the plain product."""
+    if mesh is None or mesh.size() == 1:
+        return a * w.to(a.dtype)
+    return _RowWeight.apply(a, w)
+
+
+class _RepeatIn(torch.autograd.Function):
+    """``t`` (.., groups, n), held alike by the group's ranks, with each
+    group repeated ``rep`` times along dimension -2 for this rank's heads
+    (``repeat_interleave``). The backward sums the heads' gradients of a
+    group in f32, over this rank's heads and then over the ranks, and
+    rounds the sum divided by the group's size once: the mesh-free
+    repeat over every head sums its bf16 gradients in f32 and rounds
+    once, and every rank holds the same share of it."""
+
+    @staticmethod
+    def forward(ctx, t, rep, group):
+        ctx.rep, ctx.group = rep, group
+        return t.repeat_interleave(rep, dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape = g.shape[:-2] + (g.shape[-2] // ctx.rep, ctx.rep, g.shape[-1])
+        total = g.to(torch.float32).reshape(shape).sum(-2)
+        dist.all_reduce(total, group=ctx.group)
+        return (total / dist.get_world_size(ctx.group)).to(g.dtype), None, \
+            None
+
+
+def repeat_in(t: torch.Tensor, rep: int, mesh) -> torch.Tensor:
+    """``_RepeatIn`` of ``t`` over ``"model"``; over one rank (or without a
+    mesh) ``t`` as it is, for the caller to repeat."""
+    if tp_size(mesh) == 1:
+        return t
+    return _RepeatIn.apply(t, rep, mesh.get_group(TP))
 
 
 class _AddPsum(torch.autograd.Function):

@@ -13,6 +13,22 @@ for key.
 Causal depthwise conv (width 4) is computed as 4 shifted adds; its state
 (last W-1 inputs) is carried in the decode cache.
 
+Over a mesh the block is tensor-parallel as the reference's specs place
+its leaves over ``"model"``: ``wz``, ``wx``, ``conv_x`` and ``norm`` are
+this rank's block of ``ffn`` (``d_inner``), ``wdt``, ``dt_bias``,
+``A_log`` and ``Dskip`` its block of ``ssm_heads``, and ``wo`` sums the
+rank's rows into the residual stream (one ``psum``, ``row_parallel``).
+``wB``, ``wC``, ``conv_B`` and ``conv_C`` are whole on every rank (as
+GSPMD leaves them): B and C are computed whole and each rank repeats
+them to its own heads, their gradient summed over every rank's heads
+(``repeat_in``). The gated norm normalises over the whole ``d_inner``:
+its f32 sum of squares is summed over ``"model"``. The chunked SSD is
+head-local and runs on the rank's heads as it is. The weights broadcast
+over the rows (the norm, the conv taps) sum their gradient over the
+rank's rows in f32 (``row_weight``). The decode cache is laid out
+alike: ``conv_x`` the rank's channels, ``state`` its heads,
+``conv_B``/``conv_C`` whole.
+
 The reference's ``lax.scan`` over chunks is a Python loop. Its bf16
 products with ``preferred_element_type=float32`` run on f32 copies of
 their operands (``attention._f32_einsum``); ``silu`` is the reference's
@@ -32,7 +48,8 @@ from ..configs.base import ArchConfig
 from .attention import _f32_einsum
 from .layers import _act, cast, rmsnorm
 from .param import ParamDef
-from .sharding_ctx import hint
+from .sharding_ctx import (TP, column_in, hint, psum, repeat_in, row_parallel,
+                           row_weight, tp_leaf)
 
 
 class SSMDims(NamedTuple):
@@ -94,9 +111,11 @@ def _softplus(x):
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 state: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 state: Optional[torch.Tensor] = None, mesh=None
+                 ) -> torch.Tensor:
     """Depthwise causal conv: x (B,S,C), w (W,C). If `state` (B,W-1,C) is
-    given it provides left context (prefill continuation)."""
+    given it provides left context (prefill continuation). Over a
+    ``mesh`` w's gradient sums the rank's rows in f32 (``row_weight``)."""
     width = w.shape[0]
     if state is None:
         ctx = torch.zeros((x.shape[0], width - 1, x.shape[2]),
@@ -107,7 +126,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     out = torch.zeros_like(x)
     s = x.shape[1]
     for i in range(width):
-        out = out + full[:, i:i + s] * cast(w[i], x.dtype)
+        out = out + row_weight(full[:, i:i + s], w[i], mesh)
     return out
 
 
@@ -186,24 +205,74 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     return y.to(x.dtype), s_prev
 
 
+def _gated_norm(w, g: torch.Tensor, dtype, width: int, tp=None, mesh=None,
+                eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm(w, g)`` over the whole ``width`` channels, where ``g``
+    (f32) and ``w`` are this rank's block of them over ``"model"`` when
+    ``tp`` (the mesh) is given: the f32 sum of squares is summed over
+    ``"model"`` and divided by ``width``. Without a split it is
+    ``rmsnorm`` itself, whose mean need not round as a sum divided by
+    ``width`` does."""
+    if tp is None:
+        return rmsnorm(w, g, eps, dtype=dtype, mesh=mesh)
+    var = psum(torch.sum(g * g, dim=-1, keepdim=True), tp, TP) / width
+    return row_weight((g * torch.rsqrt(var + eps)).to(dtype), w, mesh)
+
+
+def _rank_groups(t: torch.Tensor, dims: SSMDims, heads: int, r: int
+                 ) -> torch.Tensor:
+    """``t`` (..., n_groups, d_state), whole, as the groups that the
+    rank's ``heads`` heads (its block ``r``) read: all of them where there
+    is one group (each head reads it) or the rank holds every head, else
+    the rank's run of groups."""
+    if dims.n_groups == 1 or heads == dims.n_heads:
+        return t
+    rep = dims.n_heads // dims.n_groups
+    if heads % rep:
+        raise ValueError(f"{heads} heads a rank do not hold whole groups of "
+                         f"{rep}")
+    return t.narrow(-2, r * heads // rep, heads // rep)
+
+
 def ssm_block(p, x: torch.Tensor, cfg: ArchConfig,
               cache: Optional[dict] = None, pos=None,
-              return_cache: bool = False):
-    """Full Mamba2 block. x (B,S,d).
+              return_cache: bool = False,
+              res: Optional[torch.Tensor] = None):
+    """Full Mamba2 block. x (B,S,d); with ``res`` (the residual stream)
+    the block's output is added to it in x's dtype.
 
     Forward: cache=None. Prefill: return_cache=True -> returns
     (out, cache). Decode: cache given, S==1 -> recurrent update (``pos``
-    is not read: the state carries the position)."""
+    is not read: the state carries the position). Over a mesh the leaves
+    are ``LocalShard``s and the block computes the rank's share (the
+    module docstring); the cache is the rank's block of it."""
     dims = ssm_dims(cfg)
     b, s, d = x.shape
     decode = cache is not None and s == 1 and not return_cache
 
     x = hint(x, "batch", "seq", None)
-    z = x @ cast(p["wz"], x.dtype)
-    xin = hint(x @ cast(p["wx"], x.dtype), "batch", "seq", "ffn")
-    bproj = x @ cast(p["wB"], x.dtype)
-    cproj = x @ cast(p["wC"], x.dtype)
-    dt = (x @ cast(p["wdt"], x.dtype)).to(torch.float32)
+    wz, wx, wdt = (tp_leaf(p[k], 1) for k in ("wz", "wx", "wdt"))
+    wo = tp_leaf(p["wo"], 0)
+    if not wz.n == wx.n == wo.n or (wx.n > 1) != (wdt.n > 1):
+        raise ValueError(f"the SSM's ffn and ssm_heads split differently "
+                         f"over 'model': {wz.n}, {wx.n}, {wdt.n}, {wo.n}")
+    mesh = wx.mesh                      # None on plain tensors
+    tp = mesh if wx.n > 1 else None     # the "model" split it computes on
+    q = {k: tp_leaf(p[k], dim).t for k, dim in (
+        ("wB", 1), ("wC", 1), ("conv_x", 1), ("conv_B", 1), ("conv_C", 1),
+        ("dt_bias", 0), ("A_log", 0), ("Dskip", 0), ("norm", 0))}
+    heads, inner = wdt.t.shape[-1], wx.t.shape[-1]     # the rank's share
+    z = column_in(x, cast(wz.t, x.dtype), tp)
+    xin = hint(column_in(x, cast(wx.t, x.dtype), tp), "batch", "seq", "ffn")
+    bproj = x @ cast(q["wB"], x.dtype)
+    cproj = x @ cast(q["wC"], x.dtype)
+    dt = column_in(x, cast(wdt.t, x.dtype), tp).to(torch.float32)
+
+    def rank_bc(t):
+        # B or C whole, repeated to the rank's heads over "model"; its
+        # gradient sums every rank's heads as the mesh-free repeat does
+        g = _rank_groups(t, dims, heads, wdt.r)
+        return repeat_in(g, heads // g.shape[-2], tp)
 
     if decode:
         new_cache = {}
@@ -214,48 +283,47 @@ def ssm_block(p, x: torch.Tensor, cfg: ArchConfig,
         new_cache["conv_B"] = window_b[:, 1:]
         new_cache["conv_C"] = window_c[:, 1:]
         xin = torch.einsum("bwc,wc->bc", window_x,
-                           cast(p["conv_x"], x.dtype))
+                           cast(q["conv_x"], x.dtype))
         bproj = torch.einsum("bwc,wc->bc", window_b,
-                             cast(p["conv_B"], x.dtype))
+                             cast(q["conv_B"], x.dtype))
         cproj = torch.einsum("bwc,wc->bc", window_c,
-                             cast(p["conv_C"], x.dtype))
+                             cast(q["conv_C"], x.dtype))
         xin, bproj, cproj = (_silu(t) for t in (xin, bproj, cproj))
 
-        dtv = _softplus(dt[:, 0] + p["dt_bias"].to(torch.float32))
-        a = -torch.exp(p["A_log"].to(torch.float32))  # (H,)
+        dtv = _softplus(dt[:, 0] + q["dt_bias"].to(torch.float32))
+        a = -torch.exp(q["A_log"].to(torch.float32))  # (H,)
         da = torch.exp(dtv * a)  # (B,H)
-        rep = dims.n_heads // dims.n_groups
-        xh = xin.reshape(b, dims.n_heads, dims.head_dim)
-        bh = bproj.reshape(b, dims.n_groups, dims.d_state) \
-            .repeat_interleave(rep, dim=1)
-        ch = cproj.reshape(b, dims.n_groups, dims.d_state) \
-            .repeat_interleave(rep, dim=1)
+        xh = xin.reshape(b, heads, dims.head_dim)
+        bg, cg = (rank_bc(t.reshape(b, dims.n_groups, dims.d_state))
+                  for t in (bproj, cproj))
+        bh = bg.repeat_interleave(heads // bg.shape[1], dim=1)
+        ch = cg.repeat_interleave(heads // cg.shape[1], dim=1)
         state = hint(cache["state"].to(torch.float32),
                      "batch", "ssm_heads", None, None)
         state = state * da[:, :, None, None] + _f32_einsum(
             "bh,bhn,bhp->bhpn", dtv, bh, xh)
         y = _f32_einsum("bhn,bhpn->bhp", ch, state)
-        y = y + p["Dskip"].to(torch.float32)[None, :, None] \
+        y = y + q["Dskip"].to(torch.float32)[None, :, None] \
             * xh.to(torch.float32)
-        y = y.reshape(b, 1, dims.d_inner).to(x.dtype)
+        y = y.reshape(b, 1, inner).to(x.dtype)
         new_cache["state"] = state
-        z = z.reshape(b, 1, dims.d_inner)
+        z = z.reshape(b, 1, inner)
     else:
         xin_raw, b_raw, c_raw = xin, bproj, cproj
-        xin = _silu(_causal_conv(xin, p["conv_x"]))
-        bproj = _silu(_causal_conv(bproj, p["conv_B"]))
-        cproj = _silu(_causal_conv(cproj, p["conv_C"]))
-        dtv = _softplus(dt + p["dt_bias"].to(torch.float32))
-        a = -torch.exp(p["A_log"].to(torch.float32))
+        xin = _silu(_causal_conv(xin, q["conv_x"], mesh=mesh))
+        bproj = _silu(_causal_conv(bproj, q["conv_B"], mesh=mesh))
+        cproj = _silu(_causal_conv(cproj, q["conv_C"], mesh=mesh))
+        dtv = _softplus(dt + q["dt_bias"].to(torch.float32))
+        a = -torch.exp(q["A_log"].to(torch.float32))
         da = dtv * a  # (B,S,H) log-decay
-        xh = xin.reshape(b, s, dims.n_heads, dims.head_dim)
-        bh = bproj.reshape(b, s, dims.n_groups, dims.d_state)
-        ch = cproj.reshape(b, s, dims.n_groups, dims.d_state)
+        xh = xin.reshape(b, s, heads, dims.head_dim)
+        bh, ch = (rank_bc(t.reshape(b, s, dims.n_groups, dims.d_state))
+                  for t in (bproj, cproj))
         init_state = cache["state"] if cache is not None else None
         y, final_state = ssd_chunked(xh, dtv, da, bh, ch, cfg.ssm.chunk,
                                      init_state)
-        y = y + p["Dskip"].to(x.dtype)[None, None, :, None] * xh
-        y = y.reshape(b, s, dims.d_inner)
+        y = y + q["Dskip"].to(x.dtype)[None, None, :, None] * xh
+        y = y.reshape(b, s, inner)
         if return_cache:
             w = dims.conv_w
             new_cache = {
@@ -268,8 +336,8 @@ def ssm_block(p, x: torch.Tensor, cfg: ArchConfig,
     # the gate product feeds rmsnorm's f32 statistics unrounded, as in
     # the reference's compiled layer body (see transformer._residual)
     gated = y.to(torch.float32) * _silu(z).to(torch.float32)
-    y = rmsnorm(p["norm"], gated, dtype=x.dtype)
-    out = y @ cast(p["wo"], x.dtype)
+    y = _gated_norm(q["norm"], gated, x.dtype, dims.d_inner, tp, mesh)
+    out = row_parallel(y, wo.t, wo, res, x.dtype)
     if decode or return_cache:
         return out, new_cache
     return out

@@ -28,17 +28,21 @@ GSPMD, on plain tensors:
   ``("pod", "data")``, the first axis major, unless the ambient rules map
   the batch elsewhere). The residual stream is these rows, whole over
   ``"model"``, as the reference's ``hint(x, "batch", "seq", None)``;
-* in the dense, VLM and MoE decoder layers, tensor parallelism over
-  ``"model"`` where a leaf's spec splits it there: the attention on the
+* in every family's layers, tensor parallelism over ``"model"`` where a
+  leaf's spec splits it there. Attention (the decoders', zamba2's shared
+  block's, whisper's encoder, decoder and cross attention) runs on the
   rank's query heads (q column-parallel, k and v over ``kv_heads`` where
   that divides, else whole, the rank taking the kv heads its query heads
   read) and ``wo`` row-parallel with one ``psum``; where the heads do not
   divide the axis, the reference's ``attn_q_seq`` branch: the rank's
   block of query rows against whole k and v, its rows of the output
-  gathered back over ``"model"``. The dense MLP is column-parallel over
-  ``ffn`` into a row-parallel ``w2`` (one ``psum``); an MoE layer runs
-  the reference's expert-parallel branches (``moe.moe_block``) on the
-  replicated residual stream;
+  gathered back over ``"model"`` (and, where the rows do not divide it
+  either, as whisper's 1500 frames on 16 ranks, whole). The dense MLP is
+  column-parallel over ``ffn`` into a row-parallel ``w2`` (one
+  ``psum``); an MoE layer runs the reference's expert-parallel branches
+  (``moe.moe_block``) on the replicated residual stream; a Mamba2 layer
+  computes its block of ``ffn`` and ``ssm_heads`` (``ssm.ssm_block``;
+  B and C whole);
 * in every family, the vocabulary-parallel embedding lookup and the
   unembedding column-parallel over ``vocab`` (``layers.embed``,
   ``layers.unembed``): the logits come back as a DTensor, the rows split
@@ -46,12 +50,13 @@ GSPMD, on plain tensors:
   where the vocabulary does not divide it), as the reference's
   ``("batch", "seq", "vocab")`` hint places them. A caller that wants the
   whole logits takes ``sharding_ctx.whole`` of them;
-* in decode, the rank's block of the cache as its spec places it: under
-  the decode rules (``kv_seq`` on ``"model"``) each rank writes the new
-  token only where its sequence block holds ``pos`` and attends over its
-  block, the blocks joined by a max and two ``psum``s
-  (``attention.decode_combine``); a cache split over its kv heads is
-  read by the query heads of the rank's own. The caches come back as
+* in decode, the rank's block of each cache as its spec places it:
+  under the decode rules (``kv_seq`` on ``"model"``) each rank writes the
+  new token only where its sequence block of a kv cache holds ``pos`` and
+  attends over its block, the blocks joined by a max and two ``psum``s
+  (``attention.decode_combine``); a kv cache split over its kv heads is
+  read by the query heads of the rank's own; an SSM cache holds the
+  rank's ``conv_x`` channels and ``state`` heads. The caches come back as
   DTensors under the same placements, never gathered whole; ``prefill``
   returns each rank's block under the cache spec of the ambient rules.
 
@@ -62,9 +67,7 @@ plain tensor every rank holds alike; a layer gathers each leaf it uses
 inside its own body over the axes it does not compute on (the FSDP split
 over ``"data"``; ``remat`` recomputes the gathers), and the gather's
 backward hands each rank its shard's gradient, summed over the ranks
-that used it. The SSM layers, zamba2's shared block and whisper's
-encoder and decoder layers still gather each leaf whole and compute
-their rows whole over ``"model"`` (ROADMAP). A loss every rank holds
+that used it. A loss every rank holds
 alike (``train.step.cross_entropy`` on the logits' DTensor) is
 backpropagated divided by the mesh's size (``train.step.value_and_grad``):
 the collectives' adjoints then sum the ranks' parts into the gradient of
@@ -87,15 +90,14 @@ from . import ssm as ssm_mod
 from .layers import (COMPUTE_DTYPE, cast, embed, embed_defs, mlp, mlp_defs,
                      mrope, rmsnorm, rmsnorm_def, rope, rounded,
                      sinusoidal_positions, unembed, vocab_blocks)
-from .param import ParamDef, map_tree, placements, spec_for
+from .param import ParamDef, map_tree, placements, spec_tree
 from .sharding_ctx import (TP, LocalShard, all_gather, axis_index,
-                           batch_axes, contiguous_stride, current_rules,
-                           gathered,
-                           gathered_tree, hint, local_rows, local_shards,
+                           batch_axes, column_in, contiguous_stride,
+                           current_rules, gathered, gathered_tree, hint,
+                           kv_share, local_rows, local_shards,
                            mesh_axis_size, mesh_shape_dict, row_parallel,
                            rows_dtensor, rows_in, rule_axes, tp_blocks,
-                           tp_in, column_in, kv_share,
-                           tp_leaf, tp_size)
+                           tp_in, tp_leaf, tp_size)
 
 Tree = Dict[str, Any]
 
@@ -223,7 +225,9 @@ def _apply_rope(cfg: ArchConfig, q, k, positions, theta):
 
 
 def _rope(cfg: ArchConfig, t, positions, theta):
-    if cfg.rope_kind == "none":
+    """``t`` rotated at ``positions``; as it is where the config has no
+    rope or no positions are given (cross attention)."""
+    if cfg.rope_kind == "none" or positions is None:
         return t
     if cfg.rope_kind == "mrope":
         return mrope(t, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -356,23 +360,35 @@ def _kv_whole(t: torch.Tensor, cfg, split: "_Split", mesh) -> torch.Tensor:
     return t.index_select(t.ndim - 2, torch.tensor(idx, device=t.device))
 
 
-def _attn_core(lp, cfg, x, positions, theta, window, block_kv, mesh=None):
+def _attn_core(lp, cfg, x, positions, theta, window, block_kv, mesh=None,
+               causal: bool = True):
     """The attention output o (before ``out_proj``) and the layer's
-    rotated k and v. Over a mesh o is this rank's share (``_attn_split``:
-    its query heads, or its query rows); k and v hold, over every row,
-    this rank's kv heads where ``"model"`` splits them, else those its
-    query heads read (``_kv_range``)."""
+    rotated k and v, of ``ln1(x)`` (``_attention``)."""
     x = hint(x, "batch", "seq", None)
     h = rmsnorm(gathered(lp["ln1"]), x, cfg.norm_eps)
-    split = _attn_split(lp["attn"], cfg, x.shape[1], mesh)
+    return _attention(lp["attn"], cfg, h, h, positions, theta, window,
+                      block_kv, mesh, causal)
+
+
+def _attention(pa, cfg, h, hkv, positions, theta, window, block_kv,
+               mesh=None, causal: bool = True):
+    """The attention output o (before ``out_proj``) of queries from ``h``
+    over keys and values from ``hkv`` (``h`` itself, or whisper's encoder
+    output), and the rotated k and v (no rope where ``positions`` is
+    None). Over a mesh o is this rank's share (``_attn_split``: its query
+    heads, or its query rows); k and v hold, over every row, this rank's
+    kv heads where ``"model"`` splits them, else those its query heads
+    read (``_kv_range``)."""
+    split = _attn_split(pa, cfg, h.shape[1], mesh)
     hq, pos_q, q_offset, p_dtype = h, positions, 0, None
     if split.kind == "rows":
-        rows = x.shape[1] // split.n
+        rows = h.shape[1] // split.n
         q_offset = split.r * rows
         hq = rows_in(h, mesh, 1)
-        pos_q = positions.narrow(-1, q_offset, rows)
+        if positions is not None:
+            pos_q = positions.narrow(-1, q_offset, rows)
     kv = _kv_range(cfg, split, split.r)
-    q, k, v, wk = _qkv(lp["attn"], hq, h, kv, split.kind, mesh)
+    q, k, v, wk = _qkv(pa, hq, hkv, kv, split.kind, mesh)
     q, k = _rope(cfg, q, pos_q, theta), _rope(cfg, k, positions, theta)
     kq, vq = k, v
     if split.kind == "rows":
@@ -394,24 +410,26 @@ def _attn_core(lp, cfg, x, positions, theta, window, block_kv, mesh=None):
                         for t in (k, v))
         kq, vq = (attn.heads_for(t, kv_lo, split.r * per, per, group)
                   for t in (k, v))
-    o = attn.flash_attention(q, kq, vq, causal=True, window=window,
+    o = attn.flash_attention(q, kq, vq, causal=causal, window=window,
                              q_offset=q_offset, block_kv=block_kv,
                              p_dtype=p_dtype)
     return o, k, v
 
 
-def _attn_block(lp, cfg, x, positions, theta, window, block_kv, mesh=None):
+def _attn_block(lp, cfg, x, positions, theta, window, block_kv, mesh=None,
+                causal: bool = True):
     """x + attention(x) as ``_residual``'s f32 sum; also returns the
     layer's rotated k and v."""
     o, k, v = _attn_core(lp, cfg, x, positions, theta, window, block_kv,
-                         mesh)
+                         mesh, causal)
     return _attn_residual(lp["attn"], cfg, x, o, mesh), k, v
 
 
-def _attn_residual(pa, cfg, x, o, mesh=None):
-    """``_residual(x, out_proj(o))`` of a rank's share o (``_attn_core``):
-    row-parallel over its query heads (one ``psum`` over ``"model"``), or
-    over its query rows, gathered back over ``"model"``."""
+def _attn_residual(pa, cfg, x, o, mesh=None, res_dtype=torch.float32):
+    """x + out_proj(o) of a rank's share o (``_attention``), summed in
+    ``res_dtype`` (``_residual``'s f32 by default): row-parallel over its
+    query heads (one ``psum`` over ``"model"``), or over its query rows,
+    gathered back over ``"model"``."""
     split = _attn_split(pa, cfg, x.shape[1], mesh)
     wo = tp_leaf(pa["wo"], 0)
     if wo.n != (split.n if split.kind == "heads" else 1):
@@ -420,11 +438,11 @@ def _attn_residual(pa, cfg, x, o, mesh=None):
     if split.kind == "heads":
         hl, e, d = wo.t.shape
         return row_parallel(o.reshape(o.shape[:-2] + (hl * e,)),
-                            wo.t.reshape(hl * e, d), wo, x, torch.float32)
+                            wo.t.reshape(hl * e, d), wo, x, res_dtype)
     y = attn.out_proj({"wo": wo.t}, o)
     if split.kind == "rows":
         y = all_gather(y, mesh, TP, 1)
-    return _residual(x, y)
+    return x.to(res_dtype) + y.to(res_dtype)
 
 
 def _ffn_layer(lp, cfg, x, auxes=None, mesh=None):
@@ -486,16 +504,10 @@ def _on_mesh(params, batch, mesh):
     return local_shards(params, mesh), local
 
 
-def _decoder(cfg) -> bool:
-    """The stacks whose layers compute their tensor-parallel share: the
-    dense, VLM and MoE decoders."""
-    return not cfg.enc_dec and cfg.family not in ("ssm", "hybrid")
-
-
 class _Cache(NamedTuple):
-    """This rank's block of a decoder's stacked kv cache (layers, batch,
-    skv, kv heads, head dim): its mesh ``placements``, the axes splitting
-    the sequence (``seq_axes``) and the first position of its block
+    """This rank's block of a stacked kv cache (layers, batch, skv, kv
+    heads, head dim): its mesh ``placements``, the axes splitting the
+    sequence (``seq_axes``) and the first position of its block
     (``seq_lo``), the blocks ``"model"`` splits the kv heads into
     (``heads``) and the whole sequence length ``skv``."""
     placements: Any
@@ -506,6 +518,9 @@ class _Cache(NamedTuple):
 
 
 _WHOLE_CACHE = _Cache(None, (), 0, 1, 0)
+# the stacked kv caches of the families (decoders "self", zamba2
+# "shared", whisper "self" and "cross"); "ssm" is Mamba2's
+_KV = ("self", "shared", "cross")
 
 
 def _cache_layout(pl, mesh, skv: int) -> _Cache:
@@ -529,12 +544,73 @@ def _cache_layout(pl, mesh, skv: int) -> _Cache:
     return _Cache(list(pl), seq_axes, lo, heads, skv)
 
 
-def _prefill_cache(cfg, mesh, batch: int, skv: int) -> _Cache:
-    """The layout of the caches ``prefill`` returns: the cache spec under
-    the ambient rules (the default ones outside a context)."""
-    d = cache_defs(cfg, batch, skv)["self"]["k"]
-    spec = spec_for(d, current_rules(), mesh_shape_dict(mesh))
-    return _cache_layout(placements(spec, mesh), mesh, skv)
+class _SsmCache(NamedTuple):
+    """How ``"model"`` splits a layer's SSM cache: the blocks of
+    ``conv_x``'s channels and of ``state``'s heads (1: whole)."""
+    conv: int
+    state: int
+
+
+_WHOLE_SSM = _SsmCache(1, 1)
+# the dimension of a stacked SSM cache leaf that "model" may split
+_SSM_TP_DIM = {"conv_x": 3, "state": 2}
+
+
+def _ssm_layout(pls, mesh) -> _SsmCache:
+    """The ``_SsmCache`` of a stacked SSM cache whose leaves lie under
+    placements ``pls``: besides the batch, only ``"model"`` may split
+    ``conv_x``'s channels and ``state``'s heads."""
+    names, blocks = list(mesh.mesh_dim_names), {}
+    for key, pl in pls.items():
+        for i, p in enumerate(pl):
+            if not isinstance(p, Shard) or mesh.size(i) == 1 or p.dim == 1:
+                continue
+            if names[i] != TP or _SSM_TP_DIM.get(key) != p.dim:
+                raise ValueError(f"an SSM cache's {key} split over "
+                                 f"{names[i]} along its dimension {p.dim} "
+                                 f"is not handled")
+            blocks[key] = mesh.size(i)
+    return _SsmCache(blocks.get("conv_x", 1), blocks.get("state", 1))
+
+
+def _layouts(pls, lengths, mesh) -> Dict[str, Any]:
+    """Each cache's layout under its placements ``pls`` (a tree as the
+    caches'): a ``_Cache`` of each kv cache (``lengths`` its sequence
+    length), the ``_SsmCache`` of the SSM cache."""
+    out = {}
+    for key, tree in pls.items():
+        if key == "ssm":
+            out[key] = _ssm_layout(tree, mesh)
+            continue
+        k, v = (_cache_layout(tree[n], mesh, lengths[key]) for n in "kv")
+        if k != v:
+            raise ValueError("k and v caches lie under different placements")
+        out[key] = k
+    return out
+
+
+def _prefill_layouts(cfg, mesh, batch: int, skv: int):
+    """The placements of the caches ``prefill`` returns (the cache spec
+    under the ambient rules, the default ones outside a context) and
+    their layouts."""
+    defs = cache_defs(cfg, batch, skv)
+    specs = spec_tree(defs, current_rules(), mesh_shape_dict(mesh))
+    pls = map_tree(lambda sp: placements(sp, mesh), specs)
+    lengths = {k: defs[k]["k"].shape[2] for k in defs if k in _KV}
+    return pls, _layouts(pls, lengths, mesh)
+
+
+def _kv_cache(pa, cfg, k, v, s: int, skv: int, cl: _Cache, mesh):
+    """A layer's k and v of ``s`` rows (as ``_attention`` gives them) as
+    this rank's blocks of its cache under ``cl``, padded to ``skv``:
+    where ``"model"`` does not split the cache's kv heads, the ranks'
+    runs of them gathered first."""
+    if mesh is not None and cl.heads == 1:
+        split = _attn_split(pa, cfg, s, mesh)
+        k, v = (_kv_whole(t.to(COMPUTE_DTYPE), cfg, split, mesh)
+                for t in (k, v))
+    return tuple(_cache_block(_pad_cache(t, skv), cl, cfg, mesh)
+                 for t in (k, v))
 
 
 def _cache_block(c: torch.Tensor, cl: _Cache, cfg, mesh) -> torch.Tensor:
@@ -567,55 +643,64 @@ def _cache_heads(t: torch.Tensor, cfg, cl: _Cache, mesh) -> torch.Tensor:
     return t
 
 
-def _stacked_dtensor(local: torch.Tensor, cl: _Cache, cfg, mesh,
-                     batch: int) -> DTensor:
-    """This rank's block of a stacked cache of the global ``batch`` as a
-    DTensor under ``cl``'s placements."""
-    shape = (local.shape[0], batch, cl.skv, cfg.n_kv_heads, cfg.head_dim)
-    return DTensor.from_local(local, mesh, cl.placements, run_check=False,
-                              shape=torch.Size(shape),
-                              stride=contiguous_stride(shape))
+def _reblock(t: torch.Tensor, dim: int, have: int, want: int, mesh
+             ) -> torch.Tensor:
+    """``t``, this rank's block of ``have`` along ``dim`` over ``"model"``
+    (1: whole), as its block of ``want``: cut from the whole, or
+    gathered whole over ``"model"``."""
+    if have == want:
+        return t
+    if have == 1:
+        per = t.shape[dim] // want
+        return t.narrow(dim, mesh.get_local_rank(TP) * per, per)
+    return all_gather(t, mesh, TP, dim)
 
 
-def _decoder_cache_in(caches, cfg, mesh):
-    """This rank's blocks of a decoder's caches and their ``_Cache``: a
-    DTensor keeps its local block (its batch split over the batch axes),
-    a plain tensor (the whole batch) gives its rows."""
+def _ssm_reblock(cache, have: _SsmCache, want: _SsmCache, mesh):
+    """One layer's SSM cache from the blocks ``have`` to ``want``."""
+    out = dict(cache)
+    for key, n, m in (("conv_x", have.conv, want.conv),
+                      ("state", have.state, want.state)):
+        out[key] = _reblock(cache[key], _SSM_TP_DIM[key] - 1, n, m, mesh)
+    return out
+
+
+def _caches_in(caches, mesh):
+    """This rank's blocks of the caches and their placements: a DTensor
+    keeps its local block (its batch split over the batch axes), a plain
+    tensor (the whole batch) gives its rows."""
     axes = batch_axes(mesh)
     names = list(mesh.mesh_dim_names)
-    out, layouts = {}, []
-    for key, c in caches["self"].items():
+
+    def one(c):
         if isinstance(c, DTensor):
-            pl, local = list(c.placements), c.to_local()
+            pl = list(c.placements)
             split = tuple(a for a, p in zip(names, pl) if p == Shard(1))
             if split != axes:
                 raise ValueError(f"a cache's batch split over {split}, not "
                                  f"the batch axes {axes}")
-        else:
-            local = local_rows(c, mesh, 1)
-            pl = [Shard(1) if a in axes else Replicate() for a in names]
-        out[key] = local
-        layouts.append(_cache_layout(pl, mesh, c.shape[2]))
-    if layouts[0] != layouts[1]:
-        raise ValueError("k and v caches lie under different placements")
-    return {"self": out}, layouts[0]
+            return c.to_local(), pl
+        return local_rows(c, mesh, 1), [Shard(1) if a in axes
+                                        else Replicate() for a in names]
+
+    pairs = map_tree(one, caches)
+    return map_tree(lambda t: t[0], pairs), map_tree(lambda t: t[1], pairs)
 
 
-def _cache_shards(caches, mesh):
-    """Per-rank cache rows (batch at dim 1) as DTensors split over the
-    batch axes (the families that compute their layers whole)."""
-    axes = batch_axes(mesh)
-    pl = [Shard(1) if a in axes else Replicate()
-          for a in mesh.mesh_dim_names]
-    return map_tree(lambda c: DTensor.from_local(c, mesh, pl,
-                                                 run_check=False), caches)
+def _caches_out(local, pls, mesh):
+    """Each rank's cache blocks as DTensors under their placements."""
+    def one(c, pl):
+        shape = list(c.shape)
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard):
+                shape[p.dim] *= mesh.size(i)
+        return DTensor.from_local(c, mesh, pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
 
-
-def _local_caches(caches, mesh):
-    """A rank's rows of the caches (batch at dim 1), DTensors or the
-    whole batch's plain tensors (``sharding_ctx.local_rows``; a split
-    over another axis is gathered whole at each use)."""
-    return map_tree(lambda c: local_rows(c, mesh, 1), caches)
+    if isinstance(local, dict):
+        return {k: _caches_out(v, pls[k], mesh) for k, v in local.items()}
+    return one(local, pls)
 
 
 def _remat(fn, remat):
@@ -670,11 +755,11 @@ def forward(params, cfg: ArchConfig, batch, remat=False,
 
 def _forward(params, cfg, batch, remat, block_kv, mesh):
     if cfg.enc_dec:
-        return _whisper_forward(params, cfg, batch, remat, block_kv)
+        return _whisper_forward(params, cfg, batch, remat, block_kv, mesh)
     if cfg.family == "ssm":
-        return _ssm_forward(params, cfg, batch, remat)
+        return _ssm_forward(params, cfg, batch, remat, mesh)
     if cfg.family == "hybrid":
-        return _hybrid_forward(params, cfg, batch, remat, block_kv)
+        return _hybrid_forward(params, cfg, batch, remat, block_kv, mesh)
 
     b, s = batch["tokens"].shape
     top = _top(params)
@@ -722,53 +807,60 @@ def _save_attn_layer(lp, cfg, x, positions, theta, window, block_kv,
                       use_reentrant=False)
 
 
-def _ssm_layer(lp, cfg, x, **kw):
+def _ssm_layer(lp, cfg, x, mesh=None, layout: _SsmCache = _WHOLE_SSM,
+               **kw):
     """x + ssm_block(ln(x)); with ``cache`` or ``return_cache`` also the
-    layer's new cache. Over a mesh each leaf is gathered whole at use and
-    a rank computes its rows whole (``conv_dim`` and ``ssm_heads`` over
-    ``"model"`` are not split yet; ROADMAP)."""
-    lp = gathered_tree(lp)
-    h = rmsnorm(lp["ln"], x, cfg.norm_eps)
+    layer's new cache. Over a mesh the block computes this rank's share
+    (``ssm.ssm_block``); the cache comes and goes as ``layout`` splits it
+    over ``"model"``, moved to and from the blocks the layer computes on
+    where they differ (parameters that every rank holds alike)."""
+    h = rmsnorm(gathered(lp["ln"]), x, cfg.norm_eps, mesh=mesh)
     lp_ssm = {k: v for k, v in lp.items() if k != "ln"}
-    out = ssm_mod.ssm_block(lp_ssm, h, cfg, **kw)
+    own = _SsmCache(tp_blocks(lp["wx"], 1), tp_blocks(lp["wdt"], 1))
+    if kw.get("cache") is not None:
+        kw["cache"] = _ssm_reblock(kw["cache"], layout, own, mesh)
+    out = ssm_mod.ssm_block(lp_ssm, h, cfg, res=x, **kw)
     if isinstance(out, tuple):
-        return x + out[0], out[1]
-    return x + out
+        return out[0], _ssm_reblock(out[1], own, layout, mesh)
+    return out
 
 
-def _ssm_forward(params, cfg, batch, remat=False):
+def _ssm_forward(params, cfg, batch, remat=False, mesh=None):
     top = _top(params)
     x = _embed_in(top, cfg, batch)
     layer = _remat(_ssm_layer, remat)
     for lp in _layers(params["layers"], cfg.n_layers):
-        x = layer(lp, cfg, x)
+        x = layer(lp, cfg, x, mesh)
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     return _logits(top, x), _zero(x.device)
 
 
-def _shared_block(sp, cfg, x, positions, block_kv, kv_cache=None, pos=None):
+def _shared_block(sp, cfg, x, positions, block_kv, kv_cache=None, pos=None,
+                  mesh=None, cl: Optional[_Cache] = None):
     """Zamba2 weight-tied shared attention+MLP block. Params have a leading
     length-1 'layers' dim (sliced here). Returns (x, (k,v)) in forward and
-    prefill, or (x, the updated caches) in decode when kv_cache is given.
-    The reference runs it outside any ``lax.scan``, op by op, so its
-    residual sums round to bf16 as eager adds do. Over a mesh its leaves
-    are gathered whole at use and a rank computes its rows whole
-    (ROADMAP)."""
-    sl = gathered_tree(_layer(sp, 0))
-    h = rmsnorm(sl["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.qkv_proj(sl["attn"], h)
-    q, k = _apply_rope(cfg, q, k, positions, cfg.rope_theta)
+    prefill, or (x, the updated caches) in decode when kv_cache is given
+    (this rank's block of the ``"shared"`` cache under ``cl``). Over a
+    mesh the attention and the MLP are tensor-parallel as the decoder
+    layer's (``_attention``, ``layers.mlp``); k and v in the forward are
+    those ``_attention`` gives. The reference runs it outside any
+    ``lax.scan``, op by op, so its residual sums round to bf16 as eager
+    adds do (the row-parallel sums join the stream in bf16)."""
+    sl = _layer(sp, 0)
+    bf16 = x.dtype
     if kv_cache is None:
-        o = attn.flash_attention(q, k, v, causal=True, block_kv=block_kv)
+        o, k, v = _attn_core(sl, cfg, x, positions, cfg.rope_theta, None,
+                             block_kv, mesh)
+        x = _attn_residual(sl["attn"], cfg, x, o, mesh, bf16)
         new_kv = (k, v)
     else:
-        kc, vc = attn.update_cache(*kv_cache, k, v, pos)
-        o = attn.decode_attention(q, kc, vc, pos)
+        cl = cl or _WHOLE_CACHE._replace(skv=kv_cache[0].shape[1])
+        y, kc, vc = _decode_attn(sl, cfg, x, *kv_cache, pos, positions,
+                                 cfg.rope_theta, None, cl, mesh)
+        x = x + y
         new_kv = (kc, vc)
-    x = x + attn.out_proj(sl["attn"], o)
-    h2 = rmsnorm(sl["ln2"], x, cfg.norm_eps)
-    x = x + mlp(sl["mlp"], h2, cfg.act)
-    return x, new_kv
+    h2 = rmsnorm(gathered(sl["ln2"]), x, cfg.norm_eps)
+    return mlp(sl["mlp"], h2, cfg.act, x), new_kv
 
 
 def _groups(cfg):
@@ -779,7 +871,7 @@ def _groups(cfg):
             for g in range(cfg.n_layers // per)]
 
 
-def _hybrid_forward(params, cfg, batch, remat, block_kv):
+def _hybrid_forward(params, cfg, batch, remat, block_kv, mesh=None):
     """The SSM layers under ``remat``; the shared block never, as in the
     reference (its remat wraps the inner scan only)."""
     b, s = batch["tokens"].shape
@@ -790,13 +882,14 @@ def _hybrid_forward(params, cfg, batch, remat, block_kv):
     layer = _remat(_ssm_layer, remat)
     for group in _groups(cfg):
         for i in group:
-            x = layer(layers[i], cfg, x)
-        x, _ = _shared_block(params["shared"], cfg, x, positions, block_kv)
+            x = layer(layers[i], cfg, x, mesh)
+        x, _ = _shared_block(params["shared"], cfg, x, positions, block_kv,
+                             mesh=mesh)
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     return _logits(top, x), _zero(x.device)
 
 
-def _encode(params, cfg, batch, block_kv, remat=False):
+def _encode(params, cfg, batch, block_kv, remat=False, mesh=None):
     """Whisper's encoder over the stub frontend's frame embeddings
     (B,F,d): the normalized encoder output."""
     frames = batch["frames"].to(COMPUTE_DTYPE)
@@ -805,35 +898,31 @@ def _encode(params, cfg, batch, block_kv, remat=False):
         frames.dtype)[None]
     layer = _remat(_enc_layer, remat)
     for lp in _layers(params["enc_layers"], cfg.n_enc_layers):
-        xe = layer(lp, cfg, xe, block_kv)
+        xe = layer(lp, cfg, xe, block_kv, mesh)
     return rmsnorm(gathered(params["enc_norm"]), xe, cfg.norm_eps)
 
 
-def _enc_layer(lp, cfg, xe, block_kv):
-    """One whisper encoder layer; over a mesh its leaves are gathered
-    whole at use and a rank computes its rows whole (ROADMAP)."""
-    lp = gathered_tree(lp)
-    h = rmsnorm(lp["ln1"], xe, cfg.norm_eps)
-    q, k, v = attn.qkv_proj(lp["attn"], h)
-    o = attn.flash_attention(q, k, v, causal=False, block_kv=block_kv)
-    return _ffn_layer(lp, cfg, _residual(xe, attn.out_proj(lp["attn"], o)))
+def _enc_layer(lp, cfg, xe, block_kv, mesh=None):
+    """One whisper encoder layer: attention over every frame (no mask,
+    no rope), then the MLP; over a mesh both tensor-parallel as the
+    decoder layer's."""
+    x = _attn_block(lp, cfg, xe, None, None, None, block_kv, mesh,
+                    causal=False)[0]
+    return _ffn_layer(lp, cfg, x, mesh=mesh)
 
 
-def _whisper_layer(lp, cfg, x, enc_out, block_kv):
+def _whisper_layer(lp, cfg, x, enc_out, block_kv, mesh=None):
     """One decoder layer over the whole sequence: (x, k, v, cross k, cross
-    v). Over a mesh its leaves are gathered whole at use and a rank
-    computes its rows whole (ROADMAP)."""
-    lp = gathered_tree(lp)
-    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.qkv_proj(lp["attn"], h)
-    o = attn.flash_attention(q, k, v, causal=True, block_kv=block_kv)
-    x = _residual(x, attn.out_proj(lp["attn"], o))
-    hc = rmsnorm(lp["ln3"], x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
-    qc, kc, vc = _cross_qkv(lp["cross"], hc, enc_out)
-    oc = attn.flash_attention(qc, kc, vc, causal=False, block_kv=block_kv)
-    x = _ffn_layer(lp, cfg, _residual(x.to(COMPUTE_DTYPE),
-                                      attn.out_proj(lp["cross"], oc)))
-    return x, k, v, kc, vc
+    v). Self attention is causal (the positions are in the embedding),
+    cross attention takes its queries from the decoder's rows and its
+    keys and values from ``enc_out``; over a mesh both are
+    tensor-parallel (``_attention``), as is the MLP."""
+    x, k, v = _attn_block(lp, cfg, x, None, None, None, block_kv, mesh)
+    hc = rmsnorm(gathered(lp["ln3"]), x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
+    oc, kc, vc = _attention(lp["cross"], cfg, hc, enc_out, None, None, None,
+                            block_kv, mesh, causal=False)
+    x = _attn_residual(lp["cross"], cfg, x.to(COMPUTE_DTYPE), oc, mesh)
+    return _ffn_layer(lp, cfg, x, mesh=mesh), k, v, kc, vc
 
 
 def _whisper_embed(params, cfg, tokens):
@@ -842,28 +931,17 @@ def _whisper_embed(params, cfg, tokens):
         s, cfg.d_model, tokens.device).to(COMPUTE_DTYPE)[None]
 
 
-def _whisper_forward(params, cfg, batch, remat, block_kv):
+def _whisper_forward(params, cfg, batch, remat, block_kv, mesh=None):
     """Encoder and decoder layers under ``remat``, each recomputed whole
     (their bodies name no attention output)."""
     top = _top(params)
-    enc_out = _encode(top, cfg, batch, block_kv, remat)
+    enc_out = _encode(top, cfg, batch, block_kv, remat, mesh)
     x = _whisper_embed(top, cfg, batch["tokens"])
     layer = _remat(_whisper_layer, remat)
     for lp in _layers(params["layers"], cfg.n_layers):
-        x = layer(lp, cfg, x, enc_out, block_kv)[0]
+        x = layer(lp, cfg, x, enc_out, block_kv, mesh)[0]
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     return _logits(top, x), _zero(x.device)
-
-
-def _cross_qkv(p, x_dec, enc_out):
-    q = attn._proj(x_dec, p["wq"])
-    k = attn._proj(enc_out, p["wk"])
-    v = attn._proj(enc_out, p["wv"])
-    if "bq" in p:
-        q = q + cast(p["bq"], x_dec.dtype)
-        k = k + cast(p["bk"], enc_out.dtype)
-        v = v + cast(p["bv"], enc_out.dtype)
-    return q, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -881,27 +959,27 @@ def prefill(params, cfg: ArchConfig, batch, skv: Optional[int] = None,
     b, s = batch["tokens"].shape
     skv = skv or s
     params, batch = _on_mesh(params, batch, mesh)
-    cl = _prefill_cache(cfg, mesh, b, skv) if _decoder(cfg) else None
-    logits, caches = _prefill(params, cfg, batch, skv, block_kv, mesh, cl)
-    if cl is None:
-        caches = _cache_shards(caches, mesh)
-    else:
-        caches = {"self": {k: _stacked_dtensor(c, cl, cfg, mesh, b)
-                           for k, c in caches["self"].items()}}
-    return rows_dtensor(logits, mesh, vocab_blocks(params)), caches
+    pls, layouts = _prefill_layouts(cfg, mesh, b, skv)
+    logits, caches = _prefill(params, cfg, batch, skv, block_kv, mesh,
+                              layouts)
+    return (rows_dtensor(logits, mesh, vocab_blocks(params)),
+            _caches_out(caches, pls, mesh))
 
 
-def _prefill(params, cfg, batch, skv, block_kv, mesh, cl=None):
+def _prefill(params, cfg, batch, skv, block_kv, mesh, layouts=None):
+    layouts = layouts or {}
     if cfg.enc_dec:
-        return _whisper_prefill(params, cfg, batch, skv, block_kv)
+        return _whisper_prefill(params, cfg, batch, skv, block_kv, mesh,
+                                layouts)
     if cfg.family == "ssm":
-        return _ssm_prefill(params, cfg, batch)
+        return _ssm_prefill(params, cfg, batch, mesh, layouts)
     if cfg.family == "hybrid":
-        return _hybrid_prefill(params, cfg, batch, skv, block_kv)
+        return _hybrid_prefill(params, cfg, batch, skv, block_kv, mesh,
+                               layouts)
 
     b, s = batch["tokens"].shape
     skv = skv or s
-    cl = cl or _WHOLE_CACHE
+    cl = layouts.get("self", _WHOLE_CACHE)
     top = _top(params)
     x = _embed_in(top, cfg, batch)
     positions = _positions(cfg, batch, b, s, x.device)
@@ -911,12 +989,9 @@ def _prefill(params, cfg, batch, skv, block_kv, mesh, cl=None):
         x, k, v = _attn_block(lp, cfg, x, positions, theta, window, block_kv,
                               mesh)
         x = _ffn_layer(lp, cfg, x, mesh=mesh)
-        if mesh is not None and cl.heads == 1:
-            split = _attn_split(lp["attn"], cfg, s, mesh)
-            k, v = (_kv_whole(t.to(COMPUTE_DTYPE), cfg, split, mesh)
-                    for t in (k, v))
-        ks.append(_cache_block(_pad_cache(k, skv), cl, cfg, mesh))
-        vs.append(_cache_block(_pad_cache(v, skv), cl, cfg, mesh))
+        k, v = _kv_cache(lp["attn"], cfg, k, v, s, skv, cl, mesh)
+        ks.append(k)
+        vs.append(v)
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     logits = hint(unembed(top, x[:, -1]), "batch", "vocab")
     return logits, {"self": {"k": torch.stack(ks), "v": torch.stack(vs)}}
@@ -937,13 +1012,14 @@ def _stack_trees(trees: List[Tree]) -> Tree:
     return torch.stack(trees)
 
 
-def _ssm_prefill(params, cfg, batch):
+def _ssm_prefill(params, cfg, batch, mesh=None, layouts=None):
+    layout = (layouts or {}).get("ssm", _WHOLE_SSM)
     top = _top(params)
     x = _embed_in(top, cfg, batch)
     caches = []
     for i in range(cfg.n_layers):
-        x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x,
-                              return_cache=True)
+        x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x, mesh,
+                              layout, return_cache=True)
         caches.append(cache)
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     return _last_logits(top, x), {"ssm": _stack_trees(caches)}
@@ -953,7 +1029,11 @@ def _last_logits(top, x):
     return hint(unembed(top, x[:, -1]), "batch", "vocab")
 
 
-def _hybrid_prefill(params, cfg, batch, skv, block_kv):
+def _hybrid_prefill(params, cfg, batch, skv, block_kv, mesh=None,
+                    layouts=None):
+    layouts = layouts or {}
+    layout = layouts.get("ssm", _WHOLE_SSM)
+    cl = layouts.get("shared", _WHOLE_CACHE)
     b, s = batch["tokens"].shape
     skv = skv or s
     top = _top(params)
@@ -962,13 +1042,15 @@ def _hybrid_prefill(params, cfg, batch, skv, block_kv):
     ssm_caches, shared_k, shared_v = [], [], []
     for group in _groups(cfg):
         for i in group:
-            x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x,
-                                  return_cache=True)
+            x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x, mesh,
+                                  layout, return_cache=True)
             ssm_caches.append(cache)
         x, (k, v) = _shared_block(params["shared"], cfg, x, positions,
-                                  block_kv)
-        shared_k.append(_pad_cache(k, skv))
-        shared_v.append(_pad_cache(v, skv))
+                                  block_kv, mesh=mesh)
+        k, v = _kv_cache(_layer(params["shared"], 0)["attn"], cfg, k, v, s,
+                         skv, cl, mesh)
+        shared_k.append(k)
+        shared_v.append(v)
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     return _last_logits(top, x), {
         "ssm": _stack_trees(ssm_caches),
@@ -976,18 +1058,24 @@ def _hybrid_prefill(params, cfg, batch, skv, block_kv):
     }
 
 
-def _whisper_prefill(params, cfg, batch, skv, block_kv):
+def _whisper_prefill(params, cfg, batch, skv, block_kv, mesh=None,
+                     layouts=None):
+    layouts = layouts or {}
+    cl, cl_cross = (layouts.get(k, _WHOLE_CACHE) for k in ("self", "cross"))
     top = _top(params)
-    enc_out = _encode(top, cfg, batch, block_kv)
+    enc_out = _encode(top, cfg, batch, block_kv, mesh=mesh)
     tokens = batch["tokens"]
-    skv = skv or tokens.shape[1]
+    s = tokens.shape[1]
+    skv = skv or s
+    f = enc_out.shape[1]
     x = _whisper_embed(top, cfg, tokens)
     ys = []
     for i in range(cfg.n_layers):
-        x, k, v, kc, vc = _whisper_layer(_layer(params["layers"], i), cfg,
-                                         x, enc_out, block_kv)
-        ys.append((_pad_cache(k, skv), _pad_cache(v, skv),
-                   kc.to(COMPUTE_DTYPE), vc.to(COMPUTE_DTYPE)))
+        lp = _layer(params["layers"], i)
+        x, k, v, kc, vc = _whisper_layer(lp, cfg, x, enc_out, block_kv, mesh)
+        ys.append(_kv_cache(lp["attn"], cfg, k, v, s, skv, cl, mesh)
+                  + _kv_cache(lp["cross"], cfg, kc, vc, s, f, cl_cross,
+                              mesh))
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     sk, sv, ck, cv = (torch.stack(t) for t in zip(*ys))
     return _last_logits(top, x), {"self": {"k": sk, "v": sv},
@@ -1003,37 +1091,40 @@ def decode_step(params, cfg: ArchConfig, caches, batch, mesh=None):
     """batch: tokens (B,1), pos (B,). Returns (logits (B,V), new caches);
     over a mesh the caches are DTensors (as ``prefill`` gives them) or the
     whole batch's plain tensors, and the logits and the new caches come
-    back as DTensors (the module docstring)."""
+    back as DTensors under the placements they came in (the module
+    docstring)."""
     if mesh is None:
         return _decode_step(params, cfg, caches, batch, None)
     params, batch = _on_mesh(params, batch, mesh)
-    vocab = vocab_blocks(params)
-    if not _decoder(cfg):
-        logits, new = _decode_step(params, cfg, _local_caches(caches, mesh),
-                                   batch, mesh)
-        return rows_dtensor(logits, mesh, vocab), _cache_shards(new, mesh)
-    b = batch["tokens"].shape[0] * (mesh_axis_size(mesh, batch_axes(mesh))
-                                    if batch_axes(mesh) else 1)
-    local, cl = _decoder_cache_in(caches, cfg, mesh)
-    logits, new = _decode_step(params, cfg, local, batch, mesh, cl)
-    return rows_dtensor(logits, mesh, vocab), {
-        "self": {k: _stacked_dtensor(c, cl, cfg, mesh, b)
-                 for k, c in new["self"].items()}}
+    local, pls = _caches_in(caches, mesh)
+    lengths = {k: caches[k]["k"].shape[2] for k in caches if k in _KV}
+    logits, new = _decode_step(params, cfg, local, batch, mesh,
+                               _layouts(pls, lengths, mesh))
+    return (rows_dtensor(logits, mesh, vocab_blocks(params)),
+            _caches_out(new, pls, mesh))
 
 
-def _decode_step(params, cfg, caches, batch, mesh, cl=None):
+def _kv_layout(layouts, caches, key) -> _Cache:
+    """The layout of the kv cache ``key``: given over a mesh, else whole."""
+    if key in layouts:
+        return layouts[key]
+    return _WHOLE_CACHE._replace(skv=caches[key]["k"].shape[2])
+
+
+def _decode_step(params, cfg, caches, batch, mesh, layouts=None):
+    layouts = layouts or {}
     if cfg.enc_dec:
-        return _whisper_decode(params, cfg, caches, batch)
+        return _whisper_decode(params, cfg, caches, batch, mesh, layouts)
     if cfg.family == "ssm":
-        return _ssm_decode(params, cfg, caches, batch)
+        return _ssm_decode(params, cfg, caches, batch, mesh, layouts)
     if cfg.family == "hybrid":
-        return _hybrid_decode(params, cfg, caches, batch)
+        return _hybrid_decode(params, cfg, caches, batch, mesh, layouts)
 
     tokens, pos = batch["tokens"], batch["pos"]
     b = tokens.shape[0]
     top = _top(params)
     x = _scale_embed(cfg, embed(top, tokens))
-    cl = cl or _WHOLE_CACHE._replace(skv=caches["self"]["k"].shape[2])
+    cl = _kv_layout(layouts, caches, "self")
     positions = pos[:, None]
     if cfg.rope_kind == "mrope":
         positions = pos[None, :, None].expand(3, b, 1)
@@ -1054,13 +1145,10 @@ def _decode_step(params, cfg, caches, batch, mesh, cl=None):
 
 def _decode_attn(lp, cfg, x, kc, vc, pos, positions, theta, window,
                  cl: _Cache, mesh):
-    """One decoder layer's attention of a decoded token: (out_proj of it,
-    the layer's updated k and v caches). Over a mesh the rank's query
-    heads read its block of the cache (``cl``): where the cache splits
-    the sequence over ``"model"``, every query head, joined over the
-    blocks (``attention.decode_combine``); else its own heads, against
-    the kv heads they read. ``wo`` sums the rank's heads over
-    ``"model"``."""
+    """One layer's self attention of a decoded token: (out_proj of it,
+    the layer's updated k and v caches), the new k and v written where
+    this rank's block of the cache (``cl``) holds ``pos``
+    (``_decode_read``)."""
     h = rmsnorm(gathered(lp["ln1"]), x, cfg.norm_eps)
     pa = lp["attn"]
     q, k, v, _ = _qkv(pa, h, h)
@@ -1068,6 +1156,17 @@ def _decode_attn(lp, cfg, x, kc, vc, pos, positions, theta, window,
     k, v = (_cache_heads(t, cfg, cl, mesh) for t in (k, v))
     lo = cl.seq_lo
     kc, vc = attn.update_cache(kc, vc, k, v, pos - lo if lo else pos)
+    return _decode_read(pa, cfg, q, kc, vc, pos, window, cl, mesh), kc, vc
+
+
+def _decode_read(pa, cfg, q, kc, vc, pos, window, cl: _Cache, mesh):
+    """out_proj of the attention of q (the decoded token's query heads of
+    this rank) over the cache. Over a mesh the rank's query heads read
+    its block of the cache (``cl``): where the cache splits the sequence
+    over ``"model"``, every query head, joined over the blocks
+    (``attention.decode_combine``); else its own heads, against the kv
+    heads they read. ``wo`` sums the rank's heads over ``"model"``."""
+    lo = cl.seq_lo
     heads, group = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
     n_q = q.shape[2]
     q_lo = mesh.get_local_rank(TP) * n_q if n_q < heads else 0
@@ -1078,11 +1177,13 @@ def _decode_attn(lp, cfg, x, kc, vc, pos, positions, theta, window,
         kv_lo = mesh.get_local_rank(TP) * kc.shape[2] if cl.heads > 1 else 0
         kq, vq = (attn.heads_for(t, kv_lo, q_lo, n_q, group)
                   for t in (kc, vc))
-    m, l, o = attn.decode_attention_block(q, kq, vq, pos, window=window,
-                                          kv_offset=lo)
     if cl.seq_axes:
+        m, l, o = attn.decode_attention_block(q, kq, vq, pos, window=window,
+                                              kv_offset=lo)
         l, o = attn.decode_combine(m, l, o, mesh, cl.seq_axes)
-    o = attn.decode_output(o, l, q)
+        o = attn.decode_output(o, l, q)
+    else:
+        o = attn.decode_attention(q, kq, vq, pos, window=window)
     wo = tp_leaf(pa["wo"], 0)
     if wo.n > 1:
         per = heads // wo.n
@@ -1098,22 +1199,26 @@ def _decode_attn(lp, cfg, x, kc, vc, pos, positions, theta, window,
         if n_q < heads:
             o = all_gather(o, mesh, TP, 2)
         y = attn.out_proj({"wo": wo.t}, o)
-    return y, kc, vc
+    return y
 
 
-def _ssm_decode(params, cfg, caches, batch):
+def _ssm_decode(params, cfg, caches, batch, mesh=None, layouts=None):
+    layout = (layouts or {}).get("ssm", _WHOLE_SSM)
     top = _top(params)
     x = embed(top, batch["tokens"])
     new = []
     for i in range(cfg.n_layers):
-        x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x,
-                              cache=_layer(caches["ssm"], i))
+        x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x, mesh,
+                              layout, cache=_layer(caches["ssm"], i))
         new.append(cache)
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
     return _last_logits(top, x), {"ssm": _stack_trees(new)}
 
 
-def _hybrid_decode(params, cfg, caches, batch):
+def _hybrid_decode(params, cfg, caches, batch, mesh=None, layouts=None):
+    layouts = layouts or {}
+    layout = layouts.get("ssm", _WHOLE_SSM)
+    cl = _kv_layout(layouts, caches, "shared")
     tokens, pos = batch["tokens"], batch["pos"]
     top = _top(params)
     x = embed(top, tokens)
@@ -1121,13 +1226,13 @@ def _hybrid_decode(params, cfg, caches, batch):
     new_ssm, new_k, new_v = [], [], []
     for g, group in enumerate(_groups(cfg)):
         for i in group:
-            x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x,
-                                  cache=_layer(caches["ssm"], i))
+            x, cache = _ssm_layer(_layer(params["layers"], i), cfg, x, mesh,
+                                  layout, cache=_layer(caches["ssm"], i))
             new_ssm.append(cache)
         kv = (caches["shared"]["k"][g], caches["shared"]["v"][g])
         x, (kc, vc) = _shared_block(params["shared"], cfg, x, positions,
                                     attn.DEFAULT_BLOCK_KV, kv_cache=kv,
-                                    pos=pos)
+                                    pos=pos, mesh=mesh, cl=cl)
         new_k.append(kc)
         new_v.append(vc)
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)
@@ -1137,34 +1242,36 @@ def _hybrid_decode(params, cfg, caches, batch):
     }
 
 
-def _whisper_decode(params, cfg, caches, batch):
+def _whisper_decode(params, cfg, caches, batch, mesh=None, layouts=None):
+    layouts = layouts or {}
+    cl, cl_cross = (_kv_layout(layouts, caches, k) for k in ("self", "cross"))
     tokens, pos = batch["tokens"], batch["pos"]
     b = tokens.shape[0]
     top = _top(params)
     x = embed(top, tokens)
     # sinusoidal position of the current step, gathered per sequence
-    skv = caches["self"]["k"].shape[2]
-    pos_table = sinusoidal_positions(skv, cfg.d_model, x.device).to(x.dtype)
+    pos_table = sinusoidal_positions(cl.skv, cfg.d_model, x.device).to(
+        x.dtype)
     x = x + pos_table[pos.long()][:, None]
+    # the cross attention reads every frame
+    last = torch.full((b,), cl_cross.skv - 1, dtype=torch.int32,
+                      device=x.device)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = gathered_tree(_layer(params["layers"], i))
-        ck, cv = caches["cross"]["k"][i], caches["cross"]["v"][i]
-        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = attn.qkv_proj(lp["attn"], h)
-        kc, vc = attn.update_cache(caches["self"]["k"][i],
-                                   caches["self"]["v"][i], k, v, pos)
-        o = attn.decode_attention(q, kc, vc, pos)
-        x = _residual(x, attn.out_proj(lp["attn"], o))
-        hc = rmsnorm(lp["ln3"], x, cfg.norm_eps, dtype=COMPUTE_DTYPE)
+        lp = _layer(params["layers"], i)
+        y, kc, vc = _decode_attn(lp, cfg, x, caches["self"]["k"][i],
+                                 caches["self"]["v"][i], pos, None, None,
+                                 None, cl, mesh)
+        x = _residual(x, y)
+        hc = rmsnorm(gathered(lp["ln3"]), x, cfg.norm_eps,
+                     dtype=COMPUTE_DTYPE)
         # the reference projects the cross query without ``bq`` here
-        qc = attn._proj(hc, lp["cross"]["wq"])
-        f = ck.shape[1]
-        oc = attn.decode_attention(
-            qc, ck, cv, torch.full((b,), f - 1, dtype=torch.int32,
-                                   device=x.device))
-        x = _ffn_layer(lp, cfg, _residual(x.to(COMPUTE_DTYPE),
-                                          attn.out_proj(lp["cross"], oc)))
+        qc = attn._proj(hc, tp_leaf(lp["cross"]["wq"], 1).t)
+        yc = _decode_read(lp["cross"], cfg, qc, caches["cross"]["k"][i],
+                          caches["cross"]["v"][i], last, None, cl_cross,
+                          mesh)
+        x = _ffn_layer(lp, cfg, _residual(x.to(COMPUTE_DTYPE), yc),
+                       mesh=mesh)
         ks.append(kc)
         vs.append(vc)
     x = rmsnorm(top["final_norm"], x, cfg.norm_eps)

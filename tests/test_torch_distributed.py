@@ -62,6 +62,30 @@ and the same numpy inputs. Bounds, and why:
   reference's ``attn_q_seq`` branch) against the mesh-free port from
   one draw: the logits within 1e-2 and the train step at the bounds
   above;
+- the SSM, hybrid and encoder-decoder families (mamba2-780m,
+  zamba2-2.7b and whisper-small reduced) on (2,4) against the mesh-free
+  port from one draw: the Mamba2 layers split over ``ffn`` and
+  ``ssm_heads``, zamba2's shared block and whisper's encoder, decoder
+  and cross attention tensor-parallel. The forward logits within 1e-2
+  max-rel (measured equal); every gradient leaf within 2e-2
+  norm-relative (measured at most 0.0025, 0.0057 and 0.0031) and the
+  train step at the bounds above (loss 2.5e-5, grad_norm 1e-2, each
+  update 5e-2 norm-relative: measured at most 0.044, 0.035 and 0.038).
+  The backward rounds where the mesh-free one does: B and C's gradient
+  sums every rank's heads in f32 (``sharding_ctx._RepeatIn``) and a
+  weight broadcast over the rows sums each rank's bf16 products in f32
+  (``_RowWeight``); with them the SSM's activation gradients equal the
+  mesh-free ones. zamba2's reduced stack is chaotic
+  (``tests/test_torch_train.py``'s ``CHAOTIC``): its second shared
+  attention turns a 1e-4 difference of the loss's gradient into 2e-3,
+  and the sign of a few near-zero gradient elements of the SSM's conv
+  weights with it (their updates 0.07 on the 12 layers). Its train step
+  is held group by group, on its first group and shared block, and its
+  whole stack on the logits and every gradient leaf. Prefill and three
+  decode steps on sharded
+  parameters: the logits within 1e-2 max-rel, every cache within 5e-2,
+  each returned cache a DTensor under its spec's placements whose local
+  block is the spec's block;
 - prefill and four decode steps of qwen2.5-3b under the dry-run's
   decode rules (the cache's sequence on "model"): the logits within
   5e-2 max-rel (each block's softmax rounds its bf16 probabilities
@@ -427,6 +451,56 @@ def test_query_rows_split_matches_the_mesh_free_step(runs):
     assert gnorm == pytest.approx(gnorm0, rel=1e-2)
     assert float(np.max(port["qrows_grad_rel"])) < 2e-2
     assert float(np.max(port["qrows_update_rel"])) < 5e-2
+
+
+@pytest.mark.parametrize("arch", ranks.FAMILY_ARCHS)
+def test_family_train_step_matches_the_mesh_free_step(runs, arch):
+    """The SSM, hybrid and encoder-decoder families on (2,4): each rank
+    computes its share over "model" as the reference's specs place the
+    leaves; the forward logits, the gradient, and one train step against
+    the mesh-free port's (zamba2's step on its first group and shared
+    block: its whole reduced stack is chaotic)."""
+    _, _, port, _ = runs
+    key = f"fam_{arch}"
+    assert _max_rel(port[f"{key}_logits"], port[f"{key}_free_logits"]) < 1e-2
+    loss, loss0 = port[f"{key}_loss"]
+    gnorm, gnorm0 = port[f"{key}_grad_norm"]
+    assert loss == pytest.approx(loss0, rel=2.5e-5)
+    assert gnorm == pytest.approx(gnorm0, rel=1e-2)
+    assert float(np.max(port[f"{key}_grad_rel"])) < 2e-2
+    assert bool(port[f"{key}_grad_placed"])
+    assert float(np.max(port[f"{key}_update_rel"])) < 5e-2
+    print(f"{arch} (2,4) against the mesh-free port: gradient leaves "
+          f"{np.min(port[f'{key}_grad_rel']):.4f}-"
+          f"{np.max(port[f'{key}_grad_rel']):.4f}, updates of a "
+          f"{int(port[f'{key}_step_layers'])}-layer step at most "
+          f"{np.max(port[f'{key}_update_rel']):.4f}")
+
+
+@pytest.mark.parametrize("arch", ranks.FAMILY_ARCHS)
+def test_family_serving_on_each_ranks_cache_block(runs, arch):
+    """Prefill and three decode steps of each family over (2,4): on
+    sharded parameters the logits within 1e-2 max-rel of the mesh-free
+    ones and every cache within 5e-2; on plain parameters every rank
+    holds alike (each computes whole over "model") the mesh-free logits
+    and caches bit for bit. Either way each cache comes back a DTensor
+    under its spec's placements (the SSM's ``conv_x`` over "model" by
+    channel, ``state`` by head; zamba2's shared and whisper's self and
+    cross caches by kv head where they divide) whose local block is its
+    spec's block, after prefill and after every step."""
+    _, _, port, _ = runs
+    key = f"fam_{arch}"
+    want = port[f"{key}_serve_free_logits"]
+    got = port[f"{key}_serve_logits"]
+    assert got.shape == want.shape == (1 + ranks.FAMILY_STEPS, 4, 512)
+    for step in range(len(got)):
+        assert _max_rel(got[step], want[step]) < 1e-2, step
+    assert float(np.max(port[f"{key}_serve_caches_rel"])) < 5e-2
+    np.testing.assert_array_equal(port[f"{key}_plain_serve_logits"], want)
+    assert float(np.max(port[f"{key}_plain_serve_caches_rel"])) == 0.0
+    for name in ("serve", "plain_serve"):
+        assert port[f"{key}_{name}_placed"].tolist() == \
+            [True] * (1 + ranks.FAMILY_STEPS), name
 
 
 def test_decode_rules_serve_on_each_ranks_cache_block(runs):

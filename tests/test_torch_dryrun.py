@@ -66,7 +66,7 @@ CPU = torch.device("cpu")
 CELLS = [(arch, name) for arch in sorted(REGISTRY)
          for name, shape in SHAPES.items()
          if shape_applicable(get_config(arch), shape)]
-# the cells whose (2,4) FLOPs split evenly over "data": dense archs
+# the cells whose (2,4) FLOPs split evenly over "data": all but MoE
 SPLIT_CELLS = [c for c in ranks.DRYRUN_CELLS if "moe" not in c[0]]
 
 REFERENCE_CELLS = """
@@ -158,6 +158,8 @@ for arch, name, kind in cells:
         batch = {"tokens": sds((b, s), i32)}
     else:
         batch = {"tokens": sds((b, 1), i32), "pos": sds((b,), i32)}
+    if cfg.enc_dec and kind != "decode":    # the stub frontend's frames
+        batch["frames"] = sds((b, cfg.n_frames, cfg.d_model), jnp.bfloat16)
     bspecs = {k: spec_for(ParamDef(v.shape, ("batch",) + (None,) * (
         len(v.shape) - 1), v.dtype), rules, ms) for k, v in batch.items()}
     shard = lambda t: map_tree(lambda p: NamedSharding(mesh, p), t)
@@ -312,13 +314,16 @@ def test_mesh_flops_match_reference_and_argument_bytes(
     ``dot_flops`` of the same step, and its argument bytes equal. Both
     split the rows over "data" and the heads, the FFN columns and the
     vocabulary over "model", each rank projecting only the kv heads its
-    query heads read (2 kv heads do not split 4 ways). Measured: prefill
+    query heads read (2 kv heads do not split 4 ways); the Mamba2 layers
+    over ``ffn`` and ``ssm_heads`` with B and C whole. Measured: prefill
     and decode equal exactly; in train the port is above by exactly one
     attention-sized product a layer (2 * b * h * s * s * d, b and h the
     rank's rows and heads: qwen2.5-3b +1.75%, gemma3-1b +2.13%), which
     the reference's one-device program forms as the port does
     (``test_torch_dryrun_compiled.py``: equal there) and its partitioned
-    program does not."""
+    program does not; mamba2-780m +1.89%, zamba2-2.7b +2.43%,
+    whisper-small +2.03% (before their layers split: 2.865x, 3.392x and
+    3.334x)."""
     reference, _ = mesh_runs
     want = reference[f"{arch}|{name}"]
     cfg, shape = ranks.dryrun_cell(arch, name, kind)
@@ -368,14 +373,13 @@ def _gathered_bytes(shape, dtype, spec, mesh) -> int:
     return total
 
 
-def test_forward_gathers_what_the_spec_tree_predicts():
-    """qwen2.5-3b reduced, ``Model.forward(mesh=)`` on (2,4) with the
-    whole batch on every rank: each stacked leaf is all-gathered over
-    "data" alone once a layer and each other leaf once (a "model" split
-    is kept); the vocabulary-parallel lookup's bf16 rows of the rank and
-    each sublayer's f32 row-parallel sum are all-reduced over "model";
-    the logits stay the rank's (nothing else moves)."""
-    cfg, shape = ranks.dryrun_cell("qwen2.5-3b", "train_4k", "train")
+def _traced_forward(arch):
+    """``Model.forward(mesh=)`` of ``arch`` reduced on (2,4) over a fake
+    group, the whole batch of the dry-run's (2,4) cells on every rank:
+    (the trace's analysis, the all-gather bytes the spec tree predicts,
+    the config, the batch rows and sequence length, the logits' local
+    shape)."""
+    cfg, shape = ranks.dryrun_cell(arch, "train_4k", "train")
     model = build_model(cfg)
     b, s = shape.global_batch, shape.seq_len
     with dryrun.fake_process_group(8):
@@ -392,16 +396,46 @@ def test_forward_gathers_what_the_spec_tree_predicts():
                         d.shape[1:], d.dtype, tuple(spec)[1:], mesh)
                 else:
                     want += _gathered_bytes(d.shape, d.dtype, spec, mesh)
-        rows = b // 2 * s * cfg.d_model      # a rank's residual stream
-        # an all-reduce moves its operand and its result
-        reduced = 2 * (rows * 2 + cfg.n_layers * 2 * rows * 4)
         with dryrun.fake_mode():
             params = spec_map(lambda d, sp: dryrun._placed(d, sp, mesh, CPU),
                               defs, specs)
             tokens = torch.zeros((b, s), dtype=torch.int32)
             (logits, _), an = dryrun.trace(lambda p, t: model.forward(
                 p, {"tokens": t}, mesh=mesh), (params, tokens))
-        assert tuple(logits.to_local().shape) == (b // 2, s, cfg.vocab // 4)
+            local = tuple(logits.to_local().shape)
+    return an, want, cfg, b, s, local
+
+
+def test_forward_gathers_what_the_spec_tree_predicts():
+    """qwen2.5-3b reduced, ``Model.forward(mesh=)`` on (2,4) with the
+    whole batch on every rank: each stacked leaf is all-gathered over
+    "data" alone once a layer and each other leaf once (a "model" split
+    is kept); the vocabulary-parallel lookup's bf16 rows of the rank and
+    each sublayer's f32 row-parallel sum are all-reduced over "model";
+    the logits stay the rank's (nothing else moves)."""
+    an, want, cfg, b, s, local = _traced_forward("qwen2.5-3b")
+    assert local == (b // 2, s, cfg.vocab // 4)
+    rows = b // 2 * s * cfg.d_model      # a rank's residual stream
+    # an all-reduce moves its operand and its result
+    reduced = 2 * (rows * 2 + cfg.n_layers * 2 * rows * 4)
+    assert an["collective_kinds"] == {"all-gather": want,
+                                      "all-reduce": reduced}
+    assert an["collective_counts"]["all-reduce"] == 1 + 2 * cfg.n_layers
+
+
+def test_ssm_forward_moves_no_weight_over_model():
+    """mamba2-780m reduced, ``Model.forward(mesh=)`` on (2,4) with the
+    whole batch on every rank: each leaf is all-gathered over "data"
+    alone (the "model" splits of ``ffn`` and ``ssm_heads`` are kept, and
+    ``wB``, ``wC``, ``conv_B`` and ``conv_C``, whole over "model", move
+    nothing over it); over "model" move only the vocabulary-parallel
+    lookup's bf16 rows and, each layer, its gated norm's f32 sum of
+    squares (one number a row) and its row-parallel ``wo`` sum (f32)."""
+    an, want, cfg, b, s, local = _traced_forward("mamba2-780m")
+    assert local == (b // 2, s, cfg.vocab // 4)
+    rows = b // 2 * s
+    reduced = 2 * (rows * cfg.d_model * 2
+                   + cfg.n_layers * (rows * 4 + rows * cfg.d_model * 4))
     assert an["collective_kinds"] == {"all-gather": want,
                                       "all-reduce": reduced}
     assert an["collective_counts"]["all-reduce"] == 1 + 2 * cfg.n_layers

@@ -217,7 +217,8 @@ def test_sinusoidal_positions(n, d):
 @pytest.mark.parametrize("bias", [False, True])
 def test_cross_qkv(dtype, bias):
     """Whisper's cross-attention projections: q from the decoder, k and v
-    from the encoder output, with and without the q/k/v biases."""
+    from the encoder output, with and without the q/k/v biases (the
+    port's ``_qkv`` of the two inputs)."""
     rng = np.random.default_rng(8)
     pj, pt = {}, {}
     shapes = {"wq": (32, 4, 8), "wk": (32, 2, 8), "wv": (32, 2, 8)}
@@ -227,7 +228,7 @@ def test_cross_qkv(dtype, bias):
         pj[name], pt[name] = both(normal(rng, *shape, scale=0.2), "f32")
     xj, xt = both(normal(rng, 2, 5, 32), dtype)
     ej, et = both(normal(rng, 2, 11, 32), dtype)
-    for got, want in zip(tt._cross_qkv(pt, xt, et),
+    for got, want in zip(tt._qkv(pt, xt, et)[:3],
                          jt._cross_qkv(pj, xj, ej)):
         assert got.shape == want.shape
         close(got, want, DTYPES[dtype][2])

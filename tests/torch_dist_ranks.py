@@ -63,11 +63,19 @@ DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "train"),
                 ("qwen2.5-3b", "prefill_32k", "prefill"),
                 ("qwen2.5-3b", "decode_32k", "decode"),
                 ("gemma3-1b", "train_4k", "train"),
-                ("granite-moe-3b-a800m", "train_4k", "train"))
+                ("granite-moe-3b-a800m", "train_4k", "train"),
+                ("mamba2-780m", "train_4k", "train"),
+                ("zamba2-2.7b", "train_4k", "train"),
+                ("whisper-small", "train_4k", "train"),
+                ("zamba2-2.7b", "decode_32k", "decode"))
 DRYRUN_BATCH, DRYRUN_SEQ = 4, 64
 TRAIN_ARCH = "qwen2.5-3b"
 QROWS_HEADS = 6             # heads that do not divide a 4-way "model" axis
 DECODE_BATCH, DECODE_STEPS = 4, 4
+# the SSM, hybrid and encoder-decoder families held on (2,4) against the
+# mesh-free port: the train step, prefill and FAMILY_STEPS decode steps
+FAMILY_ARCHS = ("mamba2-780m", "zamba2-2.7b", "whisper-small")
+FAMILY_STEPS = 3
 TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 5}
 PIPE = {"n_stages": 4, "n_micro": 6, "mb": 2, "d": 8}
 
@@ -207,6 +215,8 @@ def job_port8(rank, workdir, inp):
                     tree_leaves(caches), tree_leaves(caches0))))
 
     out.update(_query_rows(mesh, inp))
+    for arch in FAMILY_ARCHS:
+        out.update(_family(mesh, inp, arch))
     out.update(_decode_rules(mesh, inp))
     out.update(_vocab_parallel_loss(mesh, rank))
 
@@ -354,11 +364,109 @@ def _query_rows(mesh, inp):
                                                                  batch)
     for k in ("loss", "grad_norm"):
         out[f"qrows_{k}"] = np.array([float(m[k]), float(m0[k])])
-    new, new0 = flat(new["params"]), flat(new0["params"])
-    out["qrows_update_rel"] = np.array([
+    out["qrows_update_rel"] = _update_rel(old, new["params"], new0["params"])
+    return out
+
+
+def _update_rel(old, new, new0):
+    """Each leaf's update (``new`` from ``old``) against the mesh-free
+    update (``new0``), norm-relative."""
+    new, new0 = flat(new), flat(new0)
+    return np.array([
         float(np.linalg.norm((_np(new[k]) - old[k]) - (_np(new0[k]) - old[k]))
               / max(np.linalg.norm(_np(new0[k]) - old[k]), 1e-30))
         for k in sorted(old)])
+
+
+def family_batch(cfg, tokens):
+    """The train batch of ``tokens`` (B, S+1), with whisper's stub frames
+    (drawn from seed 3, alike on every rank)."""
+    batch = {"tokens": tokens[:, :-1].contiguous(),
+             "labels": tokens[:, 1:].contiguous()}
+    if cfg.enc_dec:
+        rng = np.random.default_rng(3)
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (tokens.shape[0], cfg.n_frames, cfg.d_model)).astype(
+                np.float32)).to(torch.bfloat16)
+    return batch
+
+
+def _family(mesh, inp, arch):
+    """``arch`` reduced on (2,4) against the mesh-free port from one draw
+    (``init_state``'s): the forward logits, the gradient of the loss and
+    one train step, prefill and ``FAMILY_STEPS`` decode steps on sharded
+    parameters, and whether each cache comes back under its spec's
+    placements as this rank's block. zamba2's reduced stack is chaotic
+    (its second shared attention turns a 1e-4 difference of the loss's
+    gradient into 2e-3): its train step is taken on its first group and
+    shared block, as ``tests/test_torch_models.py`` holds it group by
+    group."""
+    key = f"fam_{arch}"
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    toks = np.concatenate([inp["train_tokens"], inp["train_labels"][:, -1:]],
+                          1)
+    batch = family_batch(cfg, torch.from_numpy(toks))
+    fwd = {k: v for k, v in batch.items() if k != "labels"}
+    state = tstep.init_state(model, 0, device="cpu", mesh=mesh)
+    plain = tstep.init_state(model, 0, device="cpu")
+    got, _ = model.forward(state["params"], fwd, mesh=mesh)
+    want, _ = model.forward(plain["params"], fwd)
+    out = {f"{key}_logits": _np(got), f"{key}_free_logits": _np(want)}
+
+    b, s = batch["tokens"].shape
+    skv = s + FAMILY_STEPS
+    specs = model.cache_specs(b, skv, ShardingRules(), mesh_shape_dict(mesh))
+    runs = {}
+    # sharded parameters, plain ones every rank holds alike (each rank
+    # computes whole over "model", its caches cut to their specs'
+    # blocks), and no mesh
+    for name, params, m in (("serve", state["params"], mesh),
+                            ("plain_serve", plain["params"], mesh),
+                            ("serve_free", plain["params"], None)):
+        lg, caches = model.prefill(params, fwd, skv=skv, mesh=m)
+        steps, placed = [lg], []
+        for i in range(FAMILY_STEPS):
+            placed.append(m is None or _under_specs(caches, specs, m))
+            nxt = {"tokens": batch["tokens"][:, i:i + 1],
+                   "pos": torch.full((b,), s + i, dtype=torch.int32)}
+            lg, caches = model.decode_step(params, caches, nxt, mesh=m)
+            steps.append(lg)
+        placed.append(m is None or _under_specs(caches, specs, m))
+        out[f"{key}_{name}_logits"] = np.stack([_np(t) for t in steps])
+        out[f"{key}_{name}_placed"] = np.array(placed)
+        runs[name] = [whole(c).double() for c in tree_leaves(caches)]
+    for name in ("serve", "plain_serve"):
+        out[f"{key}_{name}_caches_rel"] = np.array(
+            [_rel(a, c) for a, c in zip(runs[name], runs["serve_free"])])
+
+    old = {k: _np(v).copy() for k, v in flat(plain["params"]).items()}
+    (_, _), g = tstep.value_and_grad(
+        tstep.make_loss_fn(model, mesh=mesh, remat=True), state["params"],
+        batch, mesh)
+    (_, _), g0 = tstep.value_and_grad(tstep.make_loss_fn(model, remat=True),
+                                      plain["params"], batch)
+    out[f"{key}_grad_rel"] = np.array(
+        [_rel(whole(a), c) for a, c in zip(tree_leaves(g), tree_leaves(g0))])
+    out[f"{key}_grad_placed"] = np.array(all(
+        hasattr(a, "placements") and a.placements == p.placements
+        for a, p in zip(tree_leaves(g), tree_leaves(state["params"]))))
+    if cfg.shared_attn_every:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.shared_attn_every)
+        model = build_model(cfg)
+        state = tstep.init_state(model, 0, device="cpu", mesh=mesh)
+        plain = tstep.init_state(model, 0, device="cpu")
+        old = {k: _np(v).copy() for k, v in flat(plain["params"]).items()}
+    out[f"{key}_step_layers"] = np.array(cfg.n_layers)
+    opt_cfg = OptimizerConfig(**TRAIN_OPT)
+    new, m = tstep.make_train_step(model, opt_cfg, mesh=mesh, remat=True)(
+        state, batch)
+    new0, m0 = tstep.make_train_step(model, opt_cfg, remat=True)(plain,
+                                                                 batch)
+    for k in ("loss", "grad_norm"):
+        out[f"{key}_{k}"] = np.array([float(m[k]), float(m0[k])])
+    out[f"{key}_update_rel"] = _update_rel(old, new["params"],
+                                           new0["params"])
     return out
 
 
@@ -400,10 +508,7 @@ def _decode_rules(mesh, inp):
             lg0, caches0 = model.decode_step(params, caches0, nxt)
             steps.append(lg)
             steps0.append(lg0)
-        out["dec_placed"] = np.array(all(
-            tuple(c.placements) == tuple(placements(sp, mesh)) and
-            list(c.to_local().shape) == _block_shape(c.shape, sp, mesh)
-            for c, sp in zip(tree_leaves(caches), tree_leaves(specs))))
+        out["dec_placed"] = np.array(_under_specs(caches, specs, mesh))
     out["dec_block_bytes"] = np.array(
         tree_leaves(caches)[0].to_local()[0].nbytes)
     out["dec_logits"] = np.stack([_np(t) for t in steps])
@@ -413,6 +518,14 @@ def _decode_rules(mesh, inp):
         out[f"dec_cache_{key}"] = _np(c)
         out[f"dec_free_cache_{key}"] = _np(c0)
     return out
+
+
+def _under_specs(caches, specs, mesh) -> bool:
+    """Each cache a DTensor under its spec's placements whose local
+    tensor is its spec's block."""
+    return all(tuple(c.placements) == tuple(placements(sp, mesh)) and
+               list(c.to_local().shape) == _block_shape(c.shape, sp, mesh)
+               for c, sp in zip(tree_leaves(caches), tree_leaves(specs)))
 
 
 def _block_shape(shape, spec, mesh):
