@@ -170,7 +170,10 @@ without printing the result line):
    exactly, and each cell's trace time, roofline terms, dominant term and
    peak against the card's memory are printed, its FLOPs, collective
    bytes and peak a rank beside those of the design before its layers
-   split over "model" (``DRYRUN_BEFORE``); (b) phase 11(b)'s step
+   split over "model" (``DRYRUN_BEFORE``); the 2-D EP cell's experts
+   lie one a rank and do not move, so its collective bytes a rank must
+   stay below one layer's expert stack (``3 * e_pad * d_model *
+   d_ff_expert * 2`` B from the config); (b) phase 11(b)'s step
    traced on a (1,1) fake mesh: its FLOPs equal ``FlopCounterMode`` over
    11(b)'s extra step, its peak above the arguments within 5% of that
    step's peak above the bytes live before it, its kernel-launching ops
@@ -3839,6 +3842,8 @@ DRYRUN_BEFORE = {
     ("mamba2-780m", "long_500k", True): (1.5973e9, 1.5341e9, 666952760),
     ("zamba2-2.7b", "train_4k", False): (1.5385e15, 4.0478e10,
                                          1131691022624)}
+# 12(a): the 2-D EP cell, whose experts stay on their ranks
+DRYRUN_EP2D = ("qwen3-moe-235b-a22b", "decode_32k", False)
 # 12(b): phase 11(b)'s step, traced as one rank of a (1,1) fake mesh
 DRYRUN_CARD = """
 import json, sys
@@ -3901,6 +3906,21 @@ def _cell_argument_bytes(torch, arch, shape_name, multi_pod) -> int:
         total += _shard_bytes(model.cache_defs(b, s),
                               model.cache_specs(b, s, rules, ms), ms)
     return total
+
+
+def _expert_stack_bytes(arch, multi_pod) -> int:
+    """One layer's bf16 ``w1``, ``w3`` and ``w2`` with the experts padded
+    to data x model, as the 2-D EP cell pads them: ``3 * e_pad * d_model
+    * d_ff_expert * 2`` bytes, from the config."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import PRODUCTION_MESHES
+    from repro_torch.models.moe import padded_experts
+    cfg = get_config(arch)
+    ms = dict(zip(*reversed(PRODUCTION_MESHES[multi_pod])))
+    e_pad = padded_experts(dataclasses.replace(
+        cfg.moe, pad_to=ms["data"] * ms["model"]))
+    return 3 * e_pad * cfg.d_model * cfg.moe.d_ff_expert * 2
 
 
 def _split(spec, ms) -> int:
@@ -4023,6 +4043,20 @@ def dryrun_phase(torch, card, meshed):
                 f"{coll0:.4e} ({r['collective_bytes'] / coll0:.4f}x), peak "
                 f"{peak} B vs {peak0} B ({peak / peak0:.4f}x), useful "
                 f"FLOPs ratio {r['useful_flops_ratio']:.4f}")
+            if (arch, shape_name, multi) == DRYRUN_EP2D:
+                stack = _expert_stack_bytes(arch, multi)
+                log(f"12(a) {arch} {shape_name} on {mesh}: collective bytes "
+                    f"a rank {r['collective_bytes']:.4e} "
+                    f"{r['collective_kinds']} against one layer's expert "
+                    f"stack {stack:.4e} B "
+                    f"({r['collective_bytes'] / stack:.4f}x; "
+                    f"DRYRUN_BEFORE {coll0:.4e} B), dominant "
+                    f"{r['dominant']}")
+                if r["collective_bytes"] >= stack:
+                    fail(f"dry-run {arch} {shape_name}: "
+                         f"{r['collective_bytes']} B of collectives a rank "
+                         f"reach one layer's expert stack ({stack} B): the "
+                         f"experts moved")
     card_run = json.loads(done["card"].strip().splitlines()[-1])
     counted = meshed["full"]["counted"]
     prof = meshed["full"]["profile"]

@@ -32,9 +32,17 @@ the branch gathers as far as it needs):
   batch axes, each rank runs the one expert slot
   ``data_rank * n_model + model_rank`` on its first ``capacity``
   assignments, the outputs are summed over ``("data", "model")`` and each
-  rank takes its rows back. Each expert weight is still gathered whole
-  at use here (the reference reshards them to one expert a rank;
-  ROADMAP);
+  rank takes its rows back. Under the 2-D EP serving rules
+  (``launch.dryrun.sharding_rules_for(..., ep2d=True)``) an expert
+  weight is stationary: its expert dimension is split by ``Shard(0)``
+  over ``"data"`` and then ``"model"``, it is replicated over any other
+  axis and no other dimension is split, so the rank's ``(1, d, f)``
+  block is that slot's expert, taken with no collective, and its
+  gradient stays on the rank (summed over ``"pod"`` where that axis
+  holds it alike). Any other layout (the default rules' experts over
+  ``"model"`` with ``embed`` over ``"data"``, say) is gathered whole at
+  use and the slot's expert taken from it, where the reference's
+  partitioner reshards it to the ``shard_map``'s spec;
 * a mesh with no ``"model"`` axis (or one of size 1) runs the
   single-device dispatch on the whole batch, all-gathered over the
   batch axes, and takes this rank's rows, as the reference's partitioner
@@ -49,6 +57,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from ..configs.base import ArchConfig, MoEConfig
 from .attention import _f32_einsum
@@ -167,12 +176,13 @@ def _moe_local(x2d: torch.Tensor, router: torch.Tensor, w1: torch.Tensor,
 
 def _moe_ep2d(x, router, w1, w3, w2, *, moe: MoEConfig, e_pad: int,
               act: str, capacity: int, mesh, b_axes: Tuple[str, ...],
-              n_model: int, aux: bool = True):
+              mine: int, aux: bool = True):
     """2-D expert-parallel path: the rank's rows x (bl, S, d) gathered
-    over the batch axes; this rank runs expert ``data_rank * n_model +
-    model_rank`` on its first ``capacity`` assignments (a stable sort
-    puts them first); the partial outputs are summed over ``("data",
-    "model")`` and the rank's rows come back (batch-major order)."""
+    over the batch axes; this rank runs its expert ``mine`` (``w1``,
+    ``w3``, ``w2`` are that expert's (d, f), (d, f) and (f, d) weights)
+    on its first ``capacity`` assignments (a stable sort puts them
+    first); the partial outputs are summed over ``("data", "model")``
+    and the rank's rows come back (batch-major order)."""
     bl, s, d = x.shape
     x_all = all_gather(x.reshape(bl * s, d), mesh, b_axes, 0)
     t = x_all.shape[0]
@@ -183,7 +193,6 @@ def _moe_ep2d(x, router, w1, w3, w2, *, moe: MoEConfig, e_pad: int,
     flat_e = idx.reshape(-1)
     flat_t = torch.arange(t, device=dev).repeat_interleave(k)
     flat_g = gates_k.reshape(-1)
-    mine = axis_index(mesh, ("data", "model"))
     match = flat_e == mine
     order = torch.argsort((~match).to(torch.int8), stable=True)
     sel = order[:capacity]
@@ -191,9 +200,9 @@ def _moe_ep2d(x, router, w1, w3, w2, *, moe: MoEConfig, e_pad: int,
     tok = flat_t[sel]
     buf = x_all[tok] * valid[:, None].to(x_all.dtype)      # (C, d)
 
-    h = buf @ cast(w1[mine], buf.dtype)
-    u = buf @ cast(w3[mine], buf.dtype)
-    y = (_act(act, h) * u) @ cast(w2[mine], buf.dtype)
+    h = buf @ cast(w1, buf.dtype)
+    u = buf @ cast(w3, buf.dtype)
+    y = (_act(act, h) * u) @ cast(w2, buf.dtype)
     gate = (flat_g[sel] * valid).to(y.dtype)
     partial = torch.zeros((t, d), dtype=x_all.dtype, device=dev).index_add(
         0, tok, y * gate[:, None])
@@ -225,6 +234,27 @@ def _own_experts(w, mesh, e_lo: int, n_local: int) -> torch.Tensor:
             return gather_param(w.local, w.mesh, w.placements,
                                 keep=("model",))
     return gathered(w)[e_lo:e_lo + n_local]
+
+
+def _slot_expert(w, mine: int) -> torch.Tensor:
+    """Expert ``mine`` of an expert-stacked weight, for the 2-D EP path.
+    A ``LocalShard`` that lies as the 2-D EP serving rules place it (its
+    expert dimension split by ``Shard(0)`` over ``"data"`` and then
+    ``"model"``, in mesh order, and replicated over every other axis) is
+    this rank's own ``(1, d, f)`` block: DTensor's nested ``Shard(0)``
+    gives rank ``(d, m)`` chunk ``d * n_model + m``, which is ``mine``.
+    It is taken with no collective, its gradient summed over the axes
+    that hold it alike (``gather_param``). Any other weight is gathered
+    whole and indexed."""
+    if isinstance(w, LocalShard):
+        names = list(w.mesh.mesh_dim_names)
+        want = [Shard(0) if n in ("data", "model") else Replicate()
+                for n in names]
+        if names.index("data") < names.index("model") and \
+                list(w.placements) == want:
+            return gather_param(w.local, w.mesh, w.placements,
+                                keep=("data", "model"))[0]
+    return gathered(w)[mine]
 
 
 def moe_block(p, x: torch.Tensor, cfg: ArchConfig, mesh, act: str,
@@ -259,12 +289,12 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, mesh, act: str,
     n_data = mesh_axis_size(mesh, "data") if "data" in names else 1
     if e_pad == n_data * n_model and b * n_batch * s <= 4096 and \
             "data" in names:
-        w1, w3, w2 = (gathered(p[n]) for n in ("w1", "w3", "w2"))
+        mine = axis_index(mesh, ("data", "model"))
+        w1, w3, w2 = (_slot_expert(p[n], mine) for n in ("w1", "w3", "w2"))
         return _moe_ep2d(x, router, w1, w3, w2, moe=moe, e_pad=e_pad,
                          act=act,
                          capacity=max(_capacity(b * n_batch * s, moe), 8),
-                         mesh=mesh, b_axes=b_axes, n_model=n_model,
-                         aux=aux)
+                         mesh=mesh, b_axes=b_axes, mine=mine, aux=aux)
 
     # expert parallelism over "model": this rank's experts, its own rows
     if e_pad % n_model:

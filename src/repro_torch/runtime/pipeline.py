@@ -16,10 +16,18 @@ its own copy of a loss taken from them, and the gradient enters the
 pipeline on the last stage from that stage's own copy (the outputs are
 one value, not a sum of the ranks' copies), so each stage's parameters
 receive the gradient of the loss. Bubble fraction = (S-1)/(T+S-1); pick
-n_micro >> n_stages. A stage runs its function on whatever it is given:
-the stages over "pod" are not yet tied to the decoder stacks'
-tensor-parallel layers (``models.transformer``), whose parameters a
-stage function would gather whole at use (ROADMAP).
+n_micro >> n_stages.
+
+The stacked stage parameters come in either of two forms. As the
+reference shards them (``in_specs`` ``P(axis)``): DTensors placed
+``Shard(0)`` over ``axis`` and ``Replicate`` over every other axis, so
+that a rank holds its own stage's ``(1, ...)`` block alone; it reads
+that block's ``[0]`` with no gather, and its gradient lands on the
+block, a DTensor under the parameter's placements. Or as plain tensors
+that every rank holds whole and alike, of which a rank slices its
+stage; each rank's gradient is then nonzero on its stage's slice only.
+The stage function is generic, as the reference's is: it receives its
+stage's leaves and is not tied to the decoder stacks.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..models.param import map_tree, tree_leaves
 from ..models.sharding_ctx import mesh_axis_size
@@ -91,8 +100,10 @@ def pipeline(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
              axis: str = "pod") -> torch.Tensor:
     """Run x_micro (n_micro, mb, ...) through n_stages = the size of
     ``axis`` pipeline stages. stage_params leaves are stacked
-    (n_stages, ...), held alike by every rank, which takes its stage's
-    slice. Returns the (n_micro, mb, ...) outputs on every
+    (n_stages, ...): DTensors placed ``Shard(0)`` over ``axis`` (a rank
+    reads its own block) or plain tensors held alike by every rank
+    (a rank slices its stage); a leading dimension other than n_stages
+    raises. Returns the (n_micro, mb, ...) outputs on every
     rank. Each rank runs its own stage: at tick t it takes microbatch
     t - s (stage 0 from x_micro, the others from the hop), and the last
     stage's outputs are shared over the stage group. Ticks in the bubble
@@ -102,7 +113,8 @@ def pipeline(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     s = mesh.get_local_rank(axis)
     group = mesh.get_group(axis)
     last = n_stages - 1
-    params_here = map_tree(lambda a: a[s], stage_params)
+    params_here = map_tree(lambda a: _stage_of(a, mesh, axis, n_stages, s),
+                           stage_params)
     anchor = next((a for a in tree_leaves(params_here) + [x_micro]
                    if a.requires_grad), x_micro)
 
@@ -121,6 +133,27 @@ def pipeline(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
             hops.append(cur)
     out = torch.stack(outputs) if s == last else torch.zeros_like(x_micro)
     return _FromLast.apply(out, group, *hops)
+
+
+def _stage_of(a: torch.Tensor, mesh, axis: str, n_stages: int,
+              s: int) -> torch.Tensor:
+    """Stage ``s``'s parameters of a stacked leaf: a DTensor's own
+    ``(1, ...)`` block's ``[0]`` (no collective), a plain tensor's
+    ``[s]``."""
+    if a.shape[0] != n_stages:
+        raise ValueError(f"a stage parameter of shape {tuple(a.shape)} "
+                         f"does not stack {n_stages} stages along its "
+                         f"first dimension")
+    if not isinstance(a, DTensor):
+        return a[s]
+    names = list(a.device_mesh.mesh_dim_names)
+    want = [Shard(0) if n == axis else Replicate() for n in names]
+    if a.device_mesh != mesh or list(a.placements) != want:
+        raise ValueError(f"a stage parameter of shape {tuple(a.shape)} "
+                         f"lies under {tuple(a.placements)} on "
+                         f"{tuple(names)}: the pipeline takes Shard(0) "
+                         f"over {axis!r} and Replicate elsewhere")
+    return a.to_local()[0]
 
 
 def bubble_fraction(n_micro: int, n_stages: int) -> float:

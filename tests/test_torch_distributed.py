@@ -193,6 +193,23 @@ for name, arch, kw in spec["moe"]:
             params, {"tokens": toks})
     out[name + "_logits"] = np.asarray(got.astype(jnp.float32))
 
+# the 2-D EP case on parameters placed under the port's 2-D EP serving
+# rules (the experts over ("data", "model"), one a device)
+rules2d = ShardingRules(tuple((k, tuple(v)) for k, v in spec["ep2d_rules"]))
+name, arch, kw = spec["ep2d_stationary"]
+cfg = get_config(arch).reduced()
+cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **kw))
+model = build_model(cfg)
+params = jax.device_put(unflat(name + "_params"), map_tree(
+    lambda s: NamedSharding(mesh, s), model.param_specs(rules2d, ms)))
+with mesh, axis_rules(rules2d, ms):
+    got, _ = jax.jit(lambda p, b: model.forward(p, b, mesh=mesh))(
+        params, {"tokens": jnp.asarray(inp[name + "_tokens"])})
+out["ep2s_logits"] = np.asarray(got.astype(jnp.float32))
+got, _ = jax.jit(lambda p, b: model.forward(p, b))(
+    unflat(name + "_params"), {"tokens": jnp.asarray(inp[name + "_tokens"])})
+out["ep2s_one_logits"] = np.asarray(got.astype(jnp.float32))
+
 cfg = get_config(spec["train_arch"]).reduced()
 model = build_model(cfg)
 rules = ShardingRules()
@@ -318,7 +335,12 @@ def runs(tmp_path_factory):
     port4) with their arrays."""
     work = str(tmp_path_factory.mktemp("dist"))
     np.savez(os.path.join(work, "inputs.npz"), **_inputs())
+    from repro_torch.launch import dryrun
+    rules = dryrun.sharding_rules_for(
+        "decode_32k", ranks.EP2D_BATCH, {"data": 2, "model": 4}, ep2d=True)
     spec = json.dumps({"moe": ranks.MOE_CASES,
+                       "ep2d_stationary": ranks.EP2D_STATIONARY,
+                       "ep2d_rules": [[k, list(v)] for k, v in rules.rules],
                        "train_arch": ranks.TRAIN_ARCH,
                        "train_opt": ranks.TRAIN_OPT})
     ref = subprocess.Popen(
@@ -380,6 +402,62 @@ def test_moe_serving_over_the_mesh_matches_mesh_free(runs):
     np.testing.assert_array_equal(port["serve_logits"],
                                   port["serve_free_logits"])
     assert bool(port["serve_caches_same"])
+
+
+def test_ep2d_stationary_experts_match_the_gather_path(runs):
+    """qwen3-moe reduced on (2,4), its parameters placed under the
+    dry-run's 2-D EP serving rules: every rank's local expert block is
+    rows ``[mine]`` of the whole weight (DTensor's nested ``Shard`` over
+    "data" then "model" orders the blocks as the path's slot index). It
+    runs that block with no gather: the logits equal, bit for bit, those
+    of the same mesh's gather path (the experts over "model" alone,
+    gathered whole at use), and lie within 1e-2 max-rel of the port's
+    mesh-free logits and of the reference's one-device forward (the MoE
+    cases' bounds). The reference's own (2,4) forward on parameters
+    placed under the same rules lies 0.0415 from its one-device forward
+    on this batch (its partitioner reduces the sharded products' partial
+    sums in bf16; its own test allows 0.1; measured on the CPU, printed):
+    the port's logits lie
+    within 1e-2 of that forward beyond its own distance from the
+    one-device forward, which must stay under the reference's 0.1."""
+    _, ref, port, _ = runs
+    assert port["ep2s_own_block"].tolist() == [True] * 8
+    got = port["ep2s_logits"]
+    np.testing.assert_array_equal(got, port["ep2s_gather_logits"])
+    assert got.shape == ref["ep2s_logits"].shape
+    assert _max_rel(got, port["ep2s_free_logits"]) < 1e-2
+    assert _max_rel(got, ref["ep2s_one_logits"]) < 1e-2
+    drift = _max_rel(ref["ep2s_logits"], ref["ep2s_one_logits"])
+    assert drift < 0.1
+    assert _max_rel(got, ref["ep2s_logits"]) < drift + 1e-2
+    print(f"stationary 2-D EP logits: "
+          f"{_max_rel(got, ref['ep2s_one_logits']):.4f} from the "
+          f"reference's one-device forward, "
+          f"{_max_rel(got, ref['ep2s_logits']):.4f} from its (2,4) forward, "
+          f"which is {drift:.4f} from its one-device forward")
+
+
+def test_ep2d_stationary_serving_matches_mesh_free(runs):
+    """Prefill and two decode steps of the stationary 2-D EP case under
+    the serving rules: each step's logits within 1e-2 max-rel of the
+    mesh-free port's."""
+    _, _, port, _ = runs
+    got, want = port["ep2s_serve_logits"], port["ep2s_serve_free_logits"]
+    assert got.shape == want.shape == (3, 4, 512)
+    for step in range(len(got)):
+        assert _max_rel(got[step], want[step]) < 1e-2, step
+
+
+def test_ep2d_stationary_gradient_stays_placed(runs):
+    """The CE gradient through the stationary 2-D EP path: every leaf
+    within 2e-2 norm-relative of the mesh-free gradient, and each a
+    DTensor under its parameter's placements (an expert's gradient stays
+    on its rank's block)."""
+    _, _, port, _ = runs
+    assert float(np.max(port["ep2s_grad_rel"])) < 2e-2
+    assert bool(port["ep2s_grad_placed"])
+    print(f"stationary 2-D EP gradient: leaves within "
+          f"{np.max(port['ep2s_grad_rel']):.4f} of the mesh-free one")
 
 
 def test_sharded_train_step_matches_reference(runs):
@@ -589,6 +667,35 @@ def test_pipeline_matches_sequential(runs):
                                    atol=1e-5, rtol=1e-5)
     assert float(np.abs(port["pipe_gw"]).sum()) > 0
     assert abs(float(port["pipe_bubble"]) - 3 / 9) < 1e-9
+
+
+def test_pipeline_on_stage_sharded_parameters(runs):
+    """The stage parameters placed as the reference shards them
+    (``Shard(0)`` over "pod"): on every rank the outputs equal the
+    replicated run's bit for bit and each gradient is a DTensor under
+    ``(Shard(0), Replicate())`` whose block equals the replicated run's
+    row for the stage; the outputs lie within the reference's 1e-5 of the
+    sequential layers; the forward and backward gather nothing."""
+    _, ref, port, _ = runs
+    assert port["pipe_sharded_same"].tolist() == [True] * 8
+    np.testing.assert_allclose(port["pipe_sharded_out"], ref["pipe_seq"],
+                               atol=1e-5, rtol=1e-5)
+    kinds = json.loads(str(port["pipe_sharded_kinds"]))
+    assert "all-gather" not in kinds, kinds
+    assert set(kinds) <= {"all-reduce", "collective-permute"}, kinds
+    assert kinds.get("collective-permute", 0) > 0, kinds
+
+
+@pytest.mark.parametrize("case,words", [
+    ("shape", ("(3, 8, 8)", "4 stages")),
+    ("placement", ("(4, 8, 8)", "Shard(dim=1)", "Shard(0) over 'pod'"))])
+def test_pipeline_refuses_a_leaf_it_cannot_stage(runs, case, words):
+    """A stage parameter stacked 3 deep on a 4-stage axis, or a DTensor
+    split over another axis than the stages', raises; the message names
+    the leaf's shape (and its placements)."""
+    _, _, port, _ = runs
+    msg = str(port[f"pipe_bad_{case}"])
+    assert all(w in msg for w in words), msg
 
 
 def test_compressed_psum_is_the_dequantized_mean(runs):

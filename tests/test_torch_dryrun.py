@@ -35,6 +35,7 @@ The one-device analyses against the reference's compiled programs are in
 ``tests/test_torch_dryrun_compiled.py``.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -55,7 +56,7 @@ from repro_torch.launch.mesh import (PRODUCTION_MESHES, make_host_mesh,
                                      make_production_mesh)
 from repro_torch.models import build_model
 from repro_torch.models.param import ShardingRules, placements, tree_leaves
-from repro_torch.models.sharding_ctx import spec_map
+from repro_torch.models.sharding_ctx import axis_rules, spec_map
 from test_torch_distributed import AUTO_AXES
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -354,10 +355,11 @@ def test_fake_group_counts_equal_real_gloo_ranks(mesh_runs, arch, name,
     assert got["collective_counts"]        # a (2,4) step moves data
 
 
-def _gathered_bytes(shape, dtype, spec, mesh) -> int:
+def _gathered_bytes(shape, dtype, spec, mesh, keep=("model",)) -> int:
     """``tp_leaf``'s all-gather bytes (result plus operand) for one leaf
     of ``shape`` under ``spec``: over each mesh dimension that splits it
-    but "model" (whose split a layer keeps), the last first."""
+    but those in ``keep`` ("model", whose split a layer keeps; none for a
+    leaf gathered whole), the last first."""
     pl = placements(spec, mesh)
     n = math.prod(shape)
     for i, p in enumerate(pl):
@@ -367,7 +369,7 @@ def _gathered_bytes(shape, dtype, spec, mesh) -> int:
     total = 0
     for i in reversed(range(mesh.ndim)):
         if hasattr(pl[i], "dim") and mesh.size(i) > 1 and \
-                mesh.mesh_dim_names[i] != "model":
+                mesh.mesh_dim_names[i] not in keep:
             total += (n + n * mesh.size(i)) * size
             n *= mesh.size(i)
     return total
@@ -439,6 +441,99 @@ def test_ssm_forward_moves_no_weight_over_model():
     assert an["collective_kinds"] == {"all-gather": want,
                                       "all-reduce": reduced}
     assert an["collective_counts"]["all-reduce"] == 1 + 2 * cfg.n_layers
+
+
+EXPERTS = ("w1", "w3", "w2")
+
+
+def _traced_ep2d_decode(ep2d: bool, dense: bool = False):
+    """One decode step of ``ranks.EP2D_STATIONARY`` (qwen3-moe reduced,
+    the experts padded to 8 = data x model) traced as rank 0 of a fake
+    (2,4) group at batch ``ranks.EP2D_BATCH`` against a ``DRYRUN_SEQ``
+    cache, under the dry-run's decode rules with (``ep2d``) or without
+    the 2-D EP override, the parameters and caches placed under them;
+    with ``dense`` the same stack with an MLP in place of the MoE block.
+    Returns (the trace's analysis, the config, the layer leaves' specs,
+    the all-gather bytes the spec tree predicts for the leaves but the
+    experts, those it predicts for gathering the experts whole)."""
+    name, arch, kw = ranks.EP2D_STATIONARY
+    cfg = ranks.moe_config(arch, kw)
+    if dense:
+        cfg = dataclasses.replace(cfg, family="dense", moe=None)
+    model = build_model(cfg)
+    b, skv = ranks.EP2D_BATCH, ranks.DRYRUN_SEQ
+    ms = {"data": 2, "model": 4}
+    rules = dryrun.sharding_rules_for("decode_32k", b, ms, ep2d=ep2d)
+    with dryrun.fake_process_group(8):
+        mesh = make_host_mesh(2, 4, device="cpu")
+        defs, specs = model.param_defs(), model.param_specs(rules, ms)
+        leaves, experts = 0, 0
+        flat_specs = ranks.flat(specs)
+        for key, d in ranks.flat(defs).items():
+            spec = flat_specs[key]
+            if key.startswith("layers/"):   # one layer's slice, each layer
+                shape, spec = d.shape[1:], tuple(spec)[1:]
+                n = cfg.n_layers
+            else:
+                shape, n = d.shape, 1
+            if key.rsplit("/", 1)[-1] in EXPERTS:
+                experts += n * _gathered_bytes(shape, torch.bfloat16, spec,
+                                               mesh, keep=())
+            else:
+                leaves += n * _gathered_bytes(shape, torch.bfloat16, spec,
+                                              mesh)
+        with axis_rules(rules, ms), dryrun.fake_mode():
+            params = spec_map(lambda d, sp: dryrun._placed(
+                dataclasses.replace(d, dtype=torch.bfloat16), sp, mesh, CPU),
+                defs, specs)
+            caches = spec_map(lambda d, sp: dryrun._placed(d, sp, mesh, CPU),
+                              model.cache_defs(b, skv),
+                              model.cache_specs(b, skv, rules, ms))
+            batch = {"tokens": torch.zeros((b, 1), dtype=torch.int32),
+                     "pos": torch.full((b,), skv - 1, dtype=torch.int32)}
+            _, an = dryrun.trace(lambda p, c, t: model.decode_step(
+                p, c, t, mesh=mesh), (params, caches, batch))
+    return an, cfg, specs["layers"], leaves, experts
+
+
+def test_ep2d_decode_moves_no_expert_weight():
+    """The reduced 2-D EP decode step on (2,4) under the dry-run's 2-D
+    EP serving rules: the experts lie over ("data", "model"), one a rank,
+    and the step moves none of them. Exactly: its all-gathers are the
+    MoE tokens' gather over "data" (each layer, the rank's bf16 rows and
+    the whole batch's) plus what the same stack with a dense MLP gathers
+    in its attention (the decoded token's query heads and k and v), plus
+    the non-expert leaves' gathers that the spec tree predicts (none:
+    the serving rules split no leaf over "data"); its all-reduces are the
+    dense stack's with each layer's MLP row-parallel sum (f32) replaced by
+    the MoE's bf16 psum over "data" and over "model". The same step under
+    the decode rules without the override (the experts over "model"
+    alone, gathered whole at use) gathers exactly the experts' whole
+    bytes more, and moves the same all-reduces."""
+    still, cfg, specs, leaves, _ = _traced_ep2d_decode(ep2d=True)
+    moved, _, _, leaves0, experts = _traced_ep2d_decode(ep2d=False)
+    dense, dcfg, _, dleaves, _ = _traced_ep2d_decode(ep2d=True, dense=True)
+    assert all(tuple(specs["moe"][n])[1] == ("data", "model")
+               for n in EXPERTS)
+    b, d, n_layers = ranks.EP2D_BATCH, cfg.d_model, cfg.n_layers
+    bl = b // 2
+    tokens = n_layers * (bl * d + b * d) * 2
+    mlp_sum = 2 * bl * d * 4               # an all-reduce: operand + result
+    moe_psum = 2 * (2 * b * d * 2)         # over "data" and over "model"
+    kinds = dense["collective_kinds"]
+    assert experts > 0 and leaves == leaves0 == dleaves == 0
+    assert still["collective_kinds"] == {
+        "all-gather": kinds["all-gather"] - dleaves + tokens + leaves,
+        "all-reduce": kinds["all-reduce"]
+        + n_layers * (moe_psum - mlp_sum)}
+    assert moved["collective_kinds"] == {
+        "all-gather": still["collective_kinds"]["all-gather"] + experts,
+        "all-reduce": still["collective_kinds"]["all-reduce"]}
+    print(f"2-D EP decode on (2,4): all-gather "
+          f"{still['collective_kinds']['all-gather']} B stationary, "
+          f"{moved['collective_kinds']['all-gather']} B gathering the "
+          f"experts whole ({experts} B of them); all-reduce "
+          f"{still['collective_kinds']['all-reduce']} B")
 
 
 def test_cli_writes_what_roofline_renders(tmp_path):

@@ -28,7 +28,7 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 if SRC not in sys.path:
@@ -43,8 +43,8 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.param import (PartitionSpec,  # noqa: E402
                                       ShardingRules, placements, tree_leaves)
 from repro_torch.models.sharding_ctx import (LocalShard,  # noqa: E402
-                                             axis_rules, distribute,
-                                             distribute_leaf,
+                                             axis_index, axis_rules,
+                                             distribute, distribute_leaf,
                                              mesh_shape_dict)
 from repro_torch.optim.optimizer import OptimizerConfig  # noqa: E402
 from repro_torch.runtime import HostFailure, Supervisor  # noqa: E402
@@ -57,6 +57,10 @@ MOE_CASES = (
     ("ep", "granite-moe-3b-a800m", {"capacity_factor": 32.0}),
     ("ep2d", "qwen3-moe-235b-a22b", {"capacity_factor": 32.0, "pad_to": 8}),
 )
+# the 2-D EP case placed under the dry-run's 2-D EP serving rules (its
+# experts stationary, one a rank), and the batch those rules are taken at
+EP2D_STATIONARY = MOE_CASES[1]
+EP2D_BATCH = 4
 # the dry-run's (2,4) cells, at ``.reduced()`` and batch 4 x 64: (arch,
 # shape name, kind); the name picks the reference's rules
 DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "train"),
@@ -214,6 +218,7 @@ def job_port8(rank, workdir, inp):
                 torch.equal(whole(a), b) for a, b in zip(
                     tree_leaves(caches), tree_leaves(caches0))))
 
+    out.update(_ep2d_stationary(mesh, inp))
     out.update(_query_rows(mesh, inp))
     for arch in FAMILY_ARCHS:
         out.update(_family(mesh, inp, arch))
@@ -312,6 +317,8 @@ def job_port8(rank, workdir, inp):
     out["pipe_out"] = got.detach().numpy()
     out["pipe_gw"], out["pipe_gb"] = gw.numpy(), gb.numpy()
     out["pipe_bubble"] = np.array(bubble_fraction(6, 4))
+    out.update(_pipeline_sharded(mesh42, inp, stage, got, {"w": gw,
+                                                           "b": gb}))
 
     # compressed_psum: EF-int8 draws of each rank, reduced over the
     # "data" axis of an (8,1) mesh (every rank) and of the (2,4) mesh
@@ -324,6 +331,116 @@ def job_port8(rank, workdir, inp):
         mesh=make_host_mesh(world, 1, device="cpu"))["g"].numpy()
     out["psum_data"] = compression.compressed_psum(
         {"g": q}, {"g": s}, "data", 2, mesh=mesh)["g"].numpy()
+    return out
+
+
+def _ep2d_stationary(mesh, inp):
+    """``EP2D_STATIONARY`` on (2,4) with its parameters placed under the
+    dry-run's 2-D EP serving rules (``sharding_rules_for("decode_32k",
+    ..., ep2d=True)``: the experts over ("data", "model"), one a rank):
+    whether each rank's expert block is rows ``[mine]`` of the whole
+    weight; the forward logits, beside those of the same mesh's gather
+    path (the decode rules without the override, whose experts lie over
+    "model" alone) and the mesh-free port's; prefill and two decode
+    steps; the gradient of the CE loss and its placements."""
+    from repro_torch.launch import dryrun
+    name, arch, kw = EP2D_STATIONARY
+    cfg = moe_config(arch, kw)
+    model = build_model(cfg)
+    ms = mesh_shape_dict(mesh)
+    params = convert.params_from_numpy(unflat(inp, f"{name}_params"), "cpu")
+    toks = torch.from_numpy(inp[f"{name}_tokens"])
+    rules = dryrun.sharding_rules_for("decode_32k", EP2D_BATCH, ms,
+                                      ep2d=True)
+    gather_rules = dryrun.sharding_rules_for("decode_32k", EP2D_BATCH, ms)
+    mine = axis_index(mesh, ("data", "model"))
+    out = {}
+    with axis_rules(rules, ms):
+        placed = distribute(params, mesh, model.param_specs(rules, ms))
+        experts = placed["layers"]["moe"]
+        own = all(
+            tuple(experts[n].placements) == (Shard(1), Shard(1)) and
+            torch.equal(experts[n].to_local(),
+                        params["layers"]["moe"][n][:, mine:mine + 1])
+            for n in ("w1", "w3", "w2"))
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, own)
+        out["ep2s_own_block"] = np.array(every)
+        got, _ = model.forward(placed, {"tokens": toks}, mesh=mesh)
+        gather, _ = model.forward(
+            distribute(params, mesh, model.param_specs(gather_rules, ms)),
+            {"tokens": toks}, mesh=mesh)
+        free, _ = model.forward(params, {"tokens": toks})
+        out["ep2s_logits"] = _np(got)
+        out["ep2s_gather_logits"] = _np(gather)
+        out["ep2s_free_logits"] = _np(free)
+
+        pf, caches = model.prefill(placed, {"tokens": toks}, skv=20,
+                                   mesh=mesh)
+        pf0, caches0 = model.prefill(params, {"tokens": toks}, skv=20)
+        steps, steps0 = [pf], [pf0]
+        for i in range(2):
+            nxt = {"tokens": toks[:, i:i + 1],
+                   "pos": torch.full((toks.shape[0],), 16 + i,
+                                     dtype=torch.int32)}
+            lg, caches = model.decode_step(placed, caches, nxt, mesh=mesh)
+            lg0, caches0 = model.decode_step(params, caches0, nxt)
+            steps.append(lg)
+            steps0.append(lg0)
+        out["ep2s_serve_logits"] = np.stack([_np(t) for t in steps])
+        out["ep2s_serve_free_logits"] = np.stack([_np(t) for t in steps0])
+
+        batch = {"tokens": toks, "labels": toks}
+        (_, _), g = tstep.value_and_grad(_ce_only(model, mesh), placed,
+                                         batch, mesh)
+    (_, _), g0 = tstep.value_and_grad(_ce_only(model, None), params, batch)
+    out["ep2s_grad_rel"] = np.array(
+        [_rel(whole(a), c) for a, c in zip(tree_leaves(g), tree_leaves(g0))])
+    out["ep2s_grad_placed"] = np.array(all(
+        hasattr(a, "placements") and a.placements == p.placements
+        for a, p in zip(tree_leaves(g), tree_leaves(placed))))
+    return out
+
+
+def _pipeline_sharded(mesh42, inp, stage, want, want_grads):
+    """The pipeline on stage parameters placed as the reference shards
+    them (``Shard(0)`` over "pod", ``Replicate`` over "data"), traced:
+    its outputs and gradients against the replicated run's (``want``;
+    ``want_grads`` summed over the stages, so row s is stage s's
+    gradient), the gradients' placements, the collectives of the forward
+    and backward; and the error of a leaf whose leading dimension is not
+    the number of stages."""
+    from repro_torch.launch import dryrun
+    spec = PartitionSpec("pod")
+    placed = {k: distribute_leaf(torch.from_numpy(inp[f"pipe_{k}"]), mesh42,
+                                 spec).requires_grad_() for k in ("w", "b")}
+    x = torch.from_numpy(inp["pipe_x"])
+
+    def run():
+        got = pipeline(stage, placed, x, mesh42, axis="pod")
+        return got, torch.autograd.grad((got ** 2).sum(),
+                                        [placed["w"], placed["b"]])
+
+    (got, grads), an = dryrun.trace(run, ())
+    s = mesh42.get_local_rank("pod")
+    same = torch.equal(got, want) and all(
+        tuple(g.placements) == (Shard(0), Replicate()) and
+        torch.equal(g.to_local()[0], want_grads[k][s])
+        for k, g in zip(("w", "b"), grads))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, same)
+    out = {"pipe_sharded_same": np.array(every),
+           "pipe_sharded_out": got.detach().numpy(),
+           "pipe_sharded_kinds": np.array(json.dumps(an["collective_kinds"]))}
+    w = torch.from_numpy(inp["pipe_w"])
+    for name, bad in (("shape", w[:3]), ("placement", distribute_leaf(
+            w, mesh42, PartitionSpec(None, "data")))):
+        try:
+            pipeline(stage, {"w": bad, "b": placed["b"]}, x, mesh42,
+                     axis="pod")
+            out[f"pipe_bad_{name}"] = np.array("")
+        except ValueError as exc:
+            out[f"pipe_bad_{name}"] = np.array(str(exc))
     return out
 
 
