@@ -652,15 +652,26 @@ def test_reduced_qwen_on_card_matches_cpu(cuda):
         assert float((got[2 + i] - fwd).abs().max() / fwd.abs().max()) < 1e-1
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its batch builders)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _prefill_and_decode(model, params, toks, extra, dev, prompt=16,
                         steps=4):
-    """Forward logits past the prompt, prefill logits and ``steps``
+    """Forward logits past the prompt, prefill logits (over the batch's
+    first ``prompt`` positions: ``chip_smoke.prompt_part``) and ``steps``
     teacher-forced decode logits, on the CPU as float32."""
     t = toks.to(dev)
-    ex = {k: v.to(dev) for k, v in extra.items()}
-    out = [model.forward(params, dict(ex, tokens=t))[0][:, prompt:]]
-    logits, caches = model.prefill(params, dict(ex, tokens=t[:, :prompt]),
-                                   skv=prompt + steps)
+    ex = dict({k: v.to(dev) for k, v in extra.items()}, tokens=t)
+    out = [model.forward(params, ex)[0][:, prompt:]]
+    logits, caches = model.prefill(
+        params, _chip_smoke().prompt_part(ex, prompt), skv=prompt + steps)
     out.append(logits)
     for i in range(steps):
         logits, caches = model.decode_step(
@@ -697,6 +708,105 @@ def test_reduced_family_on_card_matches_cpu(cuda, arch):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         assert float((g - w).abs().max() / w.abs().max()) <= 5e-2
+
+
+def test_reduced_vlm_image_grid_on_card_matches_cpu(cuda):
+    """The reduced qwen2-vl on ``chip_smoke.py``'s VLM batch
+    (``lm_batch``: image embeddings on a grid of M-RoPE positions whose
+    three streams differ) on the card against the CPU port on the same
+    weights: forward, prefill and four decode steps within 5e-2, and the
+    card's decode within 1e-1 of its forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("qwen2-vl-7b").reduced()
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _chip_smoke().lm_batch(
+        cfg, 2, 20, prompt=16, seed=1).items()}
+    assert len({tuple(r) for r in batch["mrope_positions"][:, 0, :8]
+                .tolist()}) == 3
+    toks = batch.pop("tokens")
+    want = _prefill_and_decode(model, cpu, toks, batch, "cpu")
+    got = _prefill_and_decode(model, _tree_to(cpu, cuda), toks, batch, cuda)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max() / w.abs().max()) <= 5e-2
+    for i in range(4):
+        fwd = got[0][:, i]
+        assert float((got[2 + i] - fwd).abs().max() / fwd.abs().max()) < 1e-1
+
+
+def test_reduced_gemma3_on_card_matches_cpu_layer_by_layer(cuda):
+    """gemma3's reduced stack is chaotic at its init (see
+    tests/test_torch_models.py): each of its twelve layers (window 32, a
+    global layer every 6) runs on the card from the CPU's input to that
+    layer over 40 tokens, in forward, prefill (with its k and v caches)
+    and four decode steps past the window on the CPU's caches, and
+    agrees with the CPU within 5e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tt
+    cfg = get_config("gemma3-1b").reduced()
+    cpu = build_model(cfg).init(0, device="cpu")
+    card = _tree_to(cpu, cuda)
+    s, steps = 40, 4
+    skv = s + steps
+    assert cfg.sliding_window < s
+    toks = torch.from_numpy(_chip_smoke().lm_batch(
+        cfg, 2, skv, prompt=s, seed=1)["tokens"])
+    scalars = tt._layer_scalars(cfg, skv)
+    cl = tt._WHOLE_CACHE._replace(skv=skv)
+
+    def rel(g, w):
+        return float((g.float().cpu() - w.float()).abs().max()
+                     / w.float().abs().max())
+
+    def layer(params, i, x, dev, phase, kc=None, vc=None, pos=None):
+        """Layer i on ``dev`` from ``x``: its output and (prefill, decode)
+        its k and v caches."""
+        lp = tt._layer(params["layers"], i)
+        window, theta = scalars[i]
+        x = x.to(dev)
+        if phase == "decode":
+            pos = pos.to(dev)
+            y, kc, vc = tt._decode_attn(lp, cfg, x, kc.to(dev), vc.to(dev),
+                                        pos, pos[:, None], theta, window,
+                                        cl, None)
+            return tt._ffn_layer(lp, cfg, tt._residual(x, y)), kc, vc
+        n = x.shape[1]
+        positions = torch.arange(n, device=dev)[None].expand(2, n)
+        if phase == "forward":
+            return tt._train_layer(lp, cfg, x, positions, theta, window,
+                                   1024)[:1]
+        x, k, v = tt._attn_block(lp, cfg, x, positions, theta, window, 1024)
+        k, v = tt._kv_cache(lp["attn"], cfg, k, v, n, skv, tt._WHOLE_CACHE,
+                            None)
+        return tt._ffn_layer(lp, cfg, x), k, v
+
+    caches = None
+    for phase, n in (("forward", skv), ("prefill", s)):
+        x = tt._embed_in(cpu, cfg, {"tokens": toks[:, :n]})
+        new = []
+        for i in range(cfg.n_layers):
+            want = layer(cpu, i, x, "cpu", phase)
+            got = layer(card, i, x, cuda, phase)
+            for g, w in zip(got, want):
+                assert rel(g, w) <= 5e-2, (phase, i)
+            new.append(want[1:])
+            x = want[0]
+        caches = new if phase == "prefill" else caches
+    for step in range(steps):
+        pos = torch.full((2,), s + step, dtype=torch.int32)
+        x = tt._scale_embed(cfg, tt.embed(cpu, toks[:, s + step:s + step + 1]))
+        new = []
+        for i, (kc, vc) in enumerate(caches):
+            want = layer(cpu, i, x, "cpu", "decode", kc, vc, pos)
+            got = layer(card, i, x, cuda, "decode", kc, vc, pos)
+            for g, w in zip(got, want):
+                assert rel(g, w) <= 5e-2, (step, i)
+            new.append(want[1:])
+            x = want[0]
+        caches = new
 
 
 def test_reduced_zamba2_on_card_matches_cpu_group_by_group(cuda):

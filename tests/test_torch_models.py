@@ -239,6 +239,7 @@ def test_cross_qkv(dtype, bias):
 B, S, STEPS = 2, 16, 4
 
 
+@functools.lru_cache(maxsize=None)
 def _chip_smoke():
     import importlib.util
     import pathlib
@@ -264,35 +265,38 @@ def _inputs(cfg, rng):
 
 
 @functools.lru_cache(maxsize=None)
-def _run(arch):
+def _run(arch, grid=False):
     """Both packages on the reduced config with the reference's weights:
     forward over S+STEPS tokens, prefill over S, then STEPS teacher-
-    forced decode steps. Returns (ref outputs, port outputs); the port's
-    also hold ``dropped``, the tokens each of its MoE calls dropped."""
+    forced decode steps. With ``grid`` the batch is ``chip_smoke.py``'s
+    (``lm_batch``: the VLM's image on a grid of M-RoPE positions). Returns
+    (ref outputs, port outputs); the port's also hold ``dropped``, the
+    tokens each of its MoE calls dropped."""
     cfg = get_config(arch).reduced()
     ref_model = ref_build(cfg)
     params = ref_model.init(jax.random.PRNGKey(0))
     model = build_model(PORT_REGISTRY[arch].reduced())
     tp = model.load(convert.params_from_numpy(
         jax.tree.map(np.asarray, params), device="cpu"))
-    rng = np.random.default_rng(11)
-    toks = rng.integers(0, cfg.vocab, (B, S + STEPS)).astype(np.int32)
-    extra = _inputs(cfg, rng)
-    jb = {k: jnp.asarray(v) for k, v in extra.items()}
-    pb = {k: torch.from_numpy(v) for k, v in extra.items()}
+    if grid:
+        batch = _chip_smoke().lm_batch(cfg, B, S + STEPS, prompt=S, seed=11)
+    else:
+        rng = np.random.default_rng(11)
+        toks = rng.integers(0, cfg.vocab, (B, S + STEPS)).astype(np.int32)
+        batch = dict(_inputs(cfg, rng), tokens=toks)
+    toks = batch["tokens"]
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    pb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    prompt_part = _chip_smoke().prompt_part
     out = {"ref": {}, "port": {}}
     # chip_smoke.py's record of each moe._moe_local call: (expert ids,
     # the tokens that lost an assignment to capacity)
     with _chip_smoke()._Routing() as routing:
-        out["ref"]["forward"] = ref_model.forward(
-            params, dict(jb, tokens=jnp.asarray(toks)))[0]
-        out["port"]["forward"] = model.forward(
-            tp, dict(pb, tokens=torch.from_numpy(toks)))[0]
+        out["ref"]["forward"] = ref_model.forward(params, jb)[0]
+        out["port"]["forward"] = model.forward(tp, pb)[0]
         skv = S + STEPS
-        jl_, jc = ref_model.prefill(
-            params, dict(jb, tokens=jnp.asarray(toks[:, :S])), skv=skv)
-        tl_, tc = model.prefill(
-            tp, dict(pb, tokens=torch.from_numpy(toks[:, :S])), skv=skv)
+        jl_, jc = ref_model.prefill(params, prompt_part(jb, S), skv=skv)
+        tl_, tc = model.prefill(tp, prompt_part(pb, S), skv=skv)
         out["ref"]["prefill"], out["port"]["prefill"] = jl_, tl_
         out["ref"]["cache"], out["port"]["cache"] = jc, tc
         for i in range(STEPS):
@@ -410,6 +414,210 @@ def test_port_decode_matches_its_forward_in_the_reference_setting(arch):
         "tokens": toks[:, s:s + 1],
         "pos": torch.full((b,), s, dtype=torch.int32)})
     assert rel(got, want.float().numpy()) < SELF_BOUND
+
+
+# -- qwen2-vl, image on a grid of M-RoPE positions ---------------------------
+
+GRID = "qwen2-vl-7b"
+
+
+@pytest.mark.parametrize("phase", ["forward", "prefill"] +
+                         [f"decode{i}" for i in range(STEPS)])
+def test_vlm_image_grid_positions_match_reference(phase):
+    """qwen2-vl's reduced model on ``chip_smoke.py``'s VLM batch
+    (``lm_batch``, as the card runs it): 8 image embeddings written at
+    positions 0-7, their M-RoPE positions a 2 x 4 grid (t = 0, h = row,
+    w = column: three streams that differ), the text from the grid's
+    largest position + 1 on, the decoded tokens at their index; the
+    prefill takes ``prompt_part``. The logits, and every cache leaf of
+    the prefill, within the whole-model bound, and the first layer's
+    rotated keys (its input the same on both sides) element by element
+    within two bf16 ulps. A model that read the t stream for all three
+    moves the forward's logits 0.23 from the reference's."""
+    cfg = get_config(GRID).reduced()
+    pos = _chip_smoke().lm_batch(cfg, B, S + STEPS, prompt=S,
+                                 seed=11)["mrope_positions"]
+    n = cfg.vision_tokens
+    assert len({tuple(r) for r in pos[:, 0, :n]}) == 3
+    assert (pos[:, 0, n:S] != np.arange(n, S)).all()
+    ref, port = _run(GRID, grid=True)
+    assert port[phase].shape == ref[phase].shape
+    assert rel(port[phase], ref[phase]) <= BOUND
+    if phase == "prefill":
+        want = dict(_leaves(ref["cache"]))
+        for path, g in _leaves(port["cache"]):
+            assert rel(g, want[path]) <= BOUND, path
+        close(port["cache"]["self"]["k"][0], ref["cache"]["self"]["k"][0],
+              BF16)
+
+
+# -- gemma3, layer by layer with its window binding ---------------------------
+
+WINDOWED = "gemma3-1b"
+S_W = 40        # the prefill's tokens: past the reduced window of 32
+
+
+@functools.lru_cache(maxsize=None)
+def _windowed_layers():
+    """gemma3's reduced stack (twelve layers: five local and one global,
+    twice) layer by layer on the reference's residual stream, over S_W +
+    STEPS tokens from ``chip_smoke.py``'s ``lm_batch``, so that each
+    local layer's window binds in the forward, the prefill and every
+    decode step. Each reference layer is its stack's scan body run by
+    ``lax.scan`` over that layer alone, on the previous one's output (and
+    in decode on its own caches from the prefill and the steps before);
+    the port's layer (``_train_layer``; ``_attn_block``, ``_ffn_layer``
+    and ``_kv_cache``; ``_decode_attn`` and ``_ffn_layer``) takes the
+    same input. Returns {phase: [(name, port, ref), ...]}: the embedding,
+    each layer's output and (prefill, decode) k and v cache, and the
+    logits of the reference's final stream."""
+    cfg = get_config(WINDOWED).reduced()
+    pcfg = PORT_REGISTRY[WINDOWED].reduced()
+    params = ref_build(cfg).init(jax.random.PRNGKey(0))
+    tp = build_model(pcfg).load(convert.params_from_numpy(
+        jax.tree.map(np.asarray, params), device="cpu"))
+    to_port = functools.partial(convert.params_from_numpy, device="cpu")
+    skv = S_W + STEPS
+    toks = _chip_smoke().lm_batch(cfg, B, skv, prompt=S_W,
+                                  seed=11)["tokens"]
+    n = cfg.n_layers
+    bkv = ja.DEFAULT_BLOCK_KV
+    jw, jth = jt.layer_windows(cfg, skv), jt.layer_thetas(cfg)
+    scalars = tt._layer_scalars(pcfg, skv)
+    assert [w for w, _ in scalars] == np.asarray(jw).tolist()
+    assert min(w for w, _ in scalars) < S_W
+    ln = functools.partial(jl.rmsnorm, eps=cfg.norm_eps)
+
+    def layer_xs(i, *caches):
+        """Layer i's scan inputs, each with a leading axis of one."""
+        one = lambda a: a[i:i + 1]   # noqa: E731
+        return (jax.tree.map(one, params["layers"]),
+                *(one(c) for c in caches), one(jw), one(jth))
+
+    def stream(phase, body, x, caches=(), port_layer=None):
+        """The reference's layers in turn from x, each beside the port's
+        on the same input; returns (rows, the final x, the new caches)."""
+        run = jax.jit(lambda x, xs: jax.lax.scan(body, x, xs))
+        rows, new = [], []
+        for i in range(n):
+            y, c = run(x, layer_xs(i, *caches))
+            got = port_layer(tt._layer(tp["layers"], i), to_port(
+                np.asarray(x)), scalars[i], i)
+            rows.append((f"layer{i} out", got[0], y))
+            if c is not None:
+                rows += [(f"layer{i} k", got[1], c["k"][0]),
+                         (f"layer{i} v", got[2], c["v"][0])]
+                new.append(c)
+            x = y
+        caches = None if not new else jax.tree.map(
+            lambda *a: jnp.concatenate(a), *new)
+        return rows, x, caches
+
+    def logits(x, last):
+        x = jl.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        xt = tl.rmsnorm(tp["final_norm"], to_port(np.asarray(x)),
+                        cfg.norm_eps)
+        if last:
+            x, xt = x[:, -1], xt[:, -1]
+        return ("logits", tl.unembed(tp, xt), jl.unembed(params, x))
+
+    out = {}
+    top = tt._top(tp)
+    # forward over every token
+    x = jt._embed_in(params, cfg, {"tokens": jnp.asarray(toks)})
+    pos = jt._positions(cfg, {}, B, skv)
+    tpos = torch.from_numpy(np.array(pos))
+
+    def fwd_body(x, xs):
+        lp, w, th = xs
+        x = jt._attn_layer(lp, cfg, x, pos, th, w, bkv)
+        return jt._ffn_layer(lp, cfg, x, None)[0], None
+
+    rows, x, _ = stream("forward", fwd_body, x, port_layer=lambda lp, xt, sc,
+                        i: (tt._train_layer(lp, pcfg, xt, tpos, sc[1], sc[0],
+                                            bkv)[0],))
+    out["forward"] = [("embed", tt._embed_in(
+        top, pcfg, {"tokens": torch.from_numpy(toks)}),
+        jt._embed_in(params, cfg, {"tokens": jnp.asarray(toks)}))] + rows + [
+        logits(x, False)]
+
+    # prefill over the first S_W tokens, the caches padded to skv
+    x = jt._embed_in(params, cfg, {"tokens": jnp.asarray(toks[:, :S_W])})
+    ppos = jt._positions(cfg, {}, B, S_W)
+    tppos = torch.from_numpy(np.array(ppos))
+
+    def pre_body(x, xs):
+        lp, w, th = xs
+        h = ln(lp["ln1"], x)
+        q, k, v = ja.qkv_proj(lp["attn"], h)
+        q, k = jt._apply_rope(cfg, q, k, ppos, th)
+        o = ja.flash_attention(q, k, v, causal=True, window=w, block_kv=bkv)
+        x = x + ja.out_proj(lp["attn"], o)
+        x, _ = jt._ffn_layer(lp, cfg, x, None)
+        return x, {"k": jt._pad_cache(k, skv), "v": jt._pad_cache(v, skv)}
+
+    def pre_port(lp, xt, sc, i):
+        xt, k, v = tt._attn_block(lp, pcfg, xt, tppos, sc[1], sc[0], bkv)
+        k, v = tt._kv_cache(lp["attn"], pcfg, k, v, S_W, skv,
+                            tt._WHOLE_CACHE, None)
+        return tt._ffn_layer(lp, pcfg, xt), k, v
+
+    rows, x, caches = stream("prefill", pre_body, x, port_layer=pre_port)
+    out["prefill"] = rows + [logits(x, True)]
+
+    # decode steps past the window, each on the caches before it
+    cl = tt._WHOLE_CACHE._replace(skv=skv)
+    for step in range(STEPS):
+        t = toks[:, S_W + step:S_W + step + 1]
+        p = np.full((B,), S_W + step, np.int32)
+        jp, tpp = jnp.asarray(p), torch.from_numpy(p)
+        x = jt._embed_in(params, cfg, {"tokens": jnp.asarray(t)})
+
+        def dec_body(x, xs, jp=jp):
+            lp, kc, vc, w, th = xs
+            h = ln(lp["ln1"], x)
+            q, k, v = ja.qkv_proj(lp["attn"], h)
+            q, k = jt._apply_rope(cfg, q, k, jp[:, None], th)
+            kc, vc = ja.update_cache(kc, vc, k, v, jp)
+            o = ja.decode_attention(q, kc, vc, jp, window=w)
+            x = x + ja.out_proj(lp["attn"], o)
+            x, _ = jt._ffn_layer(lp, cfg, x, None)
+            return x, {"k": kc, "v": vc}
+
+        def dec_port(lp, xt, sc, i, caches=caches, tpp=tpp):
+            kc, vc = (to_port(np.asarray(caches[k][i])) for k in "kv")
+            y, kc, vc = tt._decode_attn(lp, pcfg, xt, kc, vc, tpp,
+                                        tpp[:, None], sc[1], sc[0], cl,
+                                        None)
+            return tt._ffn_layer(lp, pcfg, tt._residual(xt, y)), kc, vc
+
+        rows, x, caches = stream(f"decode{step}", dec_body, x,
+                                 (caches["k"], caches["v"]), dec_port)
+        out[f"decode{step}"] = [("embed", tt._scale_embed(
+            pcfg, tl.embed(top, torch.from_numpy(t))), jt._embed_in(
+            params, cfg, {"tokens": jnp.asarray(t)}))] + rows + [
+            logits(x, True)]
+    return out
+
+
+@pytest.mark.parametrize("phase", ["forward", "prefill"] +
+                         [f"decode{i}" for i in range(STEPS)])
+def test_windowed_layers_match_reference(phase):
+    """gemma3 (reduced: window 32, a global layer every 6 with its own
+    rope theta) layer by layer on the reference's residual stream, over
+    40 prompt tokens and 4 decode steps past the window: each layer's
+    output and, in prefill and decode, its k and v cache (the bf16
+    leaves the next step reads) within the whole-model bound. The whole
+    model is not compared end to end: its reduced stack is chaotic at
+    the reference's init (0.28 max-rel over these tokens, 0.22 with the
+    window widened so that it never binds)."""
+    rows = _windowed_layers()[phase]
+    n = get_config(WINDOWED).reduced().n_layers
+    assert len(rows) == 2 + n * (1 if phase == "forward" else 3) - (
+        phase == "prefill")
+    for name, got, want in rows:
+        assert got.shape == tuple(want.shape), name
+        assert rel(got, want) <= BOUND, name
 
 
 # -- zamba2, group by group -----------------------------------------------------

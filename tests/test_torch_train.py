@@ -696,3 +696,47 @@ def test_gradient_norm_grows_with_depth_as_in_the_reference():
         assert norms[36][pkg] > 1e4 * norms[2][pkg], norms
     assert 0.5 < norms[36][0] / norms[36][1] < 2, norms
     np.testing.assert_allclose(norms[2][0], norms[2][1], rtol=GRAD_NORM_RTOL)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "qwen2-vl-7b"])
+def test_chip_smoke_float64_step_widens_every_dtype(arch):
+    """``chip_smoke.py``'s float64 step (``_float64_grads``, the archs of
+    its ``TRAIN_ILL_CONDITIONED``) on the reduced config and its VLM
+    batch: no call under its mode returns a narrower float (it fails
+    otherwise), and the loss within 1e-5 and every gradient leaf within
+    1e-3 of the global gradient norm agree with the same step with bf16
+    widened to f32 only (the port's f32 statistics kept): 1e-4 at most
+    on these inputs, where the port's own bf16 step reads 0.3-0.5 of the
+    global norm from the float64 step in its worst leaves."""
+    import importlib.util
+    import os
+    from torch.overrides import TorchFunctionMode
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert arch in cs.TRAIN_ILL_CONDITIONED
+
+    class F32(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            def f32(a):
+                return torch.float32 if a is torch.bfloat16 else a
+            kwargs = {k: f32(v) for k, v in (kwargs or {}).items()}
+            return func(*map(f32, args), **kwargs)
+
+    from repro_torch.configs import get_config as port_config
+    cfg = port_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    batch = cs._train_batch(torch, cfg, 2, 32 if cfg.family != "vlm" else 20)
+    loss64, grads64 = cs._float64_grads(torch, model, params, batch)
+    with F32():
+        (loss, _), grads = tstep.value_and_grad(
+            tstep.make_loss_fn(model, remat=False), params, batch)
+    assert abs(float(loss) - loss64) <= 1e-5 * abs(loss64)
+    norm64 = float(torch.sqrt(sum((w * w).sum()
+                                  for w in tree_leaves(grads64))))
+    for (p, g), (_, w) in zip(cs._named_leaves(grads),
+                              cs._named_leaves(grads64)):
+        assert w.dtype == torch.float64, p
+        assert float((g.double() - w).norm()) <= 1e-3 * norm64, p

@@ -133,9 +133,22 @@ def _history(hist):
     return [(h["step"], h.get("restart")) for h in hist]
 
 
+class _BlockingRefCheckpointer(RefCheckpointer):
+    """The reference's checkpointer with every save written before it
+    returns. The reference's ``Supervisor.run`` reads ``latest_step()``
+    before it waits for a save in flight, so a failure that lands while
+    the step-5 save is still writing restarts it from step 0; a blocking
+    save leaves nothing in flight when a failure lands (the port's
+    supervisor waits first)."""
+
+    def save(self, step, tree, blocking=False):
+        super().save(step, tree, blocking=True)
+
+
 def test_supervisor_recovers_from_injected_failures(tmp_path):
     """The reference's case on the port, and its history equal to the
-    reference supervisor's over the same failures."""
+    reference supervisor's over the same failures (the reference's saves
+    blocking: ``_BlockingRefCheckpointer``)."""
     def run(sup_cls, ck, state, step, batch_at, failure):
         kw = {"device": "cpu"} if sup_cls is Supervisor else {}
         sup = sup_cls(ck, checkpoint_every=5, **kw)
@@ -159,7 +172,7 @@ def test_supervisor_recovers_from_injected_failures(tmp_path):
     assert ck.latest_step() == 20
 
     _, jstate, jstep, jbatch = jti.small_setup()
-    jck = RefCheckpointer(str(tmp_path / "ref"), keep_n=3)
+    jck = _BlockingRefCheckpointer(str(tmp_path / "ref"), keep_n=3)
     _, jhist = run(RefSupervisor, jck, jstate, jstep, jbatch, RefHostFailure)
     assert _history(hist) == _history(jhist)
     assert ck.steps() == jck.steps()
