@@ -192,12 +192,33 @@ without printing the result line):
    step's peak above the bytes live before it, its kernel-launching ops
    and roofline bound printed beside the profiled step's kernels and
    device ms. It launches no hand-written kernel;
-13. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
+13. the entry points a user runs (``repro_torch.examples``,
+   ``launch.serve``): (a) ``quickstart`` and ``bitmap_analytics`` on the
+   card, then on the CPU, every printed count, AAP count, byte count, ns
+   and nJ figure equal between the two runs; quickstart's ``cuda`` XOR
+   one ``fused_bitwise`` launch, bitmap_analytics' resident ``cuda``
+   query two fused launches (the planner's count) beside its engine's
+   and runtime's ``popcount_rows`` launches; (b) ``train_lm --preset
+   100m`` for 60 steps, its loss falling, two ``bitweaving_scan``
+   launches a run, then ``--resume`` to 70 from the step-60 checkpoint,
+   which equals the first run's live state bit for bit; (c)
+   ``launch.serve --arch whisper-small --no-reduced --device cuda``, 4
+   greedy requests with their frames, whose tokens equal
+   ``Model.prefill`` and ``decode_step`` driven by hand on the same
+   weights and frames (serve wall time and peak memory, decode ms a step
+   by hand); (d) mamba2-780m and zamba2-2.7b at phase 9's widths and
+   depths behind ``ServeEngine`` with prompts of one and two tokens, each
+   step within 1e-1 of the forward over the prompt and the tokens
+   generated so far (zamba2, in ``HARD_ATTENTION``, with its cores fed
+   the forward's rows, unforced printed); the phase's launch counts are
+   read for this phase alone;
+14. one ``{"profile": {...}}`` JSON line with phase 5's traces, one
    ``{"kernels": [...]}`` JSON line, then the result line.
 
 Each path must launch its own kernels: the four serving kernels on
 phase 3, ``binary_matmul`` on phase 4, ``bitweaving_scan`` on phases 8,
-10 and 11 too, ``popcount_rows`` on phase 9 too. A kernel required on several
+10 and 11 too, ``popcount_rows`` on phase 9 too, and all four but
+``binary_matmul`` on phase 13. A kernel required on several
 paths (``PATH_OF``) reports its launches on each (``launches_by_path``)
 and their sum (``launches``).
 
@@ -1254,10 +1275,11 @@ KERNELS = (
 )
 # the paths each kernel must launch on; its launches are read from each
 # path's own run
-PATH_OF = {"fused_bitwise": ("serving",),
-           "fused_bitwise_stacked": ("serving",),
-           "popcount_rows": ("serving", "lm_families"),
-           "bitweaving_scan": ("serving", "lm", "train", "mesh"),
+PATH_OF = {"fused_bitwise": ("serving", "entry_points"),
+           "fused_bitwise_stacked": ("serving", "entry_points"),
+           "popcount_rows": ("serving", "lm_families", "entry_points"),
+           "bitweaving_scan": ("serving", "lm", "train", "mesh",
+                               "entry_points"),
            "binary_matmul": ("binary_lm",)}
 
 
@@ -4302,6 +4324,353 @@ def dryrun_phase(torch, card, meshed):
     return report
 
 
+# -- phase 13 -----------------------------------------------------------------
+
+ENTRY_TRAIN_STEPS = (60, 10)     # 13(b): train_lm --preset 100m, then resumed
+ENTRY_WHISPER = dict(requests=4, max_new=16, max_seq=256)    # 13(c)
+SHORT_PROMPTS = (1, 2)           # 13(d): prompt lengths, at FAMILY_PARITY's
+SHORT_PROMPT_ARCHS = ("mamba2-780m", "zamba2-2.7b")    # depths
+
+
+def _printed(fn, argv):
+    """``fn(argv)``'s result and the lines it printed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(argv)
+    return result, buf.getvalue().splitlines()
+
+
+def _launched(wrappers, before):
+    return {n: fn.launches - before[n] for n, fn in wrappers.items()}
+
+
+def examples_on_card(torch, card, wrappers):
+    """(a) ``repro_torch.examples.quickstart`` and ``bitmap_analytics`` on
+    the card, then on the CPU: every printed line (counts, AAPs, bytes,
+    ns, nJ) and every returned figure equal; quickstart's ``cuda`` XOR is
+    one ``fused_bitwise`` launch, bitmap_analytics' resident ``cuda``
+    query two fused launches (the planner's count, as printed) and its
+    ``cuda`` engine and resident runtime launch the fused kernels and
+    ``popcount_rows``."""
+    from repro_torch.examples import bitmap_analytics, quickstart
+    out, figs = {}, {}
+    for name, mod in (("quickstart", quickstart),
+                      ("bitmap_analytics", bitmap_analytics)):
+        before = _launch_counts(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_fig, card_lines = _printed(mod.main, ["--device", "cuda"])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launched = _launched(wrappers, before)
+        t0 = time.perf_counter()
+        cpu_fig, cpu_lines = _printed(mod.main, ["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        if card_lines != cpu_lines or card_fig != cpu_fig:
+            diff = [(a, b) for a, b in zip(card_lines, cpu_lines) if a != b]
+            fail(f"examples.{name}: the card's lines differ from the CPU's "
+                 f"{diff or (card_fig, cpu_fig)}")
+        figs[name] = card_fig
+        out[name] = {"card_s": card_s, "cpu_s": cpu_s, "launches": launched,
+                     "lines": len(card_lines)}
+        log(f"examples.{name} on the card: {len(card_lines)} lines, every "
+            f"one and every figure equal to the CPU run's; launches "
+            f"{launched}; wall {card_s:.3f} s on {card} (CPU "
+            f"{cpu_s:.3f} s)")
+    got = out["quickstart"]["launches"]
+    if got["fused_bitwise"] != 1 or any(
+            v for k, v in got.items() if k != "fused_bitwise"):
+        fail(f"examples.quickstart launched {got}, not one fused_bitwise")
+    planner = figs["bitmap_analytics"]["device_ledger"][3]
+    got = out["bitmap_analytics"]["launches"]
+    if planner != 2 or not (got["fused_bitwise"] and
+                            got["fused_bitwise_stacked"] and
+                            got["popcount_rows"]):
+        fail(f"examples.bitmap_analytics: the resident query made "
+             f"{planner} fused launches (not 2); launches {got}")
+    out["bitmap_analytics"]["resident_fused_launches"] = planner
+    return out
+
+
+def train_lm_on_card(torch, card, scan, steps=ENTRY_TRAIN_STEPS[0],
+                     more=ENTRY_TRAIN_STEPS[1]):
+    """(b) ``repro_torch.examples.train_lm --preset 100m`` for ``steps``
+    steps into a temporary checkpoint directory, then ``--resume`` to
+    ``steps + more``: the data line equal to the CPU filter's count, two
+    ``bitweaving_scan`` launches a run (the filter), the first run's loss
+    falling (its last 5 steps' mean below its first 5's), the resumed run
+    starting at ``steps`` from the checkpoint the first run saved last,
+    which equals its live state bit for bit (as does the resumed run's)."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, FilteredSyntheticLM
+    from repro_torch.examples import train_lm
+    from repro_torch.models.param import tree_leaves
+    cpu_docs = int(FilteredSyntheticLM(DataConfig(10, 4, 2), n_docs=4096,
+                                       device="cpu").mask.sum())
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        for name, argv, want_start in (
+                ("run", ["--steps", str(steps)], 0),
+                ("resume", ["--steps", str(steps + more), "--resume"],
+                 steps)):
+            before = scan.launches
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fig, lines = _printed(train_lm.main, [
+                "--preset", "100m", "--device", "cuda", "--ckpt-dir",
+                tmp] + argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = scan.launches - before
+            end = int(argv[1])
+            ran = [h["step"] for h in fig["history"] if "loss" in h]
+            if fig["start"] != want_start or ran != list(range(want_start,
+                                                               end)):
+                fail(f"train_lm {name}: started at {fig['start']}, ran {ran}")
+            want_data = (f"data: {cpu_docs}/4096 docs pass the BitWeaving "
+                         "quality filter")
+            if lines[1] != want_data or launches != 2:
+                fail(f"train_lm {name}: {lines[1]!r} (the CPU filter: "
+                     f"{cpu_docs}), {launches} bitweaving_scan launches, "
+                     "not 2")
+            if name == "resume" and lines[2] != f"resumed from step {steps}":
+                fail(f"train_lm resume: {lines[2]!r}")
+            saved = ck.restore(end, device="cuda")[1]
+            live = tree_leaves(fig["state"])
+            same = [a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(tree_leaves(saved), live)]
+            if len(same) != len(live) or not all(same):
+                fail(f"train_lm {name}: the step-{end} checkpoint differs "
+                     f"from the live state in {same.count(False)} leaves")
+            losses = fig["losses"]
+            if not all(np.isfinite(losses)):
+                fail(f"train_lm {name}: non-finite losses {losses}")
+            first5, last5 = (float(np.mean(losses[:5])),
+                             float(np.mean(losses[-5:])))
+            if name == "run" and not last5 < first5:
+                fail(f"train_lm: the mean loss of the last 5 steps is not "
+                     f"below the first 5's: {losses}")
+            step_ms = [h["dt"] * 1e3 for h in fig["history"] if "loss" in h]
+            norms = [h["grad_norm"] for h in fig["history"] if "loss" in h]
+            out[name] = {"start": fig["start"], "end": end, "wall_s": wall,
+                         "loss_every_10": losses[::10],
+                         "grad_norm_first_last": (norms[0], norms[-1]),
+                         "scan_launches": launches, "first_loss": losses[0],
+                         "last_loss": losses[-1], "first5_mean": first5,
+                         "last5_mean": last5,
+                         "step_ms_median": statistics.median(step_ms),
+                         "tokens_per_s": fig["tokens_per_s"],
+                         "max_memory_allocated": peak,
+                         "checkpoints": ck.steps()}
+            log(f"examples.train_lm --preset 100m ({lines[0]}) {name}: steps "
+                f"{fig['start']}->{end}, loss {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f} (mean of the first 5 {first5:.4f}, of the "
+                f"last 5 {last5:.4f}" + (", held" if name == "run" else "")
+                + f"; every 10th {[round(v, 4) for v in losses[::10]]}, "
+                f"grad_norm {norms[0]:.4g} -> {norms[-1]:.4g}), {launches} "
+                "bitweaving_scan launches, step ms median "
+                f"{out[name]['step_ms_median']:.3f}, "
+                f"{fig['tokens_per_s']:.1f} tokens/s, max memory allocated "
+                f"{peak} B, checkpoints {ck.steps()}, step-{end} checkpoint "
+                f"== live state (bit for bit), wall {wall:.3f} s on {card} "
+                "(measured on the card)")
+            del fig, saved, live
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_by_hand(torch, model, params, reqs, max_seq, dev, timed=None):
+    """The greedy tokens of ``reqs`` (one batch) from ``Model.prefill``
+    and ``decode_step`` driven by hand as ``ServeEngine`` drives them:
+    prompts left-padded, frames stacked along the slot axis."""
+    call = timed or model
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((len(reqs), plen), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    if model.cfg.enc_dec:
+        batch["frames"] = torch.from_numpy(
+            np.stack([r.frames for r in reqs])).to(dev)
+    logits, caches = call.prefill(params, batch, skv=max_seq)
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = torch.full((len(reqs),), plen, dtype=torch.int32, device=dev)
+    out = [tok]
+    for _ in range(max(r.max_new_tokens for r in reqs) - 1):
+        logits, caches = call.decode_step(
+            params, caches, {"tokens": tok[:, None], "pos": pos})
+        tok = logits.argmax(-1).to(torch.int32)
+        pos = pos + 1
+        out.append(tok)
+    return torch.stack(out, 1).cpu().tolist()
+
+
+def whisper_entry(torch, card, requests=ENTRY_WHISPER["requests"],
+                  max_new=ENTRY_WHISPER["max_new"],
+                  max_seq=ENTRY_WHISPER["max_seq"]):
+    """(c) ``launch.serve --arch whisper-small --no-reduced --device cuda``
+    (greedy, ``requests`` requests in one batch): its tokens equal those
+    of ``Model.prefill`` and ``decode_step`` driven by hand on the same
+    weights (seed 0) and frames; the serve's wall time and peak memory,
+    the hand-driven decode ms a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model
+    argv = ["--arch", "whisper-small", "--no-reduced", "--device", "cuda",
+            "--requests", str(requests), "--slots", str(requests),
+            "--max-new", str(max_new), "--max-seq", str(max_seq),
+            "--temperature", "0"]
+    cfg = launch_serve.config_of(launch_serve.parse_args(argv))
+    if cfg != get_config("whisper-small"):
+        fail(f"launch.serve --no-reduced chose {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs, lines = _printed(launch_serve.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    timed = _TimedModel(torch, model)
+    hand = serve_by_hand(torch, model, params,
+                         launch_serve.make_requests(cfg, requests, max_new),
+                         max_seq, "cuda", timed)
+    served = [r.out for r in reqs]
+    if served != hand:
+        fail(f"launch.serve whisper-small: tokens {served} != by hand {hand}")
+    tokens = sum(len(o) for o in served)
+    out = {"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+           "max_memory_allocated": peak, "params": model.n_params(),
+           "prefill_ms": timed.ms["prefill"],
+           "decode_ms_median": statistics.median(timed.ms["decode"]),
+           "decode_ms_min": min(timed.ms["decode"]), "last_line": lines[-1]}
+    log(f"launch.serve --arch whisper-small --no-reduced: {cfg.n_layers}+"
+        f"{cfg.n_enc_layers} layers ({model.n_params()} float32 params), "
+        f"{requests} requests x {cfg.n_frames} frames, greedy: {tokens} "
+        f"tokens == Model.prefill/decode_step by hand; serve wall "
+        f"{wall:.3f} s = {tokens / wall:.1f} tokens/s (weights drawn "
+        f"included), max memory allocated {peak} B; by hand prefill ms "
+        f"{[round(m, 3) for m in timed.ms['prefill']]}, decode ms a step "
+        f"median {out['decode_ms_median']:.3f} (min "
+        f"{out['decode_ms_min']:.3f}) on {card} (measured on the card); "
+        f"its line: {lines[-1]}")
+    return out
+
+
+class _Logged:
+    """The model as ``ServeEngine`` calls it, each call's logits kept."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.logits = model, model.cfg, []
+
+    def prefill(self, params, batch, skv=None):
+        logits, caches = self.model.prefill(params, batch, skv=skv)
+        self.logits.append(logits)
+        return logits, caches
+
+    def decode_step(self, params, caches, batch):
+        logits, caches = self.model.decode_step(params, caches, batch)
+        self.logits.append(logits)
+        return logits, caches
+
+
+def short_prompt_serve(torch, model, params, plen, dev, hard=False,
+                       slots=2, max_new=4, max_seq=16):
+    """(d) ``slots`` greedy requests of ``plen`` tokens (drawn from
+    ``SEED``) behind ``ServeEngine``: the prefill's and each decode
+    step's logits against the forward over the prompt and the tokens
+    generated so far (max-rel, ``decode_vs_forward``). ``hard``: the
+    same tokens through ``_lm_run`` with the prefill and decode cores fed
+    the forward's rows (``_FromForward``, as phase 9 holds
+    ``HARD_ATTENTION``), under ``held``; else ``held`` is the engine's."""
+    from repro_torch.serve import Request, ServeEngine
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, model.cfg.vocab, (slots, plen)).astype(
+        np.int32)
+    logged = _Logged(model)
+    eng = ServeEngine(logged, params, max_seq=max_seq, batch_slots=slots)
+    reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+    eng.generate(reqs)
+    if eng.decode_steps != max_new - 1 or \
+            any(len(r.out) != max_new for r in reqs):
+        fail(f"{model.cfg.name} prompts of {plen}: {eng.decode_steps} "
+             f"decode steps, outputs {[r.out for r in reqs]}")
+    seq = np.concatenate([prompts, np.array([r.out[:-1] for r in reqs],
+                                            np.int32)], 1)
+    inputs = {"tokens": torch.from_numpy(seq)}
+    fwd = model.forward(params, {"tokens": inputs["tokens"].to(dev)})[0]
+    out = {"decode_vs_forward": _vs_forward(logged.logits, fwd, plen)}
+    out["held"] = out["decode_vs_forward"]
+    if hard:
+        from_fwd = _FromForward(seq.shape[1])
+        ff_fwd, ff_outs, _ = _lm_run(torch, model, params, inputs, plen,
+                                     max_new - 1, dev, from_fwd)
+        out["forced"] = out["held"] = _vs_forward(ff_outs, ff_fwd, plen)
+        out["forced_inputs_worst"] = max(from_fwd.arg_rels)
+    return out
+
+
+def short_prompts(torch, card, arch):
+    """(d) ``arch`` at full width, depth cut as phase 9 cuts it, served
+    prompts of ``SHORT_PROMPTS`` tokens: each step within
+    ``LM_SELF_BOUND`` of the forward (``HARD_ATTENTION``: with the cores
+    fed the forward's rows, the core inputs within ``LM_BOUND`` of the
+    forward's; unforced printed)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    n_layers = FAMILY_PARITY[arch][0]
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    hard = arch in HARD_ATTENTION
+    out = {}
+    for plen in SHORT_PROMPTS:
+        t0 = time.perf_counter()
+        got = short_prompt_serve(torch, model, params, plen, "cuda", hard)
+        wall = time.perf_counter() - t0
+        if max(got["held"]) >= LM_SELF_BOUND or \
+                got.get("forced_inputs_worst", 0.0) > LM_BOUND:
+            fail(f"{arch} prompts of {plen}: decode vs forward {got} "
+                 f"(bounds {LM_SELF_BOUND}, core inputs {LM_BOUND})")
+        out[plen] = dict(got, wall_s=wall)
+        how = (f"with the cores fed the forward's rows {got['forced']} < "
+               f"{LM_SELF_BOUND} (core inputs worst "
+               f"{got['forced_inputs_worst']} <= {LM_BOUND}), unforced "
+               f"{got['decode_vs_forward']} (reported)" if hard else
+               f"{got['decode_vs_forward']} < {LM_SELF_BOUND}")
+        log(f"short prompts {arch} full width, {n_layers} layers, 2 "
+            f"requests of {plen} tokens behind ServeEngine, 3 decode steps: "
+            f"prefill and decodes vs the forward {how}; wall {wall:.3f} s "
+            f"on {card}")
+    return out
+
+
+def entry_points_phase(torch, card, wrappers):
+    """Phase 13: (a) the examples on the card and the CPU, (b) train_lm at
+    its 100m preset and its resume, (c) whisper-small through
+    ``launch.serve --no-reduced``, (d) one- and two-token prompts served
+    on mamba2 and zamba2."""
+    report = {"examples": examples_on_card(torch, card, wrappers)}
+    torch.cuda.empty_cache()
+    report["train_lm"] = train_lm_on_card(torch, card,
+                                          wrappers["bitweaving_scan"])
+    torch.cuda.empty_cache()
+    report["whisper"] = whisper_entry(torch, card)
+    torch.cuda.empty_cache()
+    for arch in SHORT_PROMPT_ARCHS:
+        report[f"short {arch}"] = short_prompts(torch, card, arch)
+        torch.cuda.empty_cache()
+    return report
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(here, "src")
@@ -4406,6 +4775,16 @@ def main() -> int:
     dry = dryrun_phase(torch, card, meshed)
     log(f"dryrun phase_s={time.perf_counter() - t_phase:.1f} "
         f"report={json.dumps(dry)} card: {card}")
+    torch.cuda.empty_cache()
+
+    log("== phase 13: the entry points on the card (examples, launch.serve "
+        "--no-reduced whisper-small, one- and two-token SSM prompts)")
+    t_phase = time.perf_counter()
+    entry, launches["entry_points"] = _path_launches(
+        wrappers, "entry_points", lambda: entry_points_phase(torch, card,
+                                                             wrappers))
+    log(f"entry_points phase_s={time.perf_counter() - t_phase:.1f} "
+        f"report={json.dumps(entry)} card: {card}")
 
     kernels = []
     for name, _, source, replaces in KERNELS:

@@ -130,6 +130,18 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _conv_tail(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The decode cache of a prefill over x (B,S,C): its last W-1 rows,
+    behind the zeros ``_causal_conv`` assumes before the first token, so
+    a prompt shorter than W-1 leaves a full cache."""
+    s = x.shape[1]
+    if s >= width - 1:
+        return x[:, s - (width - 1):]
+    pad = torch.zeros((x.shape[0], width - 1 - s, x.shape[2]),
+                      dtype=x.dtype, device=x.device)
+    return torch.cat([pad, x], dim=1)
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
                 bm: torch.Tensor, cm: torch.Tensor, chunk: int,
                 initial_state: Optional[torch.Tensor] = None
@@ -325,13 +337,10 @@ def ssm_block(p, x: torch.Tensor, cfg: ArchConfig,
         y = y + q["Dskip"].to(x.dtype)[None, None, :, None] * xh
         y = y.reshape(b, s, inner)
         if return_cache:
-            w = dims.conv_w
-            new_cache = {
-                "conv_x": xin_raw[:, -(w - 1):],
-                "conv_B": b_raw[:, -(w - 1):],
-                "conv_C": c_raw[:, -(w - 1):],
-                "state": final_state,
-            }
+            new_cache = {"conv_x": _conv_tail(xin_raw, dims.conv_w),
+                         "conv_B": _conv_tail(b_raw, dims.conv_w),
+                         "conv_C": _conv_tail(c_raw, dims.conv_w),
+                         "state": final_state}
 
     # the gate product feeds rmsnorm's f32 statistics unrounded, as in
     # the reference's compiled layer body (see transformer._residual)

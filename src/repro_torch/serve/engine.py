@@ -6,6 +6,12 @@ Greedy or temperature sampling. This is the host-side loop around the
 model's prefill/decode_step, called eagerly on the device the
 parameters lie on.
 
+An encoder-decoder model (whisper) prefills over each request's
+``frames``, the encoder's input embeddings ``(n_frames, d_model)``:
+they are stacked along the slot axis, padded slots taking zeros. A
+decoder-only model reads no such field, and a request that gives one, or
+an encoder-decoder request without one, raises before any prefill.
+
 Termination contract: EVERY sampled token - including the one sampled
 from the prefill logits - is checked against ``eos_id`` before it is
 recorded; a request is marked ``done`` the moment it finishes (EOS or
@@ -34,6 +40,7 @@ class Request:
     eos_id: Optional[int] = None
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    frames: Optional[np.ndarray] = None  # (n_frames, d_model): enc-dec only
 
 
 def _device_of(tree) -> Optional[torch.device]:
@@ -59,6 +66,9 @@ class ServeEngine:
         self.slots = batch_slots
         self.temperature = temperature
         self.device = _device_of(params) or torch.device("cpu")
+        cfg = getattr(model, "cfg", None)
+        self.frames_shape = ((cfg.n_frames, cfg.d_model)
+                             if getattr(cfg, "enc_dec", False) else None)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.decode_steps = 0       # decode iterations actually executed
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -86,9 +96,24 @@ class ServeEngine:
             if r.max_new_tokens < 1:
                 raise ValueError(
                     f"max_new_tokens={r.max_new_tokens} must be >= 1")
+            self._check_frames(r)
         for lo in range(0, len(requests), self.slots):
             self._generate_batch(requests[lo:lo + self.slots])
         return requests
+
+    def _check_frames(self, r: Request) -> None:
+        if self.frames_shape is None:
+            if r.frames is not None:
+                raise ValueError("a decoder-only model takes no frames "
+                                 "(Request.frames must be None)")
+            return
+        if r.frames is None:
+            raise ValueError("an encoder-decoder model needs "
+                             "Request.frames (its encoder's input)")
+        if tuple(np.shape(r.frames)) != self.frames_shape:
+            raise ValueError(
+                f"Request.frames has shape {tuple(np.shape(r.frames))}, "
+                f"the model takes {self.frames_shape}")
 
     def _record(self, reqs: Sequence[Request], tok: torch.Tensor,
                 done: np.ndarray) -> None:
@@ -121,6 +146,11 @@ class ServeEngine:
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.frames_shape is not None:
+            frames = np.zeros((b,) + self.frames_shape, np.float32)
+            for i, r in enumerate(reqs):
+                frames[i] = r.frames
+            batch["frames"] = torch.from_numpy(frames).to(self.device)
         logits, caches = self.model.prefill(self.params, batch,
                                             skv=self.max_seq)
         self.metrics.counter("serve_prefill_batches").inc(1)

@@ -70,7 +70,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.runtime, repro_torch.launch.train, "
             "repro_torch.launch.hloparse, repro_torch.launch.mesh, "
             "repro_torch.models.sharding_ctx, repro_torch.runtime.pipeline, "
-            "repro_torch.launch.dryrun; "
+            "repro_torch.launch.dryrun, repro_torch.examples, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.bitmap_analytics, "
+            "repro_torch.examples.serve_decode, "
+            "repro_torch.examples.train_lm; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -175,6 +179,24 @@ def test_binary_lm_entry_points_default_to_the_card(entry, monkeypatch):
         make()
     if entry != "main":
         assert make(device="cpu").weight.device.type == "cpu"
+
+
+@pytest.mark.parametrize("example", ["quickstart", "bitmap_analytics",
+                                     "serve_decode", "train_lm"])
+def test_examples_default_to_the_card(example, monkeypatch, tmp_path):
+    """Each example of ``repro_torch.examples`` runs on the card unless
+    ``--device`` names another, and raises without a card before it
+    does any work (``tests/test_torch_examples.py`` runs each on the
+    CPU)."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{example}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--ckpt-dir", str(tmp_path)] if example == "train_lm" else []
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(argv + ["--device", "cuda"])
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("entry", ["Model.init", "init_cache",

@@ -205,6 +205,36 @@ def test_ssm_block_prefill_with_cache_matches_reference(arch, s):
         lambda p, x: js.ssm_block(p, x, cfg))(p, xj), BF16)
 
 
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_block_short_prefill_leaves_a_full_conv_cache(arch, s):
+    """A prefill over fewer tokens than the conv window's W-1 = 3 leaves
+    its input's rows behind the zeros ``_causal_conv`` assumes before the
+    first token (the reference leaves a short cache, and its first decode
+    step raises); from 3 tokens on, the reference's cache bit for bit.
+    The decode step from that cache gives the forward's row over s+1
+    tokens, within the decode-vs-forward bound of ``tests/test_models.py``
+    (1e-1 of the row's largest value; the recurrence and the chunked SSD
+    round differently)."""
+    cfg, pcfg, p, tp = _layer(arch)
+    xj, xt = _x(cfg, s + 1, 6)
+    _, jc = jax.jit(lambda p, x: js.ssm_block(p, x, cfg,
+                                              return_cache=True))(
+        p, xj[:, :s])
+    _, tc = ts.ssm_block(tp, xt[:, :s], pcfg, return_cache=True)
+    w1 = pcfg.ssm.conv_width - 1
+    for k in ("conv_x", "conv_B", "conv_C"):
+        want = np.asarray(jc[k].astype(jnp.float32))
+        n = min(s, w1)
+        assert tc[k].shape[1] == w1 and want.shape[1] == n, k
+        assert np.array_equal(tc[k][:, w1 - n:].float().numpy(), want), k
+        assert bool((tc[k][:, :w1 - n] == 0).all()), k
+    step, _ = ts.ssm_block(tp, xt[:, s:s + 1], pcfg, cache=tc, pos=None)
+    whole = ts.ssm_block(tp, xt, pcfg)
+    got, want = step[:, 0].float(), whole[:, s].float()
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-1
+
+
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
 def test_ssm_block_decode_matches_reference(arch):
     """Three decode steps from a prefill's cache, each step's output and
