@@ -1,13 +1,14 @@
 """Deterministic observability: simulated-clock tracing + metrics.
 
-See tracer.py (spans), metrics.py (registry), export.py (Perfetto JSON
-and text reports). Layers accept ``tracer=``/``metrics=`` and default to
-the disabled ``NULL_TRACER`` / a private registry.
+See tracer.py (spans, and host-clock spans beside them), metrics.py
+(registry), export.py (Perfetto JSON). Layers accept
+``tracer=``/``metrics=`` and default to the disabled ``NULL_TRACER`` / a
+private registry.
 """
 
 from .tracer import NULL_TRACER, TraceEvent, Tracer
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
-from .export import chrome_trace, utilization_report, write_chrome_trace
+from .export import chrome_trace, write_chrome_trace
 
 __all__ = [
     "NULL_TRACER",
@@ -18,6 +19,5 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "chrome_trace",
-    "utilization_report",
     "write_chrome_trace",
 ]

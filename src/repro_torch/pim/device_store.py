@@ -148,7 +148,9 @@ class DeviceStore(LruSpillBase):
         out._private = res._private
 
     def _read_back(self, rbv: DeviceBitVector) -> BitVector:
-        out = BitVector(_host_copy(rbv._dev), rbv.n_bits)
+        with self.tracer.host_span("device_store.sync",
+                                   site=self._io_cause or "read_back"):
+            out = BitVector(_host_copy(rbv._dev), rbv.n_bits)
         rbv._host = out
         rbv.dirty = False
         self._charge_io("from_device", self._io_cause or "read_back",
@@ -161,7 +163,8 @@ class DeviceStore(LruSpillBase):
         # the card tensor put() was given: move it to host memory so the
         # spill really frees the card.
         if rbv._host.data.is_cuda:
-            rbv._host = BitVector(rbv._host.data.cpu(), rbv.n_bits)
+            with self.tracer.host_span("device_store.sync", site="spill"):
+                rbv._host = BitVector(rbv._host.data.cpu(), rbv.n_bits)
 
     # -- capacity -------------------------------------------------------------
 
@@ -237,7 +240,9 @@ class DeviceStore(LruSpillBase):
         crosses to the host - 4 ledger bytes instead of the whole array.
         Device tensors are tail-masked by construction, so the
         full-array count is exact. Spilled handles count their current
-        host copy for free."""
+        host copy for free. Reading the total is the host span
+        ``device_store.sync`` (site ``popcount``), as every read here
+        that waits for the device is."""
         self._check_handle(rbv)
         if rbv.spilled:
             return int(rbv._host.popcount().sum())
@@ -247,9 +252,13 @@ class DeviceStore(LruSpillBase):
             from ..kernels import ops as kops
             counts = kops.popcount(dev)
             # one row (every 1-D handle): read its count, no sum launch
-            total = int(counts[0] if counts.numel() == 1 else counts.sum())
+            with self.tracer.host_span("device_store.sync", site="popcount"):
+                total = int(counts[0] if counts.numel() == 1
+                            else counts.sum())
         else:
-            total = int(BitVector(dev, rbv.n_bits).popcount().sum())
+            counts = BitVector(dev, rbv.n_bits).popcount()
+            with self.tracer.host_span("device_store.sync", site="popcount"):
+                total = int(counts.sum())
         self._charge_io("from_device", "popcount", 4)   # one int32 scalar
         return total
 
@@ -347,9 +356,11 @@ class DevicePlanner:
                        if env[nm] is donate_to]
             if len(matches) == 1:
                 donate_idx = matches[0]
-        fn = _device_compiled(expression, tuple(names), self.backend,
-                              first.n_bits, donate_idx)
-        out_dev = fn(*[env[nm]._dev for nm in names])
+        with self.store.tracer.host_span("device_store.launch", queries=1,
+                                         operands=len(names)):
+            fn = _device_compiled(expression, tuple(names), self.backend,
+                                  first.n_bits, donate_idx)
+            out_dev = fn(*[env[nm]._dev for nm in names])
         # Budget the result AFTER the launch consumed the operands: cold
         # operands are now legal spill victims, so an exact-fit capacity
         # still runs arbitrarily long chains. A donated destination must
@@ -407,9 +418,12 @@ class DevicePlanner:
                 raise AmbitError(
                     "epoch jobs must share (expression, names, shape) - "
                     "the scheduler's stack key guarantees this")
-        fn = _device_compiled_stacked(expression, tuple(names),
-                                      self.backend, first.n_bits)
-        outs = fn([[job[1][nm]._dev for nm in names] for job in jobs])
+        with self.store.tracer.host_span("device_store.launch",
+                                         queries=len(jobs),
+                                         operands=len(names)):
+            fn = _device_compiled_stacked(expression, tuple(names),
+                                          self.backend, first.n_bits)
+            outs = fn([[job[1][nm]._dev for nm in names] for job in jobs])
         self.store._make_room(len(jobs) * first.device_bytes)
         self.kernel_launches += 1
         if self.backend == "cuda":

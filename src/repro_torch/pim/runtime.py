@@ -228,7 +228,8 @@ class AmbitRuntime:
         return out
 
     def free(self, rbv) -> None:
-        self.store.free(rbv)
+        with self.tracer.host_span("runtime.free"):
+            self.store.free(rbv)
 
     def pin(self, rbv) -> None:
         """Exempt a resident handle from LRU eviction, charged against
@@ -385,13 +386,14 @@ class AmbitRuntime:
         (Section 9.1 future-op), so ``ambit_sim`` still reads the result
         back - the one transfer a resident query pays there - and counts
         it with plain tensor ops where the rows live."""
-        if hasattr(self.store, "popcount"):
-            before = self.store.bytes_from_device
-            count = self.store.popcount(rbv)
-            self._account(OpStats(
-                bytes_touched=self.store.bytes_from_device - before))
-            return count
-        return int(self.get(rbv).popcount())
+        with self.tracer.host_span("runtime.popcount"):
+            if hasattr(self.store, "popcount"):
+                before = self.store.bytes_from_device
+                count = self.store.popcount(rbv)
+                self._account(OpStats(
+                    bytes_touched=self.store.bytes_from_device - before))
+                return count
+            return int(self.get(rbv).popcount())
 
     # -- accounting ----------------------------------------------------------
 

@@ -460,10 +460,22 @@ class AsyncScheduler:
         *submitted* tickets in submit order - synthetic scratch tickets
         are internal and their results are freed before drain returns.
         (Distinct from ``AmbitRuntime(optimize=True)``, which toggles
-        the single-program AAP peephole inside the planner.)"""
+        the single-program AAP peephole inside the planner.)
+
+        Under a tracer's host spans the call is the span
+        ``scheduler.drain`` (args: queries, epochs)."""
         submitted, self.pending = self.pending, []
         if not submitted:
             return []
+        with self.store.tracer.host_span("scheduler.drain",
+                                         queries=len(submitted)) as span:
+            out = self._drain(submitted, now_ns, epoch_cost, refresh,
+                              optimize)
+            span.note(epochs=len(self.last_drain.epochs))
+        return out
+
+    def _drain(self, submitted: List[Ticket], now_ns: float, epoch_cost,
+               refresh: bool, optimize: bool) -> List[Ticket]:
         if optimize:
             tickets = self.optimizer.rewrite(submitted, now_ns=now_ns)
         else:

@@ -176,7 +176,10 @@ class QueryFrontend:
     (scheduler tickets) as quotas allow, and the window drains when it
     fills (``max_batch``) or its oldest admitted query has waited
     ``window_ns`` on the simulated clock. ``take_completed()`` hands
-    finished queries back; ``flush()`` force-drains at end of load."""
+    finished queries back; ``flush()`` force-drains at end of load.
+    Under the runtime's tracer's host spans (``obs.tracer``) each of
+    these calls, and each window drain (``frontend.drain``: its reason
+    and the queries' ``seq``), also times itself on the host's clock."""
 
     def __init__(self, runtime, window_ns: float = 50_000.0,
                  max_batch: int = 16,
@@ -264,43 +267,47 @@ class QueryFrontend:
         """Enqueue one query for ``tenant``. ``arrival_ns`` places the
         arrival on the simulated clock (defaults to "now"); the clock
         never runs backwards."""
-        if arrival_ns is not None:
-            self.clock_ns = max(self.clock_ns, float(arrival_ns))
-        q = QueryRecord(seq=self._seq, tenant=tenant,
-                        expression=expression, env=env,
-                        arrival_ns=self.clock_ns if arrival_ns is None
-                        else float(arrival_ns))
-        self._seq += 1
-        if self._first_arrival_ns is None:
-            self._first_arrival_ns = q.arrival_ns
-        self.backlog.append(q)
-        self.metrics.counter("serve_submitted").inc(1, tenant=tenant)
-        if self.tracer.enabled:
-            self.tracer.instant(("frontend",), "arrive", "serve",
-                                ts_ns=q.arrival_ns,
-                                args={"tenant": tenant, "seq": q.seq})
-        self._pump()
+        with self.tracer.host_span("frontend.submit", query=self._seq):
+            if arrival_ns is not None:
+                self.clock_ns = max(self.clock_ns, float(arrival_ns))
+            q = QueryRecord(seq=self._seq, tenant=tenant,
+                            expression=expression, env=env,
+                            arrival_ns=self.clock_ns if arrival_ns is None
+                            else float(arrival_ns))
+            self._seq += 1
+            if self._first_arrival_ns is None:
+                self._first_arrival_ns = q.arrival_ns
+            self.backlog.append(q)
+            self.metrics.counter("serve_submitted").inc(1, tenant=tenant)
+            if self.tracer.enabled:
+                self.tracer.instant(("frontend",), "arrive", "serve",
+                                    ts_ns=q.arrival_ns,
+                                    args={"tenant": tenant, "seq": q.seq})
+            self._pump()
         return q
 
     def tick(self, now_ns: float) -> None:
         """Advance the simulated clock (e.g. between sparse arrivals) and
         fire any deadline drain that became due."""
-        self.clock_ns = max(self.clock_ns, float(now_ns))
-        self._pump()
+        with self.tracer.host_span("frontend.tick"):
+            self.clock_ns = max(self.clock_ns, float(now_ns))
+            self._pump()
 
     def take_completed(self) -> List[QueryRecord]:
-        done, self.completed = self.completed, []
+        with self.tracer.host_span("frontend.take_completed"):
+            done, self.completed = self.completed, []
         return done
 
     def flush(self) -> None:
         """Drain until no query is backlogged or windowed (end of load)."""
-        while self.window or self.backlog:
-            if not self.window:
-                self._admit()
-                if not self.window:     # every backlogged tenant over
-                    break               # quota with nothing in flight:
-            self._drain("flush")        # impossible, but don't spin
-            self._pump()
+        with self.tracer.host_span("frontend.flush"):
+            while self.window or self.backlog:
+                if not self.window:
+                    self._admit()
+                    if not self.window:     # every backlogged tenant over
+                        break               # quota with nothing in flight:
+                self._drain("flush")        # impossible, but don't spin
+                self._pump()
 
     # -- the batching window ---------------------------------------------------
 
@@ -378,6 +385,13 @@ class QueryFrontend:
 
     def _drain(self, reason: str) -> None:
         group, self.window = self.window, []
+        tr = self.tracer
+        with tr.host_span("frontend.drain", reason=reason,
+                          queries=[q.seq for q in group]
+                          if tr.host_enabled else None):
+            self._drain_group(group, reason)
+
+    def _drain_group(self, group: List[QueryRecord], reason: str) -> None:
         start_ns = self.clock_ns
         self.runtime.drain(now_ns=self.clock_ns,
                            epoch_cost=self._epoch_cost,
