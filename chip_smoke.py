@@ -17,7 +17,10 @@ without printing the result line):
    per launch (CUDA events, median, L2 flushed before each launch)
    beside its plain version's, a one-call PyTorch yardstick where one
    exists (for the popcount and the scan, which have none, a call that
-   moves the same bytes), and the least time the card could take;
+   moves the same bytes), and the least time the card could take; the
+   fused kernel also on TPC-H planes at SF 300 (a Q1, a Q14, a Q6 of each
+   program length and a 22-load AND chain, each with its shared-memory
+   bytes a word, every launch walking its persistent blocks' tiles);
 3. the serving main path at full width on backend "cuda": a 2^24-user
    bitmap index served to 1024 Zipfian tenants through QueryFrontend,
    the weekly-active query, and the TPC-H lineitem table at scale factor
@@ -221,6 +224,14 @@ phase 3, ``binary_matmul`` on phase 4, ``bitweaving_scan`` on phases 8,
 ``binary_matmul`` on phase 13. A kernel required on several
 paths (``PATH_OF``) reports its launches on each (``launches_by_path``)
 and their sum (``launches``).
+
+The fused kernel alone, its checks and timings of phase 2 (the kernel
+table's shapes and the served TPC-H programs at SF 300) and nothing else:
+
+    python3 chip_smoke.py --fused [--src DIR]
+
+``--src`` imports ``repro_torch`` from ``DIR`` (say, another version's
+``src`` unpacked beside this one) to time two versions in one call.
 
 Imports nothing of the JAX package and needs no network.
 """
@@ -663,20 +674,13 @@ def check_bitweaving(torch, rng, stats):
               "bitweaving_scan", stats)
 
 
-def check_kernels(torch):
-    """Every kernel against its plain version on the card, exactly.
-    Returns kernel name -> {"checks", "max_abs_err"} (0 when all agree)."""
+def fused_exprs():
+    """The programs the fused kernel is checked on: each opcode, literals,
+    the 8-plane scan and a program of 64 live registers."""
     from repro_torch.apps.bitweaving_db import scan_expr
     from repro_torch.core import expr as E
-    from repro_torch.core.engine import BulkBitwiseEngine
-    from repro_torch.core.bitvector import BitVector
-    from repro_torch.kernels import binary_matmul as kbmm
-    from repro_torch.kernels import bitwise as kbw
-    from repro_torch.kernels import build
-
-    rng = np.random.default_rng(SEED)
     X, Y, Z = E.Expr.var("x"), E.Expr.var("y"), E.Expr.var("z")
-    exprs = {
+    return {
         "and": X & Y,
         "maj": E.maj(X, ~Y, Z),
         "not": ~(X ^ Z),
@@ -687,8 +691,16 @@ def check_kernels(torch):
         # 64 live registers, the most a program may hold
         "regs64": regs64_expr(),
     }
+
+
+def check_fused(torch, rng, exprs, stats):
+    """fused_bitwise and fused_bitwise_stacked against their plain versions
+    on the card, exactly: every program at short, split and long rows,
+    masked, 4 bytes off a 16-byte boundary, in place, stacked (past the
+    by-value pointer table too), and in the TPC-H layout."""
+    from repro_torch.core import expr as E
+    from repro_torch.kernels import bitwise as kbw
     shapes = [(1, 524288), (1, 7), (129,), (2, 3, 40), (257, 8), (187538,)]
-    stats: dict = {}
     fb, fbs = "fused_bitwise", "fused_bitwise_stacked"
     for ename, expr in exprs.items():
         names = tuple(sorted({n.name for n in E.topo_order(expr)
@@ -729,6 +741,20 @@ def check_kernels(torch):
                 _same(torch, g, w, f"fused_bitwise_stacked {ename} q{k}",
                       fbs, stats)
     check_tpch_layout(torch, rng, exprs, stats)
+
+
+def check_kernels(torch):
+    """Every kernel against its plain version on the card, exactly.
+    Returns kernel name -> {"checks", "max_abs_err"} (0 when all agree)."""
+    from repro_torch.core.engine import BulkBitwiseEngine
+    from repro_torch.core.bitvector import BitVector
+    from repro_torch.kernels import binary_matmul as kbmm
+    from repro_torch.kernels import build
+
+    rng = np.random.default_rng(SEED)
+    stats: dict = {}
+    exprs = fused_exprs()
+    check_fused(torch, rng, exprs, stats)
     check_popcount(torch, rng, stats)
     check_bitweaving(torch, rng, stats)
     plans = set()
@@ -743,6 +769,7 @@ def check_kernels(torch):
     if plans != {(c, s) for c in range(3) for s in (False, True)}:
         fail(f"binary_matmul checks missed a tile or split: {sorted(plans)}")
     # the engine's entry points on the card: kernels == plain backend
+    fb = "fused_bitwise"
     eng_k = BulkBitwiseEngine("cuda")
     eng_p = BulkBitwiseEngine("torch")
     bits = rng.integers(0, 2, (3, 1000)).astype(bool)
@@ -760,15 +787,10 @@ def check_kernels(torch):
     return stats
 
 
-def time_kernels(torch, timer):
-    """Each kernel at the main path's shapes. Returns name -> numbers."""
-    from repro_torch.apps.bitweaving_db import scan_expr
-    from repro_torch.core import expr as E
-    from repro_torch.kernels import bitwise as kbw
-
-    rng = np.random.default_rng(SEED + 1)
-    X, Y = E.Expr.var("x"), E.Expr.var("y")
-    out = {}
+def row_timer(timer):
+    """``row(name, shape, kernel, plain, library, nbytes, ops)``: one timed
+    row of the kernel table (device and host-path ms of the kernel, its
+    plain version's, the library call's, and the bound)."""
 
     def bound(nbytes, ops, rate):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -790,6 +812,29 @@ def time_kernels(torch, timer):
             f"{p_dev:.6f} ms, library {lib}, bound {b_ms:.6f} ms ({b_by})")
         return r
 
+    return row
+
+
+def time_kernels(torch, timer):
+    """Each kernel at the main path's shapes. Returns name -> numbers."""
+    rng = np.random.default_rng(SEED + 1)
+    row = row_timer(timer)
+    out, x = time_fused(torch, rng, timer, row)
+    out.update(time_popcount_and_scan(torch, rng, timer, row, x))
+    out["binary_matmul"] = time_binary_matmul(torch, rng, row)
+    return out
+
+
+def time_fused(torch, rng, timer, row):
+    """The fused kernels at the bitmap and SF 1 shapes of the kernel table,
+    then at SF 300 (``time_sf300``). Returns (name -> numbers, the bitmap
+    row x, which the popcount rows reuse)."""
+    from repro_torch.apps.bitweaving_db import scan_expr
+    from repro_torch.core import expr as E
+    from repro_torch.kernels import bitwise as kbw
+
+    X, Y = E.Expr.var("x"), E.Expr.var("y")
+    out = {}
     # fused_bitwise: the bitmap query x & y on one 2^24-bit row
     shape = (1, 524288)
     x, y = (_rand_words(torch, rng, shape) for _ in range(2))
@@ -880,9 +925,133 @@ def time_kernels(torch, timer):
     out["param block"] = {"small": small, "large": large}
     log(f"time fused_bitwise parameter block, x&y then 16 x x&y, 3 rounds "
         f"each of (device ms, host-path ms): small {small}, large {large}")
-    out.update(time_popcount_and_scan(torch, rng, timer, row, x))
-    out["binary_matmul"] = time_binary_matmul(torch, rng, row)
+    out["fused_bitwise"]["sf300"] = time_sf300(torch, timer)
+    return out, x
+
+
+# TPC-H at SF 300 as the benchmark's `tpch-sf300` holds it: 1,800,364,500
+# lineitem rows, a plane of 56,261,391 words (225,045,564 bytes) a bit,
+# each column one (bits, words) tensor whose rows (the planes) start 0, 4,
+# 8 or 12 bytes past a 16-byte boundary.
+SF300_ROWS = 1_800_364_500
+SF300_WORDS = -(-SF300_ROWS // 32)
+SF300_COLUMNS = (("l_shipdate", 12), ("l_discount", 4), ("l_quantity", 6))
+
+
+def _tpch_days(y, m, d):
+    import datetime
+    return (datetime.date(y, m, d) - datetime.date(1992, 1, 1)).days
+
+
+def sf300_programs():
+    """(label, expression, names) of the served mix's programs, timed at
+    SF 300: a Q1 (delta 90), a Q14 (1995-07), a Q6 of at most 128
+    instructions (1996, discount 0.07, quantity 25) and one of more (1995,
+    0.05, 24) - the two lengths that took the two parameter blocks - and
+    the control: the same 22 loads as Q6 and a chain of 21 ANDs."""
+    from repro_torch.apps.bitweaving_db import scan_expr
+    from repro_torch.core import expr as E
+    bits = dict(SF300_COLUMNS)
+
+    def plan(label, spec):
+        expr, names = None, []
+        for col, lo, hi in spec:
+            term = scan_expr(bits[col], lo, hi, prefix=f"{col}_b")
+            names += [f"{col}_b{i}" for i in range(bits[col])]
+            expr = term if expr is None else expr & term
+        return label, expr, tuple(sorted(names))
+
+    def q6(year, d, q):
+        return [("l_shipdate", _tpch_days(year, 1, 1),
+                 _tpch_days(year + 1, 1, 1) - 1),
+                ("l_discount", d - 1, d + 1), ("l_quantity", 0, q - 1)]
+
+    out = [plan("Q1 (12 loads)",
+                [("l_shipdate", 0, _tpch_days(1998, 12, 1) - 90)]),
+           plan("Q14 (12 loads)", [("l_shipdate", _tpch_days(1995, 7, 1),
+                                    _tpch_days(1995, 8, 1) - 1)]),
+           plan("Q6 short (22 loads)", q6(1996, 7, 25)),
+           plan("Q6 long (22 loads)", q6(1995, 5, 24))]
+    names = out[2][2]
+    chain = E.Expr.var(names[0])
+    for nm in names[1:]:
+        chain = chain & E.Expr.var(nm)
+    out.append(("AND chain (22 loads)", chain, names))
     return out
+
+
+def time_sf300(torch, timer):
+    """The fused kernel on SF 300 planes, launched as serving launches it
+    (row views, masked to the table's rows): device ms beside the HBM bound
+    (every loaded plane read once, the result written once, at 3.35 TB/s)
+    and the program's shared-memory bytes a word; each result checked
+    against the plain version once."""
+    from repro_torch.kernels import bitwise as kbw
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 300)
+    planes = {}
+    for col, bits in SF300_COLUMNS:
+        t = torch.randint(-2 ** 31, 2 ** 31, (bits, SF300_WORDS),
+                          dtype=torch.int32, device="cuda", generator=gen)
+        planes.update({f"{col}_b{i}": v for i, v in enumerate(t.unbind(0))})
+    rows = []
+    launches = kbw.fused_bitwise.launches
+    rings = getattr(kbw.fused_bitwise, "ring_launches", None)
+    for label, expr, names in sf300_programs():
+        prog = kbw.lower(expr, names)
+        arrays = [planes[nm] for nm in names]
+        got = kbw.fused_bitwise(expr, names, arrays, prog,
+                                n_bits=SF300_ROWS)
+        want = kbw.fused_bitwise_plain(expr, names, arrays, SF300_ROWS)
+        if not torch.equal(got, want):
+            fail(f"fused_bitwise {label} at SF 300: kernel != plain in "
+                 f"{(got != want).sum().item()} words")
+        del got, want
+        ms, launch_ms = timer(lambda: kbw.fused_bitwise(
+            expr, names, arrays, prog, n_bits=SF300_ROWS))
+        nbytes = (prog.n_loads + 1) * 4 * SF300_WORDS
+        r = {"program": label, "instructions": int(prog.code.shape[0]),
+             "loads": prog.n_loads, "registers": prog.n_regs,
+             "smem_bytes_per_word": getattr(prog, "smem_bytes_per_word",
+                                            None),
+             "ms": ms, "launch_ms": launch_ms,
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "hbm_tb_s": nbytes / ms / 1e9,
+             "hbm_share": nbytes / HBM_BYTES_PER_S * 1e3 / ms}
+        log(f"time fused_bitwise SF 300 {label}: {r['instructions']} "
+            f"instructions, {r['registers']} registers, "
+            f"{r['smem_bytes_per_word']} shared-memory B/word: kernel "
+            f"{ms:.6f} ms on the device ({launch_ms:.6f} ms with the host's "
+            f"launch path), bound {r['bound_ms']:.6f} ms (bytes), "
+            f"{r['hbm_tb_s']:.3f} TB/s, {100 * r['hbm_share']:.1f}% of HBM")
+        rows.append(r)
+    # the longer Q6 program through the 5,120-byte parameter block, which
+    # a program of more than SMALL_INSTR instructions takes: the same
+    # speed as the 896-byte block, since the program is decoded from
+    # shared memory
+    launches = kbw.fused_bitwise.launches - launches
+    if rings is not None:           # every SF 300 launch walks a ring
+        rings = kbw.fused_bitwise.ring_launches - rings
+        if rings != launches:
+            fail(f"fused_bitwise at SF 300: {rings} of {launches} launches "
+                 "walked more than one tile a block")
+    log(f"fused_bitwise SF 300: {launches} launches, {rings} walked more "
+        "than one tile a block")
+    label, expr, names = sf300_programs()[3]
+    prog = kbw.lower(expr, names)
+    arrays = [planes[nm] for nm in names]
+    kept, kbw.SMALL_PARAMS = kbw.SMALL_PARAMS, False
+    try:
+        ms, _ = timer(lambda: kbw.fused_bitwise(expr, names, arrays, prog,
+                                                n_bits=SF300_ROWS))
+    finally:
+        kbw.SMALL_PARAMS = kept
+    log(f"time fused_bitwise SF 300 {label}, 5,120-byte parameter block: "
+        f"kernel {ms:.6f} ms on the device")
+    rows.append({"program": label + ", 5,120-byte parameter block",
+                 "ms": ms})
+    del planes
+    torch.cuda.empty_cache()
+    return rows
 
 
 def time_popcount_and_scan(torch, rng, timer, row, x):
@@ -4671,15 +4840,48 @@ def entry_points_phase(torch, card, wrappers):
     return report
 
 
+def fused_main(torch, src) -> int:
+    """``--fused``: build the fused kernel, check it against its plain
+    version and time it (phase 2's fused part)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else f"nvidia-smi failed: {smi.stderr.strip()}"
+    log(f"{card}; repro_torch from {src}")
+    from repro_torch.kernels import build
+    for line in ptxas_lines(ptxas_summary(
+            build.build_all(("bitwise",)).get("bitwise", ""))):
+        log(f"  ptxas[bitwise] {line}")
+    stats: dict = {}
+    check_fused(torch, np.random.default_rng(SEED), fused_exprs(), stats)
+    log(f"fused kernels vs plain on the card, all exact: "
+        f"{json.dumps(stats)}")
+    timer = Timer(torch)
+    times, _ = time_fused(torch, np.random.default_rng(SEED + 1), timer,
+                          row_timer(timer))
+    print(json.dumps({"fused": times, "checks": stats, "src": src,
+                      "card": card}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
-    src = os.path.join(here, "src")
+    args = sys.argv[1:]
+    src = os.path.abspath(args[args.index("--src") + 1]) \
+        if "--src" in args else os.path.join(here, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
-        fail(f"no src/repro_torch beside {__file__}: run from a checkout")
+        fail(f"no repro_torch in {src}: run from a checkout")
     sys.path.insert(0, src)
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if "--fused" in args:
+        return fused_main(torch, src)
     t_start = time.perf_counter()
 
     log("== phase 1: environment")

@@ -152,6 +152,77 @@ def test_stacked_epoch_larger_than_the_parameter_table(cuda):
     assert all(torch.equal(g, w) for g, w in zip(outs, wants))
 
 
+def _offset_words(rng, shape, offset, device):
+    """Random words of ``shape`` starting ``offset`` bytes past a 16-byte
+    boundary (a view into a larger allocation)."""
+    n = int(np.prod(shape))
+    base = words(rng, (n + 4,), device)
+    assert base.data_ptr() % 16 == 0
+    return base[offset // 4:offset // 4 + n].view(shape)
+
+
+def test_fused_bitwise_ring_over_a_long_row_on_card(cuda):
+    """A row long enough that every persistent block walks several tiles,
+    its last tile ragged; operands 0, 4, 8 and 12 bytes past a 16-byte
+    boundary, each its own; masked rows; then in place into an operand."""
+    rng = np.random.default_rng(31)
+    expr = scan_expr(8, 37, 200, prefix="x")
+    names = tuple(f"x{i}" for i in range(8))
+    prog = kbw.lower(expr, names)
+    shape = (4, (1 << 22) + 37)          # 64 MB an operand, 16,385 tiles
+    arrays = [_offset_words(rng, shape, 4 * k % 16, cuda)
+              for k in range(8)]
+    out = _offset_words(rng, shape, 4, cuda)
+    for n_bits in (None, shape[-1] * 32 - 7):
+        rings = kbw.fused_bitwise.ring_launches
+        got = kbw.fused_bitwise(expr, names, arrays, prog, n_bits=n_bits,
+                                out=out)
+        assert kbw.fused_bitwise.ring_launches == rings + 1
+        assert got is out and torch.equal(
+            got, kbw.fused_bitwise_plain(expr, names, arrays, n_bits))
+    want = kbw.fused_bitwise_plain(expr, names, arrays, 1000)
+    got = kbw.fused_bitwise(expr, names, arrays, prog, n_bits=1000,
+                            out=arrays[3])
+    assert got is arrays[3] and torch.equal(got, want)
+
+
+def test_fused_bitwise_stacked_ring_on_card(cuda):
+    """An epoch whose (query, tile) pairs outnumber the resident blocks:
+    16 queries of 512 tiles, operands at 4-byte offsets."""
+    rng = np.random.default_rng(32)
+    names = ("x", "y", "z")
+    expr = EXPRS["maj"]
+    prog = kbw.lower(expr, names)
+    operands = [[_offset_words(rng, (1, 524288), (4 * (q + k)) % 16, cuda)
+                 for k in range(3)] for q in range(16)]
+    rings = kbw.fused_bitwise_stacked.ring_launches
+    outs = kbw.fused_bitwise_stacked(expr, names, operands, prog,
+                                     n_bits=524288 * 32 - 9)
+    assert kbw.fused_bitwise_stacked.ring_launches == rings + 1
+    wants = kbw.fused_bitwise_stacked_plain(expr, names, operands,
+                                            524288 * 32 - 9)
+    assert all(torch.equal(g, w) for g, w in zip(outs, wants))
+
+
+def test_fused_bitwise_tail_mask_every_remainder_on_card(cuda):
+    """n_bits at every remainder mod 32 of rows that end mid-tile and on
+    row views off a 16-byte boundary."""
+    rng = np.random.default_rng(33)
+    expr, names = EXPRS["not"], ("x", "y", "z")
+    prog = kbw.lower(expr, names)
+    planes = list(words(rng, (3, 5 * 1031), cuda).view(3, 5, 1031)
+                  .unbind(0))
+    views = list(words(rng, (3, 6, 999), cuda).unbind(0))[1:] + \
+        [_offset_words(rng, (6, 999), 12, cuda)]
+    for arrays in (planes, views):
+        row = arrays[0].shape[-1] * 32
+        for r in range(32):
+            got = kbw.fused_bitwise(expr, names, arrays, prog,
+                                    n_bits=row - 32 - r)
+            assert torch.equal(got, kbw.fused_bitwise_plain(
+                expr, names, arrays, row - 32 - r)), r
+
+
 @pytest.mark.parametrize("shape", [(1, 7), (1, 129), (6, 40), (257, 8),
                                    (1, 524288), (70000, 3)])
 def test_popcount_rows_matches_plain_on_card(cuda, shape):

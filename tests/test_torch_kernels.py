@@ -6,9 +6,11 @@ The same numpy inputs (from ``default_rng``) go through the JAX package's
 Exact equality throughout: integer bit arithmetic has no tolerance.
 
 The register program that ``csrc/bitwise.cu`` interprets cannot run here,
-so a numpy emulator of the kernel's instruction loop runs it instead and
-is held against ``eval_expr``. The kernels themselves are checked on the
-card by ``tests/test_torch_cuda.py``.
+so numpy emulators run it instead and are held against ``eval_expr``: one
+of the plain register program (``code``), one of the kernel's form
+(``packed``) that honours its forwarding, write-back and negation marks.
+The kernels themselves are checked on the card by
+``tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -267,3 +269,177 @@ def test_wrappers_refuse_other_devices():
         kpc.popcount_rows(x)
     with pytest.raises(ValueError, match="device"):
         kbv.bitweaving_scan(x, 0, 3)
+
+
+# -- the kernel's packed form: forwarding and write-back marks -----------------
+
+
+def emulate_packed(program: kbw.Program, arrays):
+    """numpy model of the kernel's evaluation of ``packed``: load k fills
+    register k, the running result stays in ``v``; a source marked
+    forwarded reads ``v``, any other source reads the register file, which
+    holds the loads and the results marked kept (a result not kept leaves
+    the file as it was, so reading it instead of forwarding it reads a
+    stale value); source 1 marked negated is read negated."""
+    n_loads = program.n_loads
+    file = {}
+    for k, word in enumerate(program.packed[:n_loads].tolist()):
+        assert word & 7 == kbw.OP_LOAD and (word >> 3) & 63 == k
+        assert word >> kbw.MARK_FWD == 0
+        file[k] = arrays[(word >> 9) & 63]
+    v, word = None, 0
+    for word in program.packed[n_loads:].tolist():
+        op, dst = word & 7, (word >> 3) & 63
+        regs = ((word >> 9) & 63, (word >> 15) & 63, (word >> 21) & 63)
+        arity = {kbw.OP_ZERO: 0, kbw.OP_ONE: 0, kbw.OP_NOT: 1,
+                 kbw.OP_MAJ: 3}.get(op, 2)
+        vals = []
+        for j, r in enumerate(regs[:arity]):
+            if word >> (kbw.MARK_FWD + j) & 1:
+                assert v is not None, "forwarded with nothing before it"
+                vals.append(v)
+            else:
+                assert r in file, f"read of r{r}, never written"
+                vals.append(file[r])
+        for j in range(arity, 3):
+            assert not word >> (kbw.MARK_FWD + j) & 1
+        if word & kbw.MARK_NEG:
+            assert op in (kbw.OP_AND, kbw.OP_OR, kbw.OP_XOR)
+            assert not word >> (kbw.MARK_FWD + 1) & 1    # a load
+            vals[1] = ~vals[1]
+        if op == kbw.OP_ZERO:
+            v = np.zeros_like(arrays[0])
+        elif op == kbw.OP_ONE:
+            v = ~np.zeros_like(arrays[0])
+        elif op == kbw.OP_NOT:
+            v = ~vals[0]
+        elif op == kbw.OP_AND:
+            v = vals[0] & vals[1]
+        elif op == kbw.OP_OR:
+            v = vals[0] | vals[1]
+        elif op == kbw.OP_XOR:
+            v = vals[0] ^ vals[1]
+        else:
+            a, b, c = vals
+            v = (a & b) | (b & c) | (c & a)
+        if word & kbw.MARK_KEEP:
+            file[dst] = v
+    if v is None:                         # the result is a loaded operand
+        return file[program.result]
+    assert not word & kbw.MARK_KEEP       # the root, last, stays in v
+    return v
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_packed_program_with_marks_matches_eval_expr(seed):
+    rng = np.random.default_rng(700 + seed)
+    names = ("a", "b", "c", "d")
+    env = {nm: words(rng, (3, 17)) for nm in names}
+    for _ in range(8):
+        expr = rand_expr(rng, names)
+        prog = kbw.lower(expr, names)
+        got = emulate_packed(prog, [env[nm] for nm in names])
+        np.testing.assert_array_equal(got, E.eval_expr(expr, env))
+        # the same loads first; NOTs of loads folded away, nothing added
+        n = prog.n_loads
+        loads = prog.code[:n].astype(np.int64)
+        np.testing.assert_array_equal(prog.packed[:n],
+                                      loads[:, 1] << 3 | loads[:, 2] << 9)
+        assert prog.n_loads <= len(prog.packed) <= len(prog.code)
+        assert prog.n_loads <= prog.shared_regs <= kbw.MAX_REGS
+
+
+TPCH_BITS = {"l_shipdate": 12, "l_discount": 4, "l_quantity": 6}
+
+
+def _days(y, m, d):
+    """Days since 1992-01-01, as the TPC-H planes store l_shipdate."""
+    import datetime
+    return (datetime.date(y, m, d) - datetime.date(1992, 1, 1)).days
+
+
+def tpch_query(family, *args):
+    """A served TPC-H query's predicate (Q1, Q6 or Q14 with the spec's
+    substitution parameters) as the serving path lowers it: scan_expr per
+    column, ANDed, over every plane of its columns in sorted order."""
+    if family == "q1":
+        (delta,) = args
+        spec = [("l_shipdate", 0, _days(1998, 12, 1) - delta)]
+    elif family == "q6":
+        year, d, q = args
+        spec = [("l_shipdate", _days(year, 1, 1), _days(year + 1, 1, 1) - 1),
+                ("l_discount", d - 1, d + 1), ("l_quantity", 0, q - 1)]
+    else:
+        year, month = args
+        nxt = (year + month // 12, month % 12 + 1)
+        spec = [("l_shipdate", _days(year, month, 1),
+                 _days(*nxt, 1) - 1)]
+    expr, names = None, []
+    for col, lo, hi in spec:
+        bits = TPCH_BITS[col]
+        term = scan_expr(bits, lo, hi, prefix=f"{col}_b")
+        names += [f"{col}_b{i}" for i in range(bits)]
+        expr = term if expr is None else expr & term
+    return expr, tuple(sorted(names))
+
+
+@pytest.mark.parametrize("family,args,group", [
+    ("q1", (60,), None), ("q1", (91,), None), ("q1", (120,), None),
+    ("q14", (1993, 1), None), ("q14", (1995, 7), None),
+    ("q14", (1997, 12), None),
+    ("q6", (1996, 7, 25), "short"), ("q6", (1994, 2, 24), "short"),
+    ("q6", (1993, 7, 24), "short"), ("q6", (1995, 5, 24), "long"),
+    ("q6", (1995, 6, 24), "long"), ("q6", (1995, 9, 24), "long")])
+def test_packed_tpch_predicates_match_eval_expr(family, args, group):
+    """The served mix's Q1, Q14 and Q6 predicates, Q6 from both program
+    lengths (at most 128 instructions, and more), through the packed
+    form's forwarding and write-back marks."""
+    expr, names = tpch_query(family, *args)
+    prog = kbw.lower(expr, names)
+    n_instr = prog.code.shape[0]
+    if group is not None:
+        assert (n_instr <= 128) == (group == "short")
+    rng = np.random.default_rng(sum(args))
+    env = {nm: words(rng, (2, 33)) for nm in names}
+    got = emulate_packed(prog, [env[nm] for nm in names])
+    np.testing.assert_array_equal(got, E.eval_expr(expr, env))
+    np.testing.assert_array_equal(got, emulate(prog, [env[nm]
+                                                      for nm in names]))
+    # forwarding takes at least a third off the interpreter's bytes
+    arity = {kbw.OP_LOAD: 0, kbw.OP_ZERO: 0, kbw.OP_ONE: 0, kbw.OP_NOT: 1,
+             kbw.OP_MAJ: 3}
+    srcs = sum(arity.get(int(row[0]) & 0xFFFF, 2) for row in prog.code)
+    unmarked = 4 * (prog.n_loads + srcs + n_instr - prog.n_loads - 1)
+    assert prog.smem_bytes_per_word <= unmarked * 2 // 3
+
+
+def test_smem_bytes_per_word_hand_counted():
+    """((x & y) | z) ^ x: 3 loads, the and reads 2 sources, the or and the
+    xor each forward the previous result and read one more, nothing is
+    kept: 4 * (3 + 2 + 1 + 1) = 28 bytes a word. (x & y) ^ ((x & y) | z):
+    the and's result is read again two instructions on, so it is kept:
+    4 * (3 + 2 + 1 + 1 + 1) = 32."""
+    prog = kbw.lower(((X & Y) | Z) ^ X, ("x", "y", "z"))
+    fwd = [(w >> kbw.MARK_FWD) & 7 for w in prog.packed.tolist()]
+    keep = [bool(w & kbw.MARK_KEEP) for w in prog.packed.tolist()]
+    assert fwd == [0, 0, 0, 0, 1, 1] and not any(keep)
+    assert prog.smem_bytes_per_word == 28
+    a = X & Y
+    prog = kbw.lower(a ^ (a | Z), ("x", "y", "z"))
+    fwd = [(w >> kbw.MARK_FWD) & 7 for w in prog.packed.tolist()]
+    keep = [bool(w & kbw.MARK_KEEP) for w in prog.packed.tolist()]
+    assert fwd == [0, 0, 0, 0, 1, 2]        # or: s0 is the and; xor: s1
+    assert keep == [False, False, False, True, False, False]
+    assert prog.smem_bytes_per_word == 32
+    assert kbw.lower(X, ("x",)).smem_bytes_per_word == 8   # load, result
+    # (x & ~y) | (z & ~y): ~y folded into both ands (read negated); the
+    # first and is read two instructions on, so kept:
+    # 4 * (3 + 2 + 1 + 2 + 1) = 36 (40 with the not: 4 * (3 + 1 + 1 + 1
+    # + 1 + 2 + 1))
+    prog = kbw.lower((X & ~Y) | (Z & ~Y), ("x", "y", "z"))
+    assert prog.code.shape[0] == 7 and len(prog.packed) == 6
+    neg = [bool(w & kbw.MARK_NEG) for w in prog.packed.tolist()]
+    keep = [bool(w & kbw.MARK_KEEP) for w in prog.packed.tolist()]
+    assert neg == [False] * 3 + [True, True, False]
+    assert keep == [False] * 3 + [True, False, False]
+    assert prog.smem_bytes_per_word == 36

@@ -2,7 +2,7 @@
 
 The ``csrc/*.cu`` kernels run only on the card, so what the wrappers
 decide for them - the loads-first register program, its packed words, the
-register-file bucket, the tail mask's division, binary_matmul's tile,
+fused kernel's tile and ring, the tail mask's division, binary_matmul's tile,
 split of K and grid, popcount_rows' route, head/body/tail cut and how a
 row's blocks meet, and bitweaving_scan's common vector width and masked
 store - is held here against the reference package
@@ -25,6 +25,7 @@ from repro_torch.kernels import binary_matmul as kbmm
 from repro_torch.kernels import bitweaving as kbv
 from repro_torch.kernels import bitwise as kbw
 from repro_torch.kernels import popcount as kpc
+from test_torch_kernels import emulate_packed
 
 SMS = 132       # the H100 SXM's streaming multiprocessors, the plans' card
 
@@ -66,59 +67,72 @@ def decode(word: int):
             (word >> 21) & 63)
 
 
-def run_kernel(program: kbw.Program, arrays, n_bits=None):
+def run_kernel(program: kbw.Program, arrays, n_bits=None, blocks=7,
+               offsets=None):
     """numpy model of fused_bitwise_kernel on flat (rows, words) operands:
-    the tile walk (tile, word w, thread t) -> flat index, the loads-first
-    prologue, the register file, the last instruction kept in registers,
-    and the tail mask's multiply-high column."""
+    ``blocks`` persistent blocks walk the tiles (block b takes tiles b,
+    b + blocks, ...); each tile's operands arrive as the 16-byte-aligned
+    span that encloses them (operand k ``offsets[k]`` bytes past a 16-byte
+    boundary, 4 k mod 16 by default) and are read at their shift; a tile's
+    (word w, thread t) is flat word tile * T + w * CT + t; the packed
+    program runs with its marks (``emulate_packed``); the tail mask uses
+    the multiply-high column."""
     shape = arrays[0].shape
     n, row_words = arrays[0].size, shape[-1]
-    flat = [a.reshape(-1) for a in arrays]
-    w_per, smem = kbw.launch_shape(program.n_regs)
-    assert smem == program.n_regs * w_per * kbw.THREADS * 4
-    per_tile = w_per * kbw.THREADS
-    tiles = -(-n // per_tile)
-    t, w, tile = np.meshgrid(np.arange(kbw.THREADS), np.arange(w_per),
-                             np.arange(tiles), indexing="ij")
-    idx = (tile * per_tile + w * kbw.THREADS + t).reshape(-1)
-    idx = idx[idx < n]
-    assert np.array_equal(np.sort(idx), np.arange(n))   # each word once
-    prog = [decode(int(x)) for x in program.packed]
-    regs = {}
-    for op, dst, s0, _, _ in prog[:program.n_loads]:
-        assert op == kbw.OP_LOAD
-        regs[dst] = flat[s0][idx]
-    v = None
-    for op, dst, s0, s1, s2 in prog[program.n_loads:]:
-        assert op != kbw.OP_LOAD
-        if op == kbw.OP_ZERO:
-            v = np.zeros(idx.size, np.uint32)
-        elif op == kbw.OP_ONE:
-            v = np.full(idx.size, 0xFFFFFFFF, np.uint32)
-        elif op == kbw.OP_NOT:
-            v = ~regs[s0]
-        elif op == kbw.OP_AND:
-            v = regs[s0] & regs[s1]
-        elif op == kbw.OP_OR:
-            v = regs[s0] | regs[s1]
-        elif op == kbw.OP_XOR:
-            v = regs[s0] ^ regs[s1]
-        else:
-            a, b, c = regs[s0], regs[s1], regs[s2]
-            v = (a & b) | (b & c) | (c & a)
-        regs[dst] = v
-    v = regs[program.result]
+    tile = kbw.tile_for(program)
+    w_per, warps = kbw.TILES[tile]
+    ct, words_ = warps * 32, kbw.tile_words(tile)
+    assert words_ == w_per * ct
+    assert kbw.shared_bytes(program, tile, 2) <= kbw.MAX_SMEM
+    offsets = offsets or [4 * k % 16 for k in range(len(arrays))]
+    # each operand's bytes at its offset past a 16-byte boundary, with
+    # room for the enclosing granules on both sides
+    memory = []
+    for a, off in zip(arrays, offsets):
+        buf = np.zeros(16 + 4 * n + 32, np.uint8)
+        buf[16 + off:16 + off + 4 * n] = a.reshape(-1).view(np.uint8)
+        memory.append((buf, 16 + off))
+    tiles = -(-n // words_)
+    out = np.zeros(n, np.uint32)
+    seen = np.zeros(n, int)
+    loads = [(int(wd) >> 9) & 63 for wd in program.packed[:program.n_loads]]
+    for b in range(blocks):
+        for item in range(b, tiles, blocks):
+            i0, i1 = item * words_, min(item * words_ + words_, n)
+            slots = []
+            for k in loads:
+                buf, base = memory[k]
+                lo, hi = (base + 4 * i0) & ~15, (base + 4 * i1 + 15) & ~15
+                assert 0 <= lo and hi <= buf.size and (hi - lo) % 16 == 0
+                assert hi - lo <= 4 * words_ + 16
+                shift = base + 4 * i0 - lo
+                assert shift == base % 16          # one shift per operand
+                slot = np.zeros(4 * words_ + 16, np.uint8)
+                slot[:hi - lo] = buf[lo:hi]
+                slots.append(slot[shift:shift + 4 * words_].view(np.uint32))
+            t, w = np.meshgrid(np.arange(ct), np.arange(w_per),
+                               indexing="ij")
+            j = (w * ct + t).reshape(-1)
+            by_operand = [None] * len(arrays)
+            for k, slot in zip(loads, slots):
+                by_operand[k] = slot[j]
+            v = emulate_packed(program, [x if x is not None else
+                                         np.zeros(j.size, np.uint32)
+                                         for x in by_operand])
+            idx = i0 + j
+            keep = idx < n
+            out[idx[keep]] = v[keep]
+            seen[idx[keep]] += 1
+    assert (seen == 1).all()                    # each word once
     if n_bits is not None and n_bits < 32 * row_words:
         mul, shift = kbw.divmod_magic(row_words)
-        u = idx.astype(np.uint64)
+        u = np.arange(n, dtype=np.uint64)
         quo = (((u * mul) >> 32) + u) >> shift
         col = (u - quo * row_words).astype(np.int64)
         full, rem = n_bits // 32, n_bits % 32
         mask = np.where(col < full, 0xFFFFFFFF,
                         np.where(col == full, (1 << rem) - 1, 0))
-        v = v & mask.astype(np.uint32)
-    out = np.empty(n, np.uint32)
-    out[idx] = v
+        out = out & mask.astype(np.uint32)
     return out.reshape(shape)
 
 
@@ -126,7 +140,7 @@ def run_kernel(program: kbw.Program, arrays, n_bits=None):
 def test_loads_first_program_matches_reference(seed):
     """The lowered program, run as the kernel runs it, equals eval_expr
     and the reference's fused kernel; every load comes first, each into a
-    register of its own, and the packed words encode the code rows."""
+    register of its own, and the packed words encode the same loads."""
     rng = np.random.default_rng(300 + seed)
     names = ("a", "b", "c", "d")
     shape = (3, 17)
@@ -139,7 +153,8 @@ def test_loads_first_program_matches_reference(seed):
         assert (ops_col[prog.n_loads:] != kbw.OP_LOAD).all()
         assert list(prog.code[:prog.n_loads, 1]) == list(range(prog.n_loads))
         assert len(set(prog.loads)) == prog.n_loads
-        for row, word in zip(prog.code.tolist(), prog.packed.tolist()):
+        for row, word in zip(prog.code.tolist(),
+                             prog.packed[:prog.n_loads].tolist()):
             op, dst, s0, s1, s2 = decode(word)
             assert (op | s2 << 16, dst, s0, s1) == tuple(row)
         got = run_kernel(prog, [env[nm] for nm in names])
@@ -185,25 +200,45 @@ def test_divmod_magic_divides_every_index():
 
 
 def test_register_buckets_and_their_limits():
-    assert kbw.launch_shape(1) == (8, 8 * 1024)
-    assert kbw.launch_shape(8) == (8, 8 * 8 * 1024)
-    assert kbw.launch_shape(9) == (4, 9 * 4 * 1024)
-    assert kbw.launch_shape(24) == (4, 24 * 4 * 1024)
-    assert kbw.launch_shape(25) == (2, 25 * 2 * 1024)
-    assert kbw.launch_shape(kbw.MAX_REGS) == (2, kbw.MAX_REGS * 2 * 1024)
-    for n_regs in range(1, kbw.MAX_REGS + 1):   # within an H100 block's
-        assert kbw.launch_shape(n_regs)[1] <= 232_448   # shared memory
-    for bad in (0, kbw.MAX_REGS + 1):
-        with pytest.raises(ValueError, match="registers"):
-            kbw.launch_shape(bad)
+    """The kernel's tile for a program, and the shared memory of its ring:
+    every program within the limits (32 loads, 512 instructions, 64
+    registers) fits two ring stages of a tile in an H100 block."""
     x, y = E.Expr.var("x"), E.Expr.var("y")
-    assert kbw.launch_shape(kbw.lower(x & y, ("x", "y")).n_regs)[0] == 8
+    small = kbw.lower(x & y, ("x", "y"))
+    assert kbw.tile_for(small) == 1 and kbw.tile_words(1) == 512
+    assert small.shared_regs == 2              # the result: no register
+    # 64 + 2 (1 + 1) 16 B of programs -> 128; 2 stages x 2 slots x 2064 B
+    assert kbw.shared_bytes(small, 1, 2) == 128 + 2 * 2 * 2064
+    assert kbw.shared_bytes(small, 1, 3) == 256 + 3 * 2 * 2064
+    # 8 words a thread where six one-stage blocks fit an SM (12 loads and
+    # 14 registers: 12 slots and 2 registers of 2 KB), else 4 words
+    one = scan_expr(12, 1000, 2000, prefix="d")
+    prog = kbw.lower(one, tuple(sorted(f"d{i}" for i in range(12))))
+    assert prog.n_loads == 12
+    assert 6 * (kbw.shared_bytes(prog, 1, 1) + 1024) <= kbw.SM_SHARED
+    assert kbw.tile_for(prog) == 1
     two = scan_expr(8, 37, 200, prefix="p") & scan_expr(7, 5, 90, prefix="s")
     names = tuple(sorted({nd.name for nd in E.topo_order(two)
                           if nd.op == "var"}))
     prog = kbw.lower(two, names)
     assert prog.n_loads == 15 and prog.n_regs <= 24
-    assert kbw.launch_shape(prog.n_regs)[0] == 4
+    assert kbw.tile_for(prog) == (
+        1 if 6 * (kbw.shared_bytes(prog, 1, 1) + 1024) <= kbw.SM_SHARED
+        else 0)
+    # the largest program the limits allow: 4 words a thread, one stage
+    code = np.zeros((kbw.MAX_INSTR, 4), np.int32)
+    code[:kbw.MAX_OPERANDS, 1] = np.arange(kbw.MAX_OPERANDS)
+    code[kbw.MAX_OPERANDS:, 0] = kbw.OP_AND
+    widest = kbw.Program(code, kbw.MAX_REGS, 0, kbw.MAX_OPERANDS,
+                         tuple(range(kbw.MAX_OPERANDS)),
+                         np.zeros(kbw.MAX_INSTR, np.uint32),
+                         shared_regs=kbw.MAX_REGS)
+    assert kbw.tile_for(widest) == 0
+    assert kbw.shared_bytes(widest, 0, 1) <= kbw.MAX_SMEM
+    for tile in range(len(kbw.TILES)):
+        w, warps = kbw.TILES[tile]
+        assert kbw.tile_words(tile) == w * warps * 32
+        assert kbw.tile_words(tile) * 4 % 16 == 0   # one shift an operand
 
 
 def test_program_of_a_single_operand_or_literal():
