@@ -313,6 +313,8 @@ def ptxas_summary(text: str):
             name = mangled if not k else k.group(1) + (
                 "<" + ",".join(re.findall(r"L[ib](\d+)E", k.group(2))) + ">"
                 if k.group(2) else "")
+            if k and k.group(2) and "WideParams" in k.group(2):
+                name += " (WideParams)"       # the wide route's block
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -676,11 +678,19 @@ def check_bitweaving(torch, rng, stats):
 
 def fused_exprs():
     """The programs the fused kernel is checked on: each opcode, literals,
-    the 8-plane scan and a program of 64 live registers."""
+    the 8-plane scan, a program of 64 live registers and, where the tree's
+    kernel takes them, one of 48 loads (the wide route)."""
     from repro_torch.apps.bitweaving_db import scan_expr
     from repro_torch.core import expr as E
+    from repro_torch.kernels import bitwise as kbw
     X, Y, Z = E.Expr.var("x"), E.Expr.var("y"), E.Expr.var("z")
-    return {
+    wide = {}
+    if kbw.MAX_OPERANDS >= 48:
+        wide["wide48"] = (scan_expr(12, 3, 4000, prefix="a")
+                          & scan_expr(12, 100, 101, prefix="b")
+                          & scan_expr(12, 0, 2047, prefix="c")
+                          & ~scan_expr(12, 7, 3000, prefix="d"))
+    return wide | {
         "and": X & Y,
         "maj": E.maj(X, ~Y, Z),
         "not": ~(X ^ Z),
@@ -926,6 +936,7 @@ def time_fused(torch, rng, timer, row):
     log(f"time fused_bitwise parameter block, x&y then 16 x x&y, 3 rounds "
         f"each of (device ms, host-path ms): small {small}, large {large}")
     out["fused_bitwise"]["sf300"] = time_sf300(torch, timer)
+    out["fused_bitwise"]["ssb300"] = time_ssb300(torch, timer)
     return out, x
 
 
@@ -943,23 +954,30 @@ def _tpch_days(y, m, d):
     return (datetime.date(y, m, d) - datetime.date(1992, 1, 1)).days
 
 
+def _range_plan(columns, label, spec):
+    """(label, expression, names) of a conjunction of ``(column, lo, hi)``
+    ranges over the BitWeaving planes of ``columns`` ((name, bits) pairs),
+    as ``predicate_plan`` builds it."""
+    from repro_torch.apps.bitweaving_db import scan_expr
+    bits = dict(columns)
+    expr, names = None, []
+    for col, lo, hi in spec:
+        term = scan_expr(bits[col], lo, hi, prefix=f"{col}_b")
+        names += [f"{col}_b{i}" for i in range(bits[col])]
+        expr = term if expr is None else expr & term
+    return label, expr, tuple(sorted(names))
+
+
 def sf300_programs():
     """(label, expression, names) of the served mix's programs, timed at
     SF 300: a Q1 (delta 90), a Q14 (1995-07), a Q6 of at most 128
     instructions (1996, discount 0.07, quantity 25) and one of more (1995,
     0.05, 24) - the two lengths that took the two parameter blocks - and
     the control: the same 22 loads as Q6 and a chain of 21 ANDs."""
-    from repro_torch.apps.bitweaving_db import scan_expr
     from repro_torch.core import expr as E
-    bits = dict(SF300_COLUMNS)
 
     def plan(label, spec):
-        expr, names = None, []
-        for col, lo, hi in spec:
-            term = scan_expr(bits[col], lo, hi, prefix=f"{col}_b")
-            names += [f"{col}_b{i}" for i in range(bits[col])]
-            expr = term if expr is None else expr & term
-        return label, expr, tuple(sorted(names))
+        return _range_plan(SF300_COLUMNS, label, spec)
 
     def q6(year, d, q):
         return [("l_shipdate", _tpch_days(year, 1, 1),
@@ -1049,6 +1067,102 @@ def time_sf300(torch, timer):
         f"kernel {ms:.6f} ms on the device")
     rows.append({"program": label + ", 5,120-byte parameter block",
                  "ms": ms})
+    del planes
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The Star Schema Benchmark at SF 300 as the benchmark's `ssb-sf300-flat`
+# holds it: 1,800,000,000 lineorder rows, a plane of 56,250,000 words
+# (225,000,000 bytes) a bit; Q4.2 and Q4.3 range over these four columns.
+SSB300_ROWS = 1_800_000_000
+SSB300_WORDS = -(-SSB300_ROWS // 32)
+SSB300_COLUMNS = (("c_city", 8), ("s_city", 8), ("lo_orderdate", 12),
+                  ("p_brand1", 10))
+
+
+def ssb300_programs():
+    """(label, expression, names) of SSB Q4.2 and Q4.3 as the cell plans
+    them: conjunctions over all 38 planes of the four columns."""
+    years = (_tpch_days(1997, 1, 1), _tpch_days(1999, 1, 1) - 1)
+    return [_range_plan(SSB300_COLUMNS, "SSB Q4.2 (38 loads)",
+                        [("c_city", 50, 99), ("s_city", 50, 99),
+                         ("lo_orderdate", *years), ("p_brand1", 0, 399)]),
+            _range_plan(SSB300_COLUMNS, "SSB Q4.3 (38 loads)",
+                        [("c_city", 50, 99), ("s_city", 90, 99),
+                         ("lo_orderdate", *years), ("p_brand1", 120, 159)])]
+
+
+def time_ssb300(torch, timer, q=16):
+    """SSB Q4.2 and Q4.3 on SF 300 planes, each one launch on the wide
+    route: alone, then as an epoch of ``q`` repeats of the query (one
+    stacked launch whose pointers go in a device table, as a drain of
+    repeated dashboard queries launches it); device ms beside the HBM
+    bound (alone: every plane read once and the result written; the
+    epoch: the same planes once and ``q`` results), each result checked
+    against the plain version. Skipped (an empty list) on a tree whose
+    kernel takes fewer operands."""
+    from repro_torch.kernels import bitwise as kbw
+    if kbw.MAX_OPERANDS < 38:
+        log(f"SSB SF 300: skipped, this tree's fused_bitwise takes at most "
+            f"{kbw.MAX_OPERANDS} operands")
+        return []
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 301)
+    planes = {}
+    for col, bits in SSB300_COLUMNS:
+        t = torch.randint(-2 ** 31, 2 ** 31, (bits, SSB300_WORDS),
+                          dtype=torch.int32, device="cuda", generator=gen)
+        planes.update({f"{col}_b{i}": v for i, v in enumerate(t.unbind(0))})
+    rows = []
+    plane_bytes = 4 * SSB300_WORDS
+    for label, expr, names in ssb300_programs():
+        prog = kbw.lower(expr, names)
+        if prog.n_loads <= kbw.WARP_LOADS:
+            fail(f"{label}: {prog.n_loads} loads, not the wide route")
+        arrays = [planes[nm] for nm in names]
+        want = kbw.fused_bitwise_plain(expr, names, arrays, SSB300_ROWS)
+        wide, table = (kbw.fused_bitwise.wide_launches,
+                       kbw.fused_bitwise_stacked.table_launches)
+        got = kbw.fused_bitwise(expr, names, arrays, prog,
+                                n_bits=SSB300_ROWS)
+        if not torch.equal(got, want):
+            fail(f"fused_bitwise {label} at SF 300: kernel != plain in "
+                 f"{(got != want).sum().item()} words")
+        del got
+        outs = kbw.fused_bitwise_stacked(expr, names, [arrays] * q, prog,
+                                         n_bits=SSB300_ROWS)
+        bad = [k for k, o in enumerate(outs) if not torch.equal(o, want)]
+        if bad:
+            fail(f"fused_bitwise_stacked {label} x {q} at SF 300: queries "
+                 f"{bad} differ from the plain version")
+        del outs, want
+        if (kbw.fused_bitwise.wide_launches - wide,
+                kbw.fused_bitwise_stacked.table_launches - table) != (1, 1):
+            fail(f"{label}: the launches did not take the wide route and "
+                 "the device table")
+        for what, fn, nbytes in (
+                ("alone", lambda: kbw.fused_bitwise(
+                    expr, names, arrays, prog, n_bits=SSB300_ROWS),
+                 (prog.n_loads + 1) * plane_bytes),
+                (f"{q}-query epoch", lambda: kbw.fused_bitwise_stacked(
+                    expr, names, [arrays] * q, prog, n_bits=SSB300_ROWS),
+                 (prog.n_loads + q) * plane_bytes)):
+            ms, launch_ms = timer(fn)
+            r = {"program": f"{label} {what}",
+                 "instructions": int(prog.packed.shape[0]),
+                 "loads": prog.n_loads, "registers": prog.n_regs,
+                 "smem_bytes_per_word": prog.smem_bytes_per_word,
+                 "ms": ms, "launch_ms": launch_ms,
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "hbm_share": nbytes / HBM_BYTES_PER_S * 1e3 / ms}
+            log(f"time fused_bitwise SSB SF 300 {label} {what}: "
+                f"{r['instructions']} kernel instructions, "
+                f"{r['registers']} registers, {r['smem_bytes_per_word']} "
+                f"shared-memory B/word: kernel {ms:.6f} ms on the device "
+                f"({launch_ms:.6f} ms with the host's launch path), bound "
+                f"{r['bound_ms']:.6f} ms (bytes), "
+                f"{100 * r['hbm_share']:.1f}% of it")
+            rows.append(r)
     del planes
     torch.cuda.empty_cache()
     return rows

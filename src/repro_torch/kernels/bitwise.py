@@ -16,9 +16,12 @@ the register file in shared memory), and which loads are read negated
 is what that leaves in shared memory for each word.
 
 Every wrapper here launches the kernel for CUDA tensors and counts the
-launch in ``<wrapper>.launches``, and a launch whose persistent blocks
-walked more than one tile each in ``<wrapper>.ring_launches``; CPU
-tensors take the plain PyTorch version beside it. Nothing falls back.
+launch in ``<wrapper>.launches``, a launch whose persistent blocks
+walked more than one tile each in ``<wrapper>.ring_launches``, and a
+launch of a program of more than ``WARP_LOADS`` loads (the kernel's wide
+route) in ``<wrapper>.wide_launches``; ``fused_bitwise_stacked`` counts
+an epoch whose pointers went in a device table in ``.table_launches``.
+CPU tensors take the plain PyTorch version beside it. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -36,8 +39,11 @@ from . import build
 
 # Limits of csrc/bitwise.cu (MAX_OPERANDS / MAX_INSTR / MAX_REGS). A
 # two-column TPC-H predicate_plan over 8-bit planes uses 15 operands and
-# about 150 nodes.
-MAX_OPERANDS = 32
+# about 150 nodes; the four-column Star Schema Q4.2 and Q4.3 plans, 38.
+MAX_OPERANDS = 48
+# Loads the kernel's producer warp issues one a lane; a program of more
+# takes the kernel's wide parameter block (csrc/bitwise.cu WideParams).
+WARP_LOADS = 32
 MAX_INSTR = 512
 MAX_REGS = 64
 PARAM_PTRS = 384        # pointer table passed by value in the launch
@@ -341,6 +347,13 @@ def _check_operands(arrays: Sequence[torch.Tensor], like: torch.Tensor
                 f"{a.dtype} {tuple(a.shape)} on {a.device}")
 
 
+def by_value(program: Program, queries: int) -> bool:
+    """Whether a launch of ``queries`` evaluations of ``program`` passes
+    its operand and output pointers by value in the launch (at most
+    ``PARAM_PTRS``) rather than in a device table."""
+    return queries * (program.n_operands + 1) <= PARAM_PTRS
+
+
 def _launch(program: Program, table: List[List[torch.Tensor]], shape,
             n_bits: Optional[int]) -> bool:
     """One launch over ``table`` = per query [operands..., output].
@@ -354,7 +367,7 @@ def _launch(program: Program, table: List[List[torch.Tensor]], shape,
     tile = tile_for(program)
     mul, shift = divmod_magic(words)
     ptrs = [t.data_ptr() for row in table for t in row]
-    if len(ptrs) <= PARAM_PTRS:         # by value in the launch
+    if by_value(program, len(table)):
         host_ptrs, dev_table = (ctypes.c_ulonglong * len(ptrs))(*ptrs), None
     else:                               # a large epoch: a device table
         host_ptrs = None
@@ -402,11 +415,13 @@ def fused_bitwise(expression: E.Expr, names: Sequence[str],
     ring = _launch(program, [list(arrays) + [out]], first.shape, n_bits)
     fused_bitwise.launches += 1
     fused_bitwise.ring_launches += ring
+    fused_bitwise.wide_launches += program.n_loads > WARP_LOADS
     return out
 
 
 fused_bitwise.launches = 0
 fused_bitwise.ring_launches = 0
+fused_bitwise.wide_launches = 0
 
 
 def fused_bitwise_stacked(expression: E.Expr, names: Sequence[str],
@@ -436,8 +451,13 @@ def fused_bitwise_stacked(expression: E.Expr, names: Sequence[str],
                    first.shape, n_bits)
     fused_bitwise_stacked.launches += 1
     fused_bitwise_stacked.ring_launches += ring
+    fused_bitwise_stacked.wide_launches += program.n_loads > WARP_LOADS
+    fused_bitwise_stacked.table_launches += not by_value(program,
+                                                         len(operands))
     return outs
 
 
 fused_bitwise_stacked.launches = 0
 fused_bitwise_stacked.ring_launches = 0
+fused_bitwise_stacked.wide_launches = 0
+fused_bitwise_stacked.table_launches = 0

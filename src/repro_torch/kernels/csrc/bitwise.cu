@@ -64,6 +64,13 @@
 // per-query operand and output pointers: no operand is copied into a
 // stack. The table travels by value when it fits (PARAM_PTRS pointers),
 // else in device memory.
+//
+// A program of more loads than the producer warp has lanes (WARP_LOADS;
+// the four-column Star Schema conjunctions load 38 planes) takes a
+// parameter block of its own type, WideParams: each producer lane then
+// issues the copies of loads lane and lane + 32, and the shifts of loads
+// 32 and up get a third signature word. Every program of at most
+// WARP_LOADS loads runs the instances it ran before, unchanged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,7 +82,8 @@
 #error "bitwise.cu passes 5 KB of kernel parameters: it needs CUDA 12.1 or later"
 #endif
 
-#define MAX_OPERANDS 32
+#define MAX_OPERANDS 48
+#define WARP_LOADS 32    // loads a producer warp issues, one a lane
 #define MAX_INSTR 512
 #define MAX_REGS 64
 #define PARAM_PTRS 384   // pointers passed by value in the launch
@@ -91,8 +99,16 @@
 
 template <int P, int I>
 struct Params {
+  static constexpr int LANE_LOADS = 1;    // loads a producer lane issues
   unsigned long long p[P];
   uint32_t prog[I];   // op | dst << 3 | s0 << 9 | s1 << 15 | s2 << 21 | marks
+};
+
+// The block of a program of more than WARP_LOADS loads: a producer lane
+// issues loads lane and lane + 32.
+template <int P, int I>
+struct WideParams : Params<P, I> {
+  static constexpr int LANE_LOADS = 2;
 };
 
 // Launch constants; offsets are bytes of dynamic shared memory.
@@ -304,6 +320,20 @@ struct Walk {
 // never a pointer into the parameters: that would copy them to the stack
 #define PTR_AT(k) (table ? table[(k)] : params.p[(k)])
 
+// The 16-byte-aligned span that encloses words [i0, i1) of `src`: its
+// start and bytes; returns the words' shift past its start.
+__device__ __forceinline__ uint32_t aligned_span(const uint32_t* src,
+                                                 long long i0, long long i1,
+                                                 const char** from,
+                                                 uint32_t* bytes) {
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(src + i0);
+  const uintptr_t a1 = reinterpret_cast<uintptr_t>(src + i1);
+  *from = reinterpret_cast<const char*>(a0 & ~uintptr_t(15));
+  *bytes = static_cast<uint32_t>(((a1 + 15) & ~uintptr_t(15)) -
+                                 (a0 & ~uintptr_t(15)));
+  return static_cast<uint32_t>(a0 & 15);
+}
+
 // Warps 0..NC-1 evaluate (CT = 32 NC threads, W words each: a tile of
 // T = W CT words); warp NC is the producer.
 template <int W, int NC, class PR>
@@ -314,6 +344,7 @@ fused_bitwise_kernel(const PR params,
   constexpr int CT = NC * 32;
   constexpr long long T = (long long)W * CT;
   constexpr uint32_t SLOT = 4u * T + 16u;     // a tile and its slack
+  constexpr bool WIDE = PR::LANE_LOADS == 2;  // loads lane + 32 too
   extern __shared__ __align__(128) uint32_t sm[];
   const uint32_t sm_s = static_cast<uint32_t>(__cvta_generic_to_shared(sm));
   const int S = sh.stages;
@@ -332,9 +363,10 @@ fused_bitwise_kernel(const PR params,
     // ---- producer: issue each stage's copies, resolve its program ------
     // The program of a stage depends on the query only through the
     // operands' shifts; it is resolved again when they change (lane s
-    // holds stage s's: 2 bits an operand, valid bit 0 of `held`).
+    // holds stage s's: 2 bits an operand, valid bit 0 of `held`; loads
+    // 32-47 of a wide program in `held_x`).
     const int lane = tid - CT;
-    uint32_t held = 0, held_lo = 0, held_hi = 0;
+    uint32_t held = 0, held_lo = 0, held_hi = 0, held_x = 0;
     int s = 0;
     uint32_t phase = 0;
     for (Walk it(sh.tiles, sh.queries); it.more(); it.next()) {
@@ -342,19 +374,21 @@ fused_bitwise_kernel(const PR params,
       const long long i0 = it.tile * T;
       const long long i1 = i0 + T < sh.n ? i0 + T : sh.n;
       const long long row = q * (sh.n_in + 1);
-      const uint32_t* src = nullptr;
       uint32_t shift = 0;                 // bytes past a 16-byte boundary
       uint32_t bytes = 0;
       const char* from = nullptr;
-      if (lane < L) {
-        src = reinterpret_cast<const uint32_t*>(
-            PTR_AT(row + ((params.prog[lane] >> 9) & 63)));
-        const uintptr_t a0 = reinterpret_cast<uintptr_t>(src + i0);
-        const uintptr_t a1 = reinterpret_cast<uintptr_t>(src + i1);
-        shift = static_cast<uint32_t>(a0 & 15);
-        from = reinterpret_cast<const char*>(a0 & ~uintptr_t(15));
-        bytes = static_cast<uint32_t>(((a1 + 15) & ~uintptr_t(15)) -
-                                      (a0 & ~uintptr_t(15)));
+      if (lane < L)
+        shift = aligned_span(reinterpret_cast<const uint32_t*>(
+                                 PTR_AT(row + ((params.prog[lane] >> 9) & 63))),
+                             i0, i1, &from, &bytes);
+      uint32_t shift2 = 0, bytes2 = 0;    // load lane + 32 (wide programs)
+      const char* from2 = nullptr;
+      if constexpr (WIDE) {
+        if (lane + WARP_LOADS < L)
+          shift2 = aligned_span(
+              reinterpret_cast<const uint32_t*>(PTR_AT(
+                  row + ((params.prog[lane + WARP_LOADS] >> 9) & 63))),
+              i0, i1, &from2, &bytes2);
       }
       mbar_wait(sm_s + 8 * (MAX_STAGES + s), phase ^ 1);
       const uint32_t stage = sh.stage_off + s * sh.stage_bytes;
@@ -364,13 +398,27 @@ fused_bitwise_kernel(const PR params,
         mbar_arrive_expect_tx(sm_s + 8 * s, bytes);
         bulk_load(sm_s + stage + lane * SLOT, from, bytes, sm_s + 8 * s);
       }
+      if constexpr (WIDE) {
+        if (lane + WARP_LOADS < L) {
+          mbar_arrive_expect_tx(sm_s + 8 * s, bytes2);
+          bulk_load(sm_s + stage + (lane + WARP_LOADS) * SLOT, from2, bytes2,
+                    sm_s + 8 * s);
+        }
+      }
       const uint32_t sig_lo = __reduce_or_sync(
           0xFFFFFFFFu, lane < 16 ? (shift >> 2) << (2 * lane) : 0u);
       const uint32_t sig_hi = __reduce_or_sync(
           0xFFFFFFFFu, lane >= 16 ? (shift >> 2) << (2 * (lane - 16)) : 0u);
-      if (!__shfl_sync(0xFFFFFFFFu, held, s) ||
-          __shfl_sync(0xFFFFFFFFu, held_lo, s) != sig_lo ||
-          __shfl_sync(0xFFFFFFFFu, held_hi, s) != sig_hi) {
+      uint32_t sig_x = 0;                 // loads 32-47, on lanes 0-15
+      bool stale = !__shfl_sync(0xFFFFFFFFu, held, s) ||
+                   __shfl_sync(0xFFFFFFFFu, held_lo, s) != sig_lo ||
+                   __shfl_sync(0xFFFFFFFFu, held_hi, s) != sig_hi;
+      if constexpr (WIDE) {
+        sig_x = __reduce_or_sync(
+            0xFFFFFFFFu, lane < 16 ? (shift2 >> 2) << (2 * lane) : 0u);
+        stale = __shfl_sync(0xFFFFFFFFu, held_x, s) != sig_x || stale;
+      }
+      if (stale) {
         // entry k: instruction L + k; entry n_comp: the result's address
         uint4* prog = reinterpret_cast<uint4*>(
             reinterpret_cast<char*>(sm) + BARRIER_BYTES +
@@ -386,7 +434,11 @@ fused_bitwise_kernel(const PR params,
           uint32_t addr[4];                 // shared address of word 0
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const uint32_t sh_j = __shfl_sync(0xFFFFFFFFu, shift, r[j] & 31);
+            uint32_t sh_j = __shfl_sync(0xFFFFFFFFu, shift, r[j] & 31);
+            if constexpr (WIDE) {
+              const uint32_t sh2 = __shfl_sync(0xFFFFFFFFu, shift2, r[j] & 31);
+              if (r[j] >= WARP_LOADS) sh_j = sh2;
+            }
             addr[j] = sm_s + (r[j] < L
                 ? stage + r[j] * SLOT + sh_j
                 : sh.file_off + static_cast<uint32_t>(r[j] - L) *
@@ -405,6 +457,7 @@ fused_bitwise_kernel(const PR params,
           held = 1;
           held_lo = sig_lo;
           held_hi = sig_hi;
+          held_x = sig_x;
         }
         __threadfence_block();
       }
@@ -615,7 +668,8 @@ const char* repro_error_string(int err) {
 // cfg:   the tile: 0 = 4 words a thread on 4 evaluating warps, 1 = 8 words
 //        on 2 (512 words either way).
 // small_ok lets a launch of at most SMALL_PTRS pointers and SMALL_INSTR
-// instructions pass the smaller parameter block.
+// instructions pass the smaller parameter block; a program of more than
+// WARP_LOADS loads always passes WideParams<PARAM_PTRS, MAX_INSTR>.
 // Persistent blocks walk the queries' tiles (query-major); *grid_out gets
 // the blocks launched. n_bits < 0 leaves the result unmasked; otherwise
 // bits past n_bits of every row are cleared. The column of flat index i
@@ -661,6 +715,10 @@ int fused_bitwise_launch(const unsigned long long* ptrs,
   sh.div_mul = div_mul;
   sh.div_shift = div_shift;
   sh.slot_writes = slot_writes;
+  if (n_loads > WARP_LOADS)
+    return launch_params<WideParams<PARAM_PTRS, MAX_INSTR>>(
+        ptrs, dev_table, prog, n_instr, n_ptrs, sh, n_regs, cfg, queries,
+        stream, grid_out);
   if (small_ok && n_ptrs <= SMALL_PTRS && n_instr <= SMALL_INSTR)
     return launch_params<Params<SMALL_PTRS, SMALL_INSTR>>(
         ptrs, dev_table, prog, n_instr, n_ptrs, sh, n_regs, cfg, queries,

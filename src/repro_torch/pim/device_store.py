@@ -357,10 +357,11 @@ class DevicePlanner:
             if len(matches) == 1:
                 donate_idx = matches[0]
         with self.store.tracer.host_span("device_store.launch", queries=1,
-                                         operands=len(names)):
+                                         operands=len(names)) as span:
             fn = _device_compiled(expression, tuple(names), self.backend,
                                   first.n_bits, donate_idx)
             out_dev = fn(*[env[nm]._dev for nm in names])
+            self._note_launch(span, expression, names, 1)
         # Budget the result AFTER the launch consumed the operands: cold
         # operands are now legal spill victims, so an exact-fit capacity
         # still runs arbitrarily long chains. A donated destination must
@@ -383,6 +384,14 @@ class DevicePlanner:
         self._record_dispatch(queries=1,
                               donated=0 if donate_idx is None else 1)
         return res
+
+    def _note_launch(self, span, expression: E.Expr, names, queries: int
+                     ) -> None:
+        """On "cuda" with host spans on, the launch span's program
+        instructions and pointer route (``kops.launch_args``)."""
+        if self.backend == "cuda" and self.store.tracer.host_enabled:
+            from ..kernels import ops as kops
+            span.note(**kops.launch_args(expression, tuple(names), queries))
 
     def _record_dispatch(self, queries: int, donated: int = 0) -> None:
         m = self.store.metrics
@@ -420,10 +429,11 @@ class DevicePlanner:
                     "the scheduler's stack key guarantees this")
         with self.store.tracer.host_span("device_store.launch",
                                          queries=len(jobs),
-                                         operands=len(names)):
+                                         operands=len(names)) as span:
             fn = _device_compiled_stacked(expression, tuple(names),
                                           self.backend, first.n_bits)
             outs = fn([[job[1][nm]._dev for nm in names] for job in jobs])
+            self._note_launch(span, expression, names, len(jobs))
         self.store._make_room(len(jobs) * first.device_bytes)
         self.kernel_launches += 1
         if self.backend == "cuda":

@@ -204,6 +204,55 @@ def test_fused_bitwise_stacked_ring_on_card(cuda):
     assert all(torch.equal(g, w) for g, w in zip(outs, wants))
 
 
+# column widths of a four-column conjunction of n planes (38: the Star
+# Schema's Q4.2/Q4.3: two cities, order date, brand)
+WIDE_COLUMNS = {33: (12, 8, 7, 6), 38: (8, 8, 12, 10), 48: (12, 12, 12, 12)}
+
+
+@pytest.mark.parametrize("n", sorted(WIDE_COLUMNS))
+def test_wide_program_alone_and_as_a_stacked_epoch_on_card(cuda, n):
+    """Programs of more loads than the producer warp has lanes: alone over
+    row views of (bits, words) columns (the deployment's planes, 0-12
+    bytes off 16), masked, and as a 16-query epoch whose pointers
+    outnumber the by-value table; each one launch on the wide route,
+    exact."""
+    rng = np.random.default_rng(n)
+    expr, names, columns = None, [], []
+    for k, bits in enumerate(WIDE_COLUMNS[n]):
+        expr_k = scan_expr(bits, 3 + k, (1 << bits) - 9 + k,
+                           prefix=f"c{k}_b")
+        expr = expr_k if expr is None else expr & expr_k
+        names += [f"c{k}_b{i}" for i in range(bits)]
+        columns.append(words(rng, (bits, 187_539), cuda))
+    planes = dict(zip(names, [p for c in columns for p in c.unbind(0)]))
+    names = tuple(sorted(names))
+    prog = kbw.lower(expr, names)
+    assert prog.n_loads == n > kbw.WARP_LOADS
+    n_bits = 187_539 * 32 - 13
+    arrays = [planes[nm] for nm in names]
+    before = (kbw.fused_bitwise.launches, kbw.fused_bitwise.wide_launches)
+    got = kbw.fused_bitwise(expr, names, arrays, prog, n_bits=n_bits)
+    assert (kbw.fused_bitwise.launches, kbw.fused_bitwise.wide_launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, kbw.fused_bitwise_plain(expr, names, arrays,
+                                                    n_bits))
+    # the epoch: query q reads its own planes at its own offsets, every
+    # fourth query the deployment's (a repeated dashboard query)
+    operands = [arrays if q % 4 == 0 else
+                [_offset_words(rng, (187_539,), 4 * (q + k) % 16, cuda)
+                 for k in range(n)] for q in range(16)]
+    assert not kbw.by_value(prog, len(operands))
+    st = kbw.fused_bitwise_stacked
+    before = (st.launches, st.wide_launches, st.table_launches)
+    outs = kbw.fused_bitwise_stacked(expr, names, operands, prog,
+                                     n_bits=n_bits)
+    assert (st.launches, st.wide_launches, st.table_launches) == \
+        tuple(b + 1 for b in before)
+    wants = kbw.fused_bitwise_stacked_plain(expr, names, operands, n_bits)
+    assert all(torch.equal(g, w) for g, w in zip(outs, wants))
+    assert torch.equal(outs[0], got) and torch.equal(outs[4], got)
+
+
 def test_fused_bitwise_tail_mask_every_remainder_on_card(cuda):
     """n_bits at every remainder mod 32 of rows that end mid-tile and on
     row views off a 16-byte boundary."""

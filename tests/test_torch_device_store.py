@@ -11,19 +11,23 @@ bits. Results, handle states, byte counters and the whole
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+from repro.apps import bitweaving_db as jbw
 from repro.core import BitVector as JBitVector
 from repro.core import expr as JE
 from repro.kernels import ops as jops
 from repro.pim import AmbitRuntime as JRuntime
+from repro_torch.apps import bitweaving_db as bw
 from repro_torch.core import AmbitError, BitVector
 from repro_torch.core import expr as E
 from repro_torch.kernels import ops as kops
 from repro_torch.pim import AmbitRuntime, DeviceStore
+from test_torch_kernels import WIDE_COLUMNS
 
 PAIRS = [("jnp", "torch"), ("pallas", "cuda")]
 
@@ -152,6 +156,61 @@ def test_one_dispatch_per_epoch_like_reference():
         for t, b in zip(tickets, bits):
             assert np.array_equal(bits_of(rt, t.result), b[0] & b[1])
     assert counts[0] == counts[1] == (2, 2, 2, [0, 0, 0, 0], 1)
+
+
+def wide_session(rt, BV, Ex, table_of, n, kind, bits):
+    """On either package: a program of ``n`` operands evaluated once
+    (``DevicePlanner.execute``), then three tickets sharing it drained as
+    one epoch (``execute_epoch``); returns what it observed."""
+    if kind == "chain":
+        names = [f"v{i:02d}" for i in range(n)]
+        handles = [rt.put(BV.from_bits(b)) for b in bits[:n]]
+        expr = Ex.Expr.var(names[0])
+        for nm in names[1:]:
+            expr = expr & Ex.Expr.var(nm)
+        envs = [dict(zip(names, handles[k:] + handles[:k]))
+                for k in range(3)]
+    else:
+        cols = tuple((f"c{k}", b) for k, b in enumerate(WIDE_COLUMNS[n]))
+        table = table_of(n_rows=1000, seed=n, columns=cols)
+        specs = [(c, 3 + k, (1 << b) - 5 - k)
+                 for k, (c, b) in enumerate(cols)]
+        expr, env = (bw if BV is CpuBitVector else jbw).predicate_plan(
+            table, specs, rt)
+        envs = [env] * 3                    # a query repeated in a drain
+    probe = kops if BV is CpuBitVector else jops
+    probe.fused_dispatch_reset()
+    seen = []
+    one = rt.eval(expr, envs[0])
+    seen.append(("eval", bits_of(rt, one).tolist(), rt.popcount(one),
+                 probe.fused_dispatch_count()))
+    tickets = [rt.submit(expr, env) for env in envs]
+    rt.drain()
+    seen.append(("drain", len(rt.last_drain.epochs),
+                 [t.epoch for t in tickets], probe.fused_dispatch_count(),
+                 rt.planner.kernel_launches))
+    seen += [("res", bits_of(rt, t.result).tolist()) for t in tickets]
+    seen.append(("metrics", rt.metrics_snapshot()))
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["chain", "plan"])
+@pytest.mark.parametrize("n", sorted(WIDE_COLUMNS))
+def test_wide_programs_execute_and_stack_like_reference(n, kind):
+    """Programs of 33-48 operands through the planner's single and
+    stacked launches: bits, counts and every ledger token equal to the
+    reference's, one fused dispatch an evaluation."""
+    rng = np.random.default_rng(40 + n)
+    bits = rng.integers(0, 2, (n, 1000)).astype(bool)
+    jrt, rt = runtimes("pallas", "cuda")
+    want = wide_session(jrt, JBitVector, JE, jbw.TpchTable.synthesize, n,
+                        kind, bits)
+    got = wide_session(rt, CpuBitVector, E, functools.partial(
+        bw.TpchTable.synthesize, device="cpu"), n, kind, bits)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g == w, g[0]
+    assert got[0][3] == 1 and got[1][1:4] == (1, [0, 0, 0], 2)
 
 
 def test_out_rebind_writes_in_place_only_into_private_buffers():

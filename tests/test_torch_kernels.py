@@ -236,6 +236,53 @@ def test_operand_limit_raises():
         ops.bitwise_eval(expr, env)
 
 
+# bit widths of the four columns of a predicate_plan over n planes: 38 is
+# the Star Schema's Q4.2/Q4.3 (order date, brand, two cities)
+WIDE_COLUMNS = {33: (12, 8, 7, 6), 38: (12, 10, 8, 8), 48: (12, 12, 12, 12)}
+
+
+def wide_program(n: int, kind: str):
+    """``(expression, names)`` of ``n`` operands, every one loaded: an
+    AND chain, or a four-column conjunction of BitWeaving ranges."""
+    if kind == "chain":
+        names = tuple(f"v{i:02d}" for i in range(n))
+        expr = E.Expr.var(names[0])
+        for nm in names[1:]:
+            expr = expr & E.Expr.var(nm)
+        return expr, names
+    expr, names = None, []
+    for k, bits in enumerate(WIDE_COLUMNS[n]):
+        term = scan_expr(bits, 5 + k, (1 << bits) - 7 - k, prefix=f"c{k}_b")
+        names += [f"c{k}_b{i}" for i in range(bits)]
+        expr = term if expr is None else expr & term
+    return expr, tuple(sorted(names))
+
+
+@pytest.mark.parametrize("kind", ["chain", "plan"])
+@pytest.mark.parametrize("n", sorted(WIDE_COLUMNS))
+def test_wide_program_matches_reference(n, kind):
+    """Programs past the producer warp's 32 loads, up to the cap: one
+    dispatch an evaluation, bit for bit with the reference, and the
+    kernel's register program and packed form equal to ``eval_expr``."""
+    rng = np.random.default_rng(n + (kind == "plan"))
+    expr, names = wide_program(n, kind)
+    env = {nm: words(rng, (2, 19)) for nm in names}
+    prog = kbw.lower(expr, names)
+    assert prog.n_operands == prog.n_loads == n > kbw.WARP_LOADS
+    arrays = [env[nm] for nm in names]
+    want = E.eval_expr(expr, env)
+    np.testing.assert_array_equal(emulate(prog, arrays), want)
+    np.testing.assert_array_equal(emulate_packed(prog, arrays), want)
+    ops.fused_dispatch_reset()
+    jops.fused_dispatch_reset()
+    got = ops.bitwise_eval(expr, {k: from_numpy_u32(v, device="cpu")
+                                  for k, v in env.items()})
+    ref = jops.bitwise_eval(to_ref(expr), env)
+    np.testing.assert_array_equal(to_numpy_u32(got), np.asarray(ref))
+    np.testing.assert_array_equal(to_numpy_u32(got), want)
+    assert ops.fused_dispatch_count() == jops.fused_dispatch_count() == 1
+
+
 def test_instruction_limit_raises():
     expr = X
     for _ in range(kbw.MAX_INSTR // 2 + 1):

@@ -25,7 +25,7 @@ from repro_torch.kernels import binary_matmul as kbmm
 from repro_torch.kernels import bitweaving as kbv
 from repro_torch.kernels import bitwise as kbw
 from repro_torch.kernels import popcount as kpc
-from test_torch_kernels import emulate_packed
+from test_torch_kernels import WIDE_COLUMNS, emulate_packed, wide_program
 
 SMS = 132       # the H100 SXM's streaming multiprocessors, the plans' card
 
@@ -181,6 +181,32 @@ def test_kernel_tail_mask_matches_plain(shape, n_bits):
                                     for a in arrays],
                                    n_bits)
     np.testing.assert_array_equal(got, to_numpy_u32(want))
+
+
+@pytest.mark.parametrize("n", sorted(WIDE_COLUMNS))
+def test_wide_program_through_the_kernel_model(n):
+    """Programs of more loads than the producer warp has lanes, as the
+    kernel runs them: each load's slot of the ring stage at its own
+    shift (loads 32 and up too), masked rows; equal to the reference.
+    The tile is 4 words on 4 warps, one stage at most two blocks an SM."""
+    rng = np.random.default_rng(500 + n)
+    expr, names = wide_program(n, "plan")
+    prog = kbw.lower(expr, names)
+    assert prog.n_loads == n > kbw.WARP_LOADS
+    assert kbw.tile_for(prog) == 0
+    assert 2 * (kbw.shared_bytes(prog, 0, 1) + 1024) <= kbw.SM_SHARED
+    shape, n_bits = (3, 700), 700 * 32 - 45
+    env = {nm: words(rng, shape) for nm in names}
+    arrays = [env[nm] for nm in names]
+    offsets = [4 * (k * 7 % 4) for k in range(n)]
+    got = run_kernel(prog, arrays, offsets=offsets)
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.bitwise_eval(to_ref(expr), env)))
+    masked = run_kernel(prog, arrays, n_bits, offsets=offsets)
+    want = kbw.fused_bitwise_plain(
+        expr, names, [from_numpy_u32(a, device="cpu") for a in arrays],
+        n_bits)
+    np.testing.assert_array_equal(masked, to_numpy_u32(want))
 
 
 def test_divmod_magic_divides_every_index():

@@ -9,7 +9,10 @@ no annotation of the program's spans; and a served TPC-H mix on the
 kernels' plain versions here) records one ``device_store.sync`` a count
 read, one ``scheduler.drain`` a window drain and one
 ``device_store.launch`` a fused launch, with answers and metrics equal
-with host spans on and off.
+with host spans on and off. On ``cuda`` a launch span also names the
+kernel program's instructions and whether its pointers went by value or
+in a device table (a Star Schema Q4.2-shaped plan of 38 operands, single
+and as a 16-query epoch), with the metrics equal to the reference's.
 """
 
 import json
@@ -256,3 +259,57 @@ def _simulated_only():
     tr.span(("scheduler",), "epoch", "sched", 0.0, 10.0)
     tr.instant(("store", "io"), "upload", "store")
     return tr
+
+
+# the four columns of the Star Schema's Q4.2: 38 planes
+SSB_Q42 = (("c_city", 8), ("s_city", 8), ("lo_orderdate", 12),
+           ("p_brand1", 10))
+SSB_Q42_SPECS = [("c_city", 50, 99), ("s_city", 50, 99),
+                 ("lo_orderdate", 1827, 2556), ("p_brand1", 0, 399)]
+
+
+def _wide_session(rt, apps, table):
+    """One Q4.2-shaped plan evaluated once, then 16 tickets of it in one
+    drain (one stacked epoch). Returns (counts, metrics snapshot, the
+    plan's expression and operand names)."""
+    expr, env = apps.predicate_plan(table, SSB_Q42_SPECS, rt)
+    one = rt.eval(expr, env)
+    counts = [rt.popcount(one)]
+    tickets = [rt.submit(expr, env) for _ in range(16)]
+    rt.drain()
+    counts += [rt.popcount(t.result) for t in tickets]
+    return counts, rt.metrics_snapshot(), expr, tuple(sorted(env))
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_wide_launch_spans_name_the_program_and_its_pointer_route(backend):
+    from repro.apps import bitweaving_db as jbw
+    from repro.pim import AmbitRuntime as JRuntime
+    from repro_torch.kernels import bitwise as kbw
+    from repro_torch.kernels import ops as kops
+
+    want = _wide_session(
+        JRuntime(backend={"torch": "jnp", "cuda": "pallas"}[backend]), jbw,
+        jbw.TpchTable.synthesize(n_rows=2000, seed=5, columns=SSB_Q42))
+    table = bw.TpchTable.synthesize(n_rows=2000, seed=5, columns=SSB_Q42,
+                                    device="cpu")
+    tr = Tracer(enabled=False, host_enabled=True)
+    got = _wide_session(AmbitRuntime(backend=backend, device="cpu",
+                                     tracer=tr), bw, table)
+    off = _wide_session(AmbitRuntime(backend=backend, device="cpu"), bw,
+                        table)
+    assert got[:2] == want[:2] == off[:2]
+    assert len(set(got[0])) == 1 and got[0][0] > 0
+    launches = [e.args for e in tr.host_events
+                if e.name == "device_store.launch"]
+    assert [(a["queries"], a["operands"]) for a in launches] == \
+        [(1, 38), (16, 38)]
+    if backend == "torch":              # no kernel program
+        assert not any("instructions" in a or "pointers" in a
+                       for a in launches)
+        return
+    prog = kops._lowered(got[2], got[3])
+    assert prog.n_loads == 38 > kbw.WARP_LOADS
+    assert [(a["instructions"], a["pointers"]) for a in launches] == \
+        [(prog.packed.shape[0], "value"), (prog.packed.shape[0], "table")]
+    assert 16 * 39 > kbw.PARAM_PTRS >= 39
