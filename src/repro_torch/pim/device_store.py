@@ -19,6 +19,16 @@
     and output pointers, one kernel launch per epoch instead of one per
     query, with no stacking copy.
 
+  * early counts - on the "cuda" backend a result the scheduler marks
+    terminal (no ticket of its drain reads it, no ``out=``) has its count
+    issued on the stream right behind its own launch, copied into a slot
+    of a host ring and marked by an event. ``popcount`` then waits for
+    that event alone, not for every launch queued after the query, so
+    the card keeps working while the host answers. Any write to the
+    handle after the count was issued (``out=`` rebind, donation, spill,
+    fault-in, free, a new or in-place written tensor) drops it, and the
+    count is taken as before.
+
 The DRAM-model fields of the ledger (ns / energy / AAPs) stay zero here:
 the accelerator path measures *traffic*.
 """
@@ -26,6 +36,7 @@ the accelerator path measures *traffic*.
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,6 +75,9 @@ class DeviceBitVector:
     # such buffers may be overwritten in place - a put() buffer may be
     # shared with the caller's BitVector, which must never change.
     _private: bool = False
+    # The count issued right behind the launch that wrote _dev, while no
+    # write has followed it (DeviceStore.count_early).
+    _early: Optional["_EarlyCount"] = None
 
     @property
     def device_bytes(self) -> int:
@@ -92,6 +106,70 @@ class DeviceBitVector:
             (" spilled" if self.spilled else "")
         return (f"<DeviceBitVector{nm} n_bits={self.n_bits} "
                 f"bytes={self.device_bytes} dirty={self.dirty}{flags}>")
+
+
+@dataclasses.dataclass(eq=False)
+class _EarlyCount:
+    """A count in flight: its ring slot, and what the handle held when it
+    was issued - the tensor, that tensor's version and the handle's
+    generation. The count is the handle's while all three still hold."""
+
+    slot: int
+    dev: torch.Tensor
+    version: int
+    generation: int
+
+
+class _CountRing:
+    """Host slots that early counts land in: pinned int32 words on the
+    card's side, so the copy into them is asynchronous, each slot with an
+    event of its own, so no event is made a launch. A slot released
+    before its count was read goes back only once its event has
+    completed; the ring grows by ``CHUNK`` slots when none is free."""
+
+    CHUNK = 256
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._words: List[torch.Tensor] = []     # slot -> (1,) int32 view
+        self._host: List[np.ndarray] = []        # slot -> the same word
+        self._events: List[object] = []
+        self._ready: deque = deque()     # read after their event completed
+        self._waiting: deque = deque()   # released unread: may be in flight
+
+    def acquire(self) -> int:
+        if self._ready:
+            return self._ready.popleft()
+        if self._waiting and (not self.cuda
+                              or self._events[self._waiting[0]].query()):
+            return self._waiting.popleft()
+        base = len(self._words)
+        chunk = torch.zeros(self.CHUNK, dtype=torch.int32,
+                            pin_memory=self.cuda)
+        view = chunk.numpy()
+        for k in range(self.CHUNK):
+            self._words.append(chunk[k:k + 1])
+            self._host.append(view[k:k + 1])
+            self._events.append(torch.cuda.Event() if self.cuda else None)
+        self._ready.extend(range(base + 1, base + self.CHUNK))
+        return base
+
+    def issue(self, slot: int, total: torch.Tensor) -> None:
+        """Copy a (1,) int32 device total into ``slot`` behind the work
+        queued on the current stream, and record the slot's event after
+        it (off the card the copy has finished when this returns)."""
+        self._words[slot].copy_(total, non_blocking=True)
+        if self.cuda:
+            self._events[slot].record()
+
+    def read(self, slot: int) -> int:
+        """Wait for the slot's copy alone, then read its total."""
+        if self.cuda:
+            self._events[slot].synchronize()
+        return int(self._host[slot][0])
+
+    def release(self, slot: int, read: bool) -> None:
+        (self._ready if read else self._waiting).append(slot)
 
 
 def _host_copy(data: torch.Tensor) -> torch.Tensor:
@@ -127,6 +205,14 @@ class DeviceStore(LruSpillBase):
         self.host_reads = 0
         self.bytes_to_device = 0
         self.bytes_from_device = 0
+        # Early counts issued behind their launches, and popcount() calls
+        # that read one (hits) or counted the handle then (misses). Plain
+        # attributes, outside the metrics registry, like the kernels'
+        # ``<wrapper>.ring_launches``.
+        self.early_counts = 0
+        self.early_count_hits = 0
+        self.early_count_misses = 0
+        self._ring = _CountRing(self.device)
         self._lru_init()
 
     # -- LruSpillBase hooks ---------------------------------------------------
@@ -141,11 +227,14 @@ class DeviceStore(LruSpillBase):
         if rbv._dev is not None:
             self.resident_bytes -= rbv.device_bytes
         rbv._dev = None
+        self.drop_early(rbv)
 
     def _move_storage(self, out: DeviceBitVector,
                       res: DeviceBitVector) -> None:
         out._dev, res._dev = res._dev, None   # byte count rides along
         out._private = res._private
+        self.drop_early(out)
+        self.drop_early(res)
 
     def _read_back(self, rbv: DeviceBitVector) -> BitVector:
         with self.tracer.host_span("device_store.sync",
@@ -233,6 +322,46 @@ class DeviceStore(LruSpillBase):
 
     # -- device-side reduction -------------------------------------------------
 
+    def count_early(self, rbv: DeviceBitVector) -> None:
+        """Issue ``rbv``'s count now, right behind the launch that wrote
+        it (the popcount kernel, the rows summed on the card, the int32
+        total copied into a ring slot), for a later ``popcount`` to read.
+        No bytes are charged here: the read charges them, as before. A
+        handle whose total could pass int32, or a store on the "torch"
+        backend, is left to ``popcount``."""
+        from ..kernels import ops as kops
+        dev = rbv._dev.reshape(-1, rbv.words32)
+        if self.backend != "cuda" or dev.shape[0] * rbv.n_bits >= 1 << 31:
+            return
+        counts = kops.popcount(dev)
+        total = counts if counts.numel() == 1 else \
+            counts.sum(dtype=torch.int32).reshape(1)
+        slot = self._ring.acquire()
+        self._ring.issue(slot, total)
+        rbv._early = _EarlyCount(slot, rbv._dev, rbv._dev._version,
+                                 self.generation(rbv))
+        self.early_counts += 1
+
+    def drop_early(self, rbv: DeviceBitVector) -> None:
+        """Forget ``rbv``'s early count (a write is about to follow it, or
+        its storage is going); its slot is reused once the copy is done."""
+        early, rbv._early = rbv._early, None
+        if early is not None:
+            self._ring.release(early.slot, read=False)
+
+    def _take_early(self, rbv: DeviceBitVector) -> Optional[_EarlyCount]:
+        """The handle's early count if it still counts what the handle
+        holds: the same tensor, unwritten since, at the same generation."""
+        early = rbv._early
+        if early is None:
+            return None
+        if rbv._dev is early.dev and early.dev._version == early.version \
+                and self.generation(rbv) == early.generation:
+            rbv._early = None
+            return early
+        self.drop_early(rbv)
+        return None
+
     def popcount(self, rbv: DeviceBitVector) -> int:
         """Count set bits WITHOUT reading the bitvector back: the
         reduction runs on the accelerator (the popcount kernel on the
@@ -240,25 +369,40 @@ class DeviceStore(LruSpillBase):
         crosses to the host - 4 ledger bytes instead of the whole array.
         Device tensors are tail-masked by construction, so the
         full-array count is exact. Spilled handles count their current
-        host copy for free. Reading the total is the host span
-        ``device_store.sync`` (site ``popcount``), as every read here
-        that waits for the device is."""
+        host copy for free. A result counted early (``count_early``)
+        waits for its own count's event and reads its slot; any other
+        handle is counted now. Reading the total is the host span
+        ``device_store.sync`` (site ``popcount``, ``early`` whether the
+        early count served it), as every read here that waits for the
+        device is."""
         self._check_handle(rbv)
         if rbv.spilled:
+            self.early_count_misses += 1
             return int(rbv._host.popcount().sum())
         self._touch(rbv)
-        dev = rbv._dev.reshape(-1, rbv.words32)
-        if self.backend == "cuda":
-            from ..kernels import ops as kops
-            counts = kops.popcount(dev)
-            # one row (every 1-D handle): read its count, no sum launch
-            with self.tracer.host_span("device_store.sync", site="popcount"):
-                total = int(counts[0] if counts.numel() == 1
-                            else counts.sum())
+        early = self._take_early(rbv)
+        if early is not None:
+            with self.tracer.host_span("device_store.sync", site="popcount",
+                                       early=True):
+                total = self._ring.read(early.slot)
+            self._ring.release(early.slot, read=True)
+            self.early_count_hits += 1
         else:
-            counts = BitVector(dev, rbv.n_bits).popcount()
-            with self.tracer.host_span("device_store.sync", site="popcount"):
-                total = int(counts.sum())
+            dev = rbv._dev.reshape(-1, rbv.words32)
+            if self.backend == "cuda":
+                from ..kernels import ops as kops
+                counts = kops.popcount(dev)
+                # one row (every 1-D handle): read its count, no sum launch
+                with self.tracer.host_span("device_store.sync",
+                                           site="popcount", early=False):
+                    total = int(counts[0] if counts.numel() == 1
+                                else counts.sum())
+            else:
+                counts = BitVector(dev, rbv.n_bits).popcount()
+                with self.tracer.host_span("device_store.sync",
+                                           site="popcount", early=False):
+                    total = int(counts.sum())
+            self.early_count_misses += 1
         self._charge_io("from_device", "popcount", 4)   # one int32 scalar
         return total
 
@@ -340,13 +484,14 @@ class DevicePlanner:
     def execute(self, expression: E.Expr,
                 env: Dict[str, DeviceBitVector],
                 out_name: Optional[str] = None,
-                donate_to: Optional[DeviceBitVector] = None
-                ) -> DeviceBitVector:
+                donate_to: Optional[DeviceBitVector] = None,
+                count: bool = False) -> DeviceBitVector:
         """One fused launch over resident operands; the result stays
         resident (dirty). ``donate_to`` - the handle an ``out=`` rebind
         will overwrite - receives the result in place in its own tensor
         when that tensor is store-private and the handle is exactly one
-        of the operands."""
+        of the operands. ``count`` issues the result's count right behind
+        the launch on "cuda" (``DeviceStore.count_early``)."""
         names, first = self._validate(env)
         donate_idx = None
         if donate_to is not None and donate_to._private:
@@ -356,6 +501,7 @@ class DevicePlanner:
                        if env[nm] is donate_to]
             if len(matches) == 1:
                 donate_idx = matches[0]
+                self.store.drop_early(donate_to)    # written in place
         with self.store.tracer.host_span("device_store.launch", queries=1,
                                          operands=len(names)) as span:
             fn = _device_compiled(expression, tuple(names), self.backend,
@@ -378,6 +524,8 @@ class DevicePlanner:
             words32=first.words32, _dev=out_dev, dirty=True, name=out_name,
             _private=True)
         self.store.adopt(res)
+        if count:
+            self.store.count_early(res)
         self.last_report = DeviceReport(
             queries=1, kernel_launches=1,
             donated=0 if donate_idx is None else 1, stats=OpStats())
@@ -406,17 +554,20 @@ class DevicePlanner:
                                          "backend": self.backend,
                                          "donated": donated})
 
-    def execute_epoch(self, jobs: Sequence[tuple]) -> List[DeviceBitVector]:
+    def execute_epoch(self, jobs: Sequence[tuple],
+                      count: Sequence[bool] = ()) -> List[DeviceBitVector]:
         """Run one scheduler epoch - ``(expression, env, out_name,
         out_handle)`` jobs sharing a stack key - as ONE kernel launch.
         Singleton epochs take the single-query path so ``out=`` chains
-        keep their in-place write."""
+        keep their in-place write. ``count[k]`` issues job k's count
+        behind the launch, as ``execute``'s ``count`` does."""
+        count = list(count) or [False] * len(jobs)
         if len(jobs) == 1:
             expression, env, out_name, out = jobs[0]
             donate = out if out is not None and \
                 any(v is out for v in env.values()) else None
             res = self.execute(expression, env, out_name=out_name,
-                               donate_to=donate)
+                               donate_to=donate, count=count[0])
             return [res]
         expression, env0, _, _ = jobs[0]
         names, first = self._validate(env0)
@@ -440,12 +591,14 @@ class DevicePlanner:
             from ..kernels import ops as kops
             kops._count_dispatch()
         results = []
-        for (_, _, out_name, _), out_dev in zip(jobs, outs):
+        for (_, _, out_name, _), out_dev, early in zip(jobs, outs, count):
             res = DeviceBitVector(
                 store=self.store, n_bits=first.n_bits, shape=first.shape,
                 words32=first.words32, _dev=out_dev, dirty=True,
                 name=out_name, _private=True)
             self.store.adopt(res)
+            if early:
+                self.store.count_early(res)
             results.append(res)
         self.last_report = DeviceReport(queries=len(jobs),
                                         kernel_launches=1, stats=OpStats())

@@ -739,7 +739,10 @@ class AsyncScheduler:
                        consumers: Dict[int, int]) -> None:
         """Dispatch one epoch through the planner's batched entry point
         (one fused stacked kernel launch). Fault-ins of each ticket's
-        spilled operands are measured per ticket before the dispatch."""
+        spilled operands are measured per ticket before the dispatch.
+        A terminal ticket - one no ticket of the drain reads, with no
+        ``out=`` - has its result counted right behind the launch, so a
+        later count waits for that launch alone."""
         store = self.store
         jobs = []
         epoch_operands: List[object] = []   # every operand must survive
@@ -754,7 +757,9 @@ class AsyncScheduler:
                 bytes_touched=(store.bytes_to_device - up0)
                 + (store.bytes_from_device - rd0))
             jobs.append((t.expression, env, t.out_name, t.out))
-        results = self.planner.execute_epoch(jobs)
+        terminal = [t.out is None and not consumers.get(id(t), 0)
+                    for t in group]
+        results = self.planner.execute_epoch(jobs, count=terminal)
         for t, res in zip(group, results):
             t.result = self.store.rebind(t.out, res) if t.out is not None \
                 else res

@@ -705,6 +705,61 @@ def test_optimized_drain_on_cuda_launches_the_stacked_kernel(cuda):
     assert after[0] > before[0] and after[1] > before[1]
 
 
+def test_served_count_waits_for_its_own_launch_on_card(cuda):
+    """Two drains of long scans queued back to back: the first drain's
+    first result is counted behind its own launch, so its ``popcount``
+    returns while the stream still runs the rest, and the count is
+    exact. One ``popcount_rows`` launch a terminal result, none at the
+    read."""
+    rng = np.random.default_rng(71)
+    words_ = (1 << 24) + 37                 # 64 MB a plane
+    rt = AmbitRuntime(backend="cuda", device=cuda)
+    planes = [rt.put(BitVector(words(rng, (words_,), cuda), words_ * 32))
+              for _ in range(8)]
+    env = {f"x{i}": h for i, h in enumerate(planes)}
+    first = [rt.submit(scan_expr(8, 3 + k, 200 + k, prefix="x"), env)
+             for k in range(8)]
+    launches = kpc.popcount_rows.launches
+    rt.drain()
+    second = [rt.submit(scan_expr(8, 37, 250, prefix="x"), env)
+              for _ in range(16)]
+    rt.drain()
+    assert kpc.popcount_rows.launches - launches == 24
+    assert rt.store.early_counts == 24
+    got = rt.popcount(first[0].result)
+    busy = not torch.cuda.current_stream().query()
+    assert kpc.popcount_rows.launches - launches == 24
+    assert busy
+    torch.cuda.synchronize()
+    assert got == int(rt.get(first[0].result).popcount().sum())
+    for t in first[1:] + second:
+        assert rt.popcount(t.result) == \
+            int(rt.get(t.result).popcount().sum())
+    assert (rt.store.early_count_hits, rt.store.early_count_misses) == \
+        (24, 0)
+
+
+@pytest.mark.parametrize("shape", [(1, 7), (1, 524289), (3, 1000)])
+def test_stacked_epoch_results_read_their_own_counts_on_card(cuda, shape):
+    """Each result of a stacked epoch - one row, a long row, a handle of
+    three rows summed on the card - reads its own count, in any order."""
+    rng = np.random.default_rng(72)
+    n_bits = shape[-1] * 32 - 5
+    rt = AmbitRuntime(backend="cuda", device=cuda)
+    bits = rng.integers(0, 2, (12, 2) + shape[:-1] + (n_bits,)).astype(bool)
+    tickets = [rt.submit(X & ~Y, {
+        "x": rt.put(BitVector.from_bits(a, device=cuda)),
+        "y": rt.put(BitVector.from_bits(b, device=cuda))})
+        for a, b in bits]
+    stacked = kbw.fused_bitwise_stacked.launches
+    rt.drain()
+    assert kbw.fused_bitwise_stacked.launches == stacked + 1
+    order = rng.permutation(len(tickets))
+    got = {int(k): rt.popcount(tickets[k].result) for k in order}
+    assert got == {k: int((a & ~b).sum()) for k, (a, b) in enumerate(bits)}
+    assert rt.store.early_count_hits == len(tickets)
+
+
 def test_host_fallback_launches_fused_bitwise(cuda):
     """After a device loss the frontend serves both queries from host
     copies through ``BulkBitwiseEngine("cuda")`` on the card."""

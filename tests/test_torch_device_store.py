@@ -315,3 +315,198 @@ def test_optimizer_drain_is_not_ported(backend):
                 dataclasses.astuple(jrt.last_drain.opt)
     for a, b in zip(out[False], out[True]):
         np.testing.assert_array_equal(a, b)
+
+
+# -- early counts: a terminal result counted right behind its launch ----------
+
+
+def cpu_cuda_runtime(**kw):
+    """The "cuda" backend's CPU branch: the kernels' plain versions, the
+    early counts' bookkeeping with no event."""
+    return AmbitRuntime(backend="cuda", device="cpu", **kw)
+
+
+def early_session(rt, BV, Ex, bits):
+    """On either package: a stacked epoch of three terminal tickets, a
+    ticket read by another, an ``out=`` ticket and an eval result, every
+    result counted; returns the counts, the bytes and the metrics."""
+    X, Y = Ex.Expr.var("x"), Ex.Expr.var("y")
+    hs = [rt.put(BV.from_bits(b)) for b in bits]
+    dest = rt.and_(hs[0], hs[1])
+    stacked = [rt.submit(X & Y, {"x": hs[k], "y": hs[k + 1]})
+               for k in range(3)]
+    inner = rt.submit(X ^ Y, {"x": hs[0], "y": hs[4]})
+    outer = rt.submit(X | Y, {"x": inner, "y": hs[5]})
+    into = rt.submit(X ^ Y, {"x": hs[2], "y": hs[5]}, out=dest)
+    rt.drain()
+    one = rt.eval(~(X & Y), {"x": hs[3], "y": hs[5]})
+    counts = []
+    for h in [t.result for t in stacked + [inner, outer, into]] + [one]:
+        counts.append((rt.popcount(h), rt.last_stats.bytes_touched))
+    return (counts, rt.store.bytes_from_device, rt.store.host_reads,
+            rt.metrics_snapshot())
+
+
+def test_terminal_results_are_counted_early_and_read_like_reference():
+    """Terminal tickets of a drain, stacked or not, get an early count;
+    a ticket another reads, an ``out=`` ticket and an eval result do
+    not. Counts, the 4 bytes a count and the metrics snapshot equal the
+    reference's; the counts equal the "torch" backend's."""
+    rng = np.random.default_rng(61)
+    bits = rng.integers(0, 2, (6, 777)).astype(bool)
+    want = early_session(JRuntime(backend="pallas"), JBitVector, JE, bits)
+    rt = cpu_cuda_runtime()
+    X, Y = E.Expr.var("x"), E.Expr.var("y")
+    hs = [rt.put(CpuBitVector.from_bits(b)) for b in bits]
+    stacked = [rt.submit(X & Y, {"x": hs[k], "y": hs[k + 1]})
+               for k in range(3)]
+    inner = rt.submit(X ^ Y, {"x": hs[0], "y": hs[4]})
+    outer = rt.submit(X | Y, {"x": inner, "y": hs[5]})
+    into = rt.submit(X ^ Y, {"x": hs[2], "y": hs[5]}, out=hs[1])
+    rt.drain()
+    assert len({t.epoch for t in stacked}) == 1
+    assert [t.result._early is not None
+            for t in stacked + [inner, outer, into]] == \
+        [True, True, True, False, True, False]
+    assert rt.store.early_counts == 4
+    assert rt.eval(X & Y, {"x": hs[0], "y": hs[3]})._early is None
+    got = early_session(cpu_cuda_runtime(), CpuBitVector, E, bits)
+    plain = early_session(AmbitRuntime(backend="torch", device="cpu"),
+                          CpuBitVector, E, bits)
+    assert got == want
+    assert got[0] == plain[0]
+    assert [b for _, b in got[0]] == [4] * 7
+
+
+def test_stacked_epoch_results_read_their_own_counts():
+    rng = np.random.default_rng(62)
+    bits = rng.integers(0, 2, (9, 2, 1500)).astype(bool)
+    rt = cpu_cuda_runtime()
+    X, Y = E.Expr.var("x"), E.Expr.var("y")
+    tickets = [rt.submit(X & ~Y, {"x": rt.put(CpuBitVector.from_bits(a)),
+                                  "y": rt.put(CpuBitVector.from_bits(b))})
+               for a, b in bits]
+    rt.drain()
+    assert rt.planner.kernel_launches == 1
+    assert rt.store.early_counts == 9
+    got = [rt.popcount(t.result) for t in reversed(tickets)]
+    assert got == [int((a & ~b).sum()) for a, b in bits[::-1]]
+    assert (rt.store.early_count_hits, rt.store.early_count_misses) == (9, 0)
+
+
+def _copy_in_place(rt, h, other):
+    h._dev.copy_(other._dev)
+
+
+def _new_tensor(rt, h, other):
+    h._dev = other._dev.clone()
+
+
+def _donation(rt, h, other):
+    X, Y = E.Expr.var("x"), E.Expr.var("y")
+    rt.eval(X & Y, {"x": h, "y": other}, out=h)
+    assert rt.planner.last_report.donated == 1
+
+
+def _rebind(rt, h, other):
+    X, Y = E.Expr.var("x"), E.Expr.var("y")
+    rt.eval(X | Y, {"x": other, "y": other}, out=h)
+    assert rt.planner.last_report.donated == 0
+
+
+def _generation(rt, h, other):
+    rt.store._invalidate(h)
+
+
+def _spill(rt, h, other):
+    rt.store.spill(h)
+
+
+def _fault_in(rt, h, other):
+    rt.store.spill(h)
+    rt.store.ensure_resident(h)
+
+
+@pytest.mark.parametrize("write", [_copy_in_place, _new_tensor, _donation,
+                                   _rebind, _generation, _spill, _fault_in],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_a_write_after_the_early_count_drops_it(write):
+    """Each write to a handle after its count was issued leaves
+    ``popcount`` to count what the handle holds now."""
+    rng = np.random.default_rng(63)
+    bits = rng.integers(0, 2, (3, 2000)).astype(bool)
+    rt = cpu_cuda_runtime()
+    X, Y = E.Expr.var("x"), E.Expr.var("y")
+    a, b, c = (rt.put(CpuBitVector.from_bits(v)) for v in bits)
+    t = rt.submit(X & Y, {"x": a, "y": b})
+    rt.drain()
+    h = t.result
+    assert h._early is not None
+    rt.store._ring._host[h._early.slot][0] = -1     # were it read: -1
+    other = rt.xor(a, c)
+    write(rt, h, other)
+    before = rt.store.bytes_from_device
+    got = rt.popcount(h)
+    assert rt.store.bytes_from_device - before == (0 if h.spilled else 4)
+    assert got == int(rt.get(h).popcount().sum())
+    assert (rt.store.early_count_hits, rt.store.early_count_misses) == (0, 1)
+    assert h._early is None
+
+
+def test_free_before_popcount_releases_the_slot():
+    """A result freed unread gives its slot back; the ring takes it again
+    (off the card its copy is done) and does not grow."""
+    rng = np.random.default_rng(64)
+    bits = rng.integers(0, 2, (2, 640)).astype(bool)
+    rt = cpu_cuda_runtime()
+    X, Y = E.Expr.var("x"), E.Expr.var("y")
+    a, b = (rt.put(CpuBitVector.from_bits(v)) for v in bits)
+    ring = rt.store._ring
+    slots = set()
+    for _ in range(3 * ring.CHUNK):
+        t = rt.submit(X & Y, {"x": a, "y": b})
+        rt.drain()
+        slots.add(t.result._early.slot)
+        rt.free(t.result)
+        assert t.result._early is None
+    assert len(ring._words) == ring.CHUNK and len(slots) <= ring.CHUNK
+    assert rt.store.early_counts == 3 * ring.CHUNK
+    t = rt.submit(X & Y, {"x": a, "y": b})
+    rt.drain()
+    assert rt.popcount(t.result) == int((bits[0] & bits[1]).sum())
+    assert rt.store.early_count_hits == 1
+    assert rt.store.bytes_from_device == 4
+
+
+def test_served_mix_reads_every_count_early():
+    """A TPC-H mix through a frontend, every count read and freed as the
+    benchmark's loop does: each count is an early one, the answers and
+    metrics equal the "torch" backend's."""
+    from repro_torch.serve import QueryFrontend
+
+    seen = []
+    for backend in ("cuda", "torch"):
+        rt = AmbitRuntime(backend=backend, device="cpu")
+        table = bw.TpchTable.synthesize(n_rows=3001, seed=5, device="cpu")
+        fe = QueryFrontend(rt, window_ns=20_000.0, max_batch=8)
+        answers = {}
+        for k, (tenant, specs) in enumerate(
+                bw.zipf_tenant_queries(table, 16, 40, seed=5)):
+            expr, env = bw.predicate_plan(table, specs, rt)
+            fe.submit(f"t{tenant}", expr, env, arrival_ns=1_000.0 * k)
+            if k % 5 == 4:
+                fe.flush()
+            for q in fe.take_completed():
+                answers[q.seq] = rt.popcount(q.result)
+                rt.free(q.result)
+        fe.flush()
+        for q in fe.take_completed():
+            answers[q.seq] = rt.popcount(q.result)
+            rt.free(q.result)
+        st = rt.store
+        seen.append((answers, rt.metrics_snapshot(), st.early_counts,
+                     st.early_count_hits, st.early_count_misses))
+    assert len(seen[0][0]) == 40
+    assert seen[0][:2] == seen[1][:2]
+    assert seen[0][2:] == (40, 40, 0)
+    assert seen[1][2:] == (0, 0, 40)
