@@ -29,13 +29,18 @@ None``), for the metrics ``BENCHMARK.json`` gives the cell; a metric
 whose name adds a suffix to another's (``<name>.open``) and has no file
 of its own is read by the shorter name's reader. A traced run
 (``--trace 1``) reads the per-layer metrics over a window of at most
-``TRACE_SECONDS``, under ``torch.profiler``.
+``TRACE_SECONDS``, under ``torch.profiler``, with the program's own host
+spans on (``repro_torch.obs.Tracer.host_span``): each layer's host time
+is read from inside the program, and the card's idle time is split by
+the span open at each idle instant (``idlesplit``). An untraced run
+records no host span.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import importlib
 import importlib.util
@@ -43,14 +48,14 @@ import json
 import subprocess
 import sys
 import time
-from collections import defaultdict, deque
+from collections import deque
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from . import devtrace, stats, traffic
+from . import devtrace, idlesplit, stats, traffic
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -58,6 +63,8 @@ ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "benchmarks", "tools")
 LATE_WAIT_S = 60.0      # how long past the window a due answer is awaited
 ANSWER_BYTES = 4        # one count crosses back a query
+APP_PLAN = "app.plan"   # the one call of the loop the program has no span for
+ANSWER = "runtime.popcount"     # the program's span of one answer's count
 # a traced run's window: long enough for every per-layer ratio, short
 # enough that reading the trace stays well inside the run's time limit
 TRACE_SECONDS = 10.0
@@ -155,13 +162,18 @@ def _wall_clock_cost(erep, tickets) -> float:
 
 class System:
     """The port: one ``AmbitRuntime(backend="cuda")`` holding the
-    deployment's data, and frontends over it at the config's settings."""
+    deployment's data, and frontends over it at the config's settings.
+    The runtime's ``tracer`` records no simulated span; its host spans
+    are off until a traced run turns them on for the window."""
 
     def __init__(self, cfg: dict, seed: int, device):
+        from repro_torch.obs import Tracer
         from repro_torch.pim import AmbitRuntime
 
         self.cfg = cfg
-        self.rt = AmbitRuntime(backend="cuda", device=device)
+        self.tracer = Tracer(enabled=False)
+        self.rt = AmbitRuntime(backend="cuda", device=device,
+                               tracer=self.tracer)
         kind = importlib.import_module(f"bench.deploy.{cfg['kind']}")
         self.deploy = kind.Deployment(cfg, seed, self.rt)
 
@@ -218,44 +230,7 @@ def warm(system: System, mix: traffic.Mix, seed: int) -> int:
     return len(specs)
 
 
-# -- spans and the roofline's bytes --------------------------------------------
-
-
-class Spans:
-    """Time spent inside each call into a layer, kept by name, and a
-    ``record_function`` annotation of the same name for the trace. Off
-    (a plain call) in untraced runs."""
-
-    def __init__(self, on: bool):
-        self.on = on
-        self.ns: Dict[str, int] = defaultdict(int)
-
-    def call(self, name: str, fn, *args, **kwargs):
-        if not self.on:
-            return fn(*args, **kwargs)
-        t = now_ns()
-        with torch.profiler.record_function(name):
-            out = fn(*args, **kwargs)
-        self.ns[name] += now_ns() - t
-        return out
-
-
-class _SpannedRuntime:
-    """The runtime as a traced run's frontend sees it: its ``drain`` (the
-    scheduler's epochs, the device store and the launches), which the
-    frontend's calls run inside them, is the span ``scheduler.drain``, so
-    the frontend's own time is its spans less this one. Every other
-    attribute is the runtime's own."""
-
-    def __init__(self, rt, spans: Spans):
-        self._rt, self._spans = rt, spans
-
-    def drain(self, *args, **kwargs):
-        return self._spans.call("scheduler.drain", self._rt.drain, *args,
-                                **kwargs)
-
-    def __getattr__(self, name):
-        return getattr(self._rt, name)
+# -- the roofline's bytes ------------------------------------------------------
 
 
 class Meter:
@@ -323,36 +298,37 @@ class Records:
 
 class _Loop:
     """What the closed and open loops share: the frontend, the records by
-    the frontend's sequence number, and the answer path."""
+    the frontend's sequence number, and the answer path. The program
+    times its own calls (its host spans); in a traced run the benchmark
+    annotates only what the program has no span for, the app's plan
+    (``APP_PLAN``), so that the trace can name idle time under it."""
 
-    def __init__(self, system: System, spans: Spans, meter: Meter,
-                 wall_clock: bool):
+    def __init__(self, system: System, meter: Meter, wall_clock: bool,
+                 traced: bool = False):
         self.system = system
         self.rt = system.rt
         self.fe = system.frontend(wall_clock)
-        if spans.on:
-            self.fe.runtime = _SpannedRuntime(self.rt, spans)
-        self.spans, self.meter = spans, meter
+        self.meter = meter
+        self.plan_annotation = (
+            functools.partial(torch.profiler.record_function, APP_PLAN)
+            if traced else contextlib.nullcontext)
         self.recs = Records()
         self.pending: deque = deque()
         self.lateness_ns: List[int] = []
 
     def submit(self, tenant: str, spec: tuple, due: int,
                arrival_ns: Optional[float] = None) -> None:
-        expr, env = self.spans.call("app.plan", self.system.deploy.plan,
-                                    spec)
+        with self.plan_annotation():
+            expr, env = self.system.deploy.plan(spec)
         if arrival_ns is None:
-            q = self.spans.call("frontend.submit", self.fe.submit, tenant,
-                                expr, env)
+            q = self.fe.submit(tenant, expr, env)
         else:
-            q = self.spans.call("frontend.submit", self.fe.submit, tenant,
-                                expr, env, arrival_ns)
+            q = self.fe.submit(tenant, expr, env, arrival_ns)
         self.recs.add(q.seq, spec, tenant, due)
         self.collect()
 
     def collect(self) -> None:
-        done = self.spans.call("frontend.take_completed",
-                               self.fe.take_completed)
+        done = self.fe.take_completed()
         if done:
             recs = self.recs
             self.meter.add([recs.specs[recs.spec[d.seq]] for d in done])
@@ -361,9 +337,8 @@ class _Loop:
     def answer(self, q) -> None:
         """Read a completed query's count (an error result has none)."""
         if q.error is None and q.result is not None:
-            self.recs.count[q.seq] = self.spans.call(
-                "runtime.popcount", self.rt.popcount, q.result)
-            self.spans.call("runtime.free", self.rt.free, q.result)
+            self.recs.count[q.seq] = self.rt.popcount(q.result)
+            self.rt.free(q.result)
         self.recs.answered[q.seq] = now_ns()
 
 
@@ -373,8 +348,8 @@ class ClosedLoop(_Loop):
     from one stream of the seed in submit order. The frontend keeps its
     own clock, so its window drains when ``max_batch`` are admitted."""
 
-    def __init__(self, system, mix, seed, spans, meter):
-        super().__init__(system, spans, meter, wall_clock=False)
+    def __init__(self, system, mix, seed, meter, traced=False):
+        super().__init__(system, meter, wall_clock=False, traced=traced)
         self.stream = mix.queries(seed)
         self.clients = int(mix.load["clients"])
 
@@ -385,7 +360,7 @@ class ClosedLoop(_Loop):
             self.submit(f"t{c}", next(self.stream), now_ns())
         while now_ns() < self.end:
             if not self.pending:        # a window that cannot fill
-                self.spans.call("frontend.flush", self.fe.flush)
+                self.fe.flush()
                 self.collect()
                 if not self.pending:
                     break
@@ -416,9 +391,9 @@ class OpenLoop(_Loop):
     runs from its due time to its count on the host, and every query due
     in the window is awaited (up to ``LATE_WAIT_S`` past it)."""
 
-    def __init__(self, system, mix, seed, spans, meter, seconds,
-                 rate_qps=None):
-        super().__init__(system, spans, meter, wall_clock=True)
+    def __init__(self, system, mix, seed, meter, seconds, rate_qps=None,
+                 traced=False):
+        super().__init__(system, meter, wall_clock=True, traced=traced)
         self.times, self.tenants = mix.arrivals(seed, seconds, rate_qps)
         self.specs = mix.first(seed, len(self.times))
         self.backlog_at: List[tuple] = []
@@ -450,7 +425,7 @@ class OpenLoop(_Loop):
             t = now_ns() - t0
             if t >= self._deadline() or (i == n and not self.fe.window
                                          and self.fe.backlog):
-                self.spans.call("frontend.tick", self.fe.tick, float(t))
+                self.fe.tick(float(t))
                 self.collect()
             while self.pending:
                 self.answer(self.pending.popleft())
@@ -492,14 +467,40 @@ class RunView:
     latencies_ms: List[float]
     answered: int               # answered inside the window (closed) /
                                 # of the queries due in it (open)
-    spans_s: Dict[str, float]
     counters: Dict[str, float]  # window deltas of the program's counters
     trace: Optional[dict]       # devtrace.summarize, traced runs on a card
     roofline_bytes: int
     hbm_bytes_per_s: float
+    # the program's host spans over a traced window, by name
+    # (``Tracer.host_summary``: count, total_s, self_s); empty untraced
+    host: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
+    # ``idlesplit.program_split`` of the traced window (idle seconds by
+    # the innermost open span, ``idle_in_sync``, ``idle_in_program``);
+    # None without a card's trace
+    idle_split: Optional[dict] = None
 
-    def span_s(self, prefix: str) -> float:
-        return sum(v for k, v in self.spans_s.items() if k.startswith(prefix))
+    def host_s(self, name: str, key: str = "total_s") -> float:
+        """``key`` of the program's spans named ``name`` in the window."""
+        return self.host.get(name, {}).get(key, 0.0)
+
+    @property
+    def syncs(self) -> int:
+        """``device_store.sync`` spans in the window: the host's blocking
+        reads of the card."""
+        return int(self.host_s(idlesplit.SYNC, "count"))
+
+    @property
+    def host_answers(self) -> int:
+        """Answers the program's spans saw: one ``runtime.popcount`` span
+        an answer."""
+        return int(self.host_s(ANSWER, "count"))
+
+    def ms_per_answer(self, seconds: float) -> Optional[float]:
+        """``seconds`` of host time as ms a query answered in the window
+        (None where the window's spans saw no answer)."""
+        n = self.host_answers
+        return seconds * 1e3 / n if n else None
 
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -523,6 +524,15 @@ def forbidden_modules(modules=None) -> List[str]:
     return sorted({m.split(".")[0] for m in names} & set(FORBIDDEN))
 
 
+def breakdown(summary: dict, split: dict) -> dict:
+    """A traced run's ``breakdown``: the 10 device ops that took most time
+    (``devtrace.summarize``), and the 10 names under which the card idled
+    longest, each idle instant named by the innermost span open at it
+    (``idlesplit.split``)."""
+    return {"device_ops": summary["device_ops"],
+            "idle_gaps": devtrace.top(split["idle_s"])}
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              device="cuda", t_start: Optional[float] = None,
              control: bool = False, rate_qps: Optional[float] = None
@@ -544,11 +554,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     t = time.perf_counter()
     n_specs = warm(system, mix, seed)
     log(f"[bench] warmed {n_specs} specs in {time.perf_counter() - t:.3f} s")
-    spans, meter = Spans(trace), Meter(cell.config, trace and on_card)
+    meter = Meter(cell.config, trace and on_card)
     if mix.loop == "closed":
-        loop = ClosedLoop(system, mix, seed, spans, meter)
+        loop = ClosedLoop(system, mix, seed, meter, traced=trace)
     else:
-        loop = OpenLoop(system, mix, seed, spans, meter, seconds, rate_qps)
+        loop = OpenLoop(system, mix, seed, meter, seconds, rate_qps,
+                        traced=trace)
     before = system.counters()
     # what set-up made lives as long as the process: a full collection in
     # the window walks only what the window makes
@@ -563,26 +574,35 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
         prof.__enter__()
+    brackets = []       # the anchors' host times at the window's two ends
     try:
         with torch.profiler.record_function(devtrace.WINDOW) if prof \
                 else contextlib.nullcontext():
-            loop.run(seconds)
             if prof is not None:
+                brackets.append(idlesplit.anchor())
+            system.tracer.host_enabled = trace
+            loop.run(seconds)
+            system.tracer.host_enabled = False
+            if prof is not None:
+                brackets.append(idlesplit.anchor())
                 _sync(device)
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
-    spans.on = meter.on = False
+    meter.on = False
     counters = {k: v - before[k] for k, v in system.counters().items()}
+    host = system.tracer.host_summary()
     loop.finish()
     _sync(device)
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-    summary = None
+    summary = split = None
     if prof is not None:
         t = time.perf_counter()
         events = devtrace.read_trace(prof)
         t0_us, t1_us = devtrace.window_bounds(events)
         summary = devtrace.summarize(events, t0_us, t1_us)
+        split = idlesplit.program_split(events, t0_us, t1_us,
+                                        system.tracer.host_events, brackets)
         log(f"[bench] read {len(events)} trace events in "
             f"{time.perf_counter() - t:.3f} s")
         del events
@@ -613,10 +633,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
     view = RunView(
         loop=mix.loop, seconds=float(seconds), setup_s=setup_s,
-        latencies_ms=lat, answered=len(lat),
-        spans_s={k: v * 1e-9 for k, v in spans.ns.items()},
-        counters=counters, trace=summary, roofline_bytes=meter.bytes,
-        hbm_bytes_per_s=HBM_BYTES_PER_S)
+        latencies_ms=lat, answered=len(lat), counters=counters,
+        trace=summary, roofline_bytes=meter.bytes,
+        hbm_bytes_per_s=HBM_BYTES_PER_S, host=host, idle_split=split)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = reader(m["name"], cell.root)(view)
@@ -636,11 +655,23 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
             f"{max(late_ms)} ms over {len(late_ms)} arrivals")
     log(f"[bench] window: {len(lat)} answered in it, {len(recs)} "
         f"submitted, counters {json.dumps(counters)}")
+    for name, s in sorted(host.items()):
+        log(f"[bench] host span {name}: {s['count']} spans, total "
+            f"{s['total_s']} s, self {s['self_s']} s")
     if summary is not None:
         log(f"[bench] trace: busy {summary['busy_s']} s of "
             f"{summary['window_s']} s, kernels {summary['kernel_s']} s, "
             f"roofline bytes {meter.bytes} at {HBM_BYTES_PER_S} B/s; card "
             f"and power limit: {power_limit()}")
+        log(f"[bench] idle split: {sum(split['idle_s'].values())} s over "
+            f"all names, window less busy "
+            f"{summary['window_s'] - summary['busy_s']} s; clock map within "
+            f"{split['clock_err_us']} us; idle in sync "
+            f"{split['idle_in_sync']} %, in the program's other spans "
+            f"{split['idle_in_program']} %; by name "
+            f"{json.dumps(devtrace.top(split['idle_s'], None))}")
+        log(f"[bench] kernel seconds by issuer (issuer, operands, kernel, "
+            f"s, launches): {json.dumps(split['kernels'][:10])}")
     for k, v in metrics.items():
         log(f"[bench] metric {k} = {v['value']} {v['unit']}")
     checks = {"wrong_answers": {"value": wrong, "limit": 0},
@@ -649,8 +680,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
               "attempted": len(recs), "failed": unanswered,
               "metrics": metrics, "device": dev}
     if summary is not None:
-        result["breakdown"] = {"device_ops": summary["device_ops"],
-                               "idle_gaps": summary["idle_gaps"]}
+        result["breakdown"] = breakdown(summary, split)
     result["checks"] = checks
     return result
 

@@ -1,14 +1,15 @@
 """Split a traced window's device idle time by what the host was doing,
 and its kernel time by the call that issued each kernel.
 
-``devtrace.summarize`` names a whole idle gap by the span open at the
-gap's start. Here every instant of the window in which no kernel, copy or
-memset runs goes to the innermost of the program's host spans
+Every instant of the window in which no kernel, copy or memset runs goes
+to the innermost of the program's host spans
 (``repro_torch.obs.Tracer.host_span``) open at that instant, or where
 none is open to the innermost of the benchmark's own ``user_annotation``s
 on the window's thread, named ``bench:<name>``. A gap that begins in
 ``device_store.sync`` and goes on into the call after it is split between
-the two by overlap. Instants under neither go to ``bench``.
+the two by overlap, not named whole by where it began. Instants under
+neither go to ``bench``: the benchmark's loop, such as an open loop's
+wait for its next arrival.
 
 The program's spans are timed on ``perf_counter_ns`` and open no
 annotation, so the profiler's own cost stays out of them; they are put
@@ -24,6 +25,7 @@ operand count).
 from __future__ import annotations
 
 import bisect
+import time
 from collections import defaultdict
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -34,6 +36,7 @@ BENCH = "bench:"             # the benchmark's annotations, by name
 LAUNCH = "device_store.launch"
 SYNC = "device_store.sync"
 ANCHOR = "host.anchor"       # an annotation whose host time was read
+ANCHORS = 16                 # anchors at each end of the window
 
 #: ``(start_us, end_us, name, key)``: a program span on the trace's clock
 Span = Tuple[float, float, str, object]
@@ -51,6 +54,20 @@ def _annotations(events: List[dict]) -> List[Tuple[float, float, str]]:
             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
             and e.get("name") not in (WINDOW, ANCHOR)
             and (e.get("pid"), e.get("tid")) == thread]
+
+
+def anchor() -> List[Tuple[int, int]]:
+    """``ANCHORS`` ``ANCHOR`` annotations, each with the host's clock
+    (``perf_counter_ns``) read just before and just after it opened: one
+    group of ``host_to_trace``'s brackets."""
+    import torch
+
+    out = []
+    for _ in range(ANCHORS):
+        before = time.perf_counter_ns()
+        with torch.profiler.record_function(ANCHOR):
+            out.append((before, time.perf_counter_ns()))
+    return out
 
 
 def host_to_trace(events: List[dict],
@@ -203,6 +220,21 @@ def _complement(busy: List[List[float]], t0: float, t1: float
                 ) -> List[Tuple[float, float]]:
     edges = [t0] + [x for iv in busy for x in iv] + [t1]
     return [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+
+
+def program_split(events: List[dict], t0_us: float, t1_us: float,
+                  host_events, brackets) -> dict:
+    """``split`` of [t0, t1] with the program's host spans
+    (``Tracer.host_events``) put on the trace's clock by ``brackets`` (two
+    ``anchor`` groups), the map's uncertainty ``clock_err_us``, and
+    ``shares``."""
+    to_us, err = host_to_trace(events, brackets)
+    program = [(to_us(e.ts_ns), to_us(e.ts_ns + e.dur_ns), e.name,
+                e.args.get("operands")) for e in host_events]
+    out = split(events, t0_us, t1_us, program)
+    out["clock_err_us"] = err
+    out.update(shares(out))
+    return out
 
 
 def shares(result: dict) -> Dict[str, float]:

@@ -79,7 +79,7 @@ def sweep(cell, seed, rates, seconds, device="cuda"):
     harness.warm(system, mix, seed)
     sustained, rates_done = [], []
     for rate in sorted(rates):
-        loop = harness.OpenLoop(system, mix, seed, harness.Spans(False),
+        loop = harness.OpenLoop(system, mix, seed,
                                 harness.Meter(cell.config, False), seconds,
                                 rate)
         loop.run(seconds, marks=[seconds * k / 4 for k in (1, 2, 3, 4)])

@@ -17,7 +17,11 @@ BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 CELLS = [w["name"] for w in
          json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
-TINY = {"bitmap": {"n_users": 4133}, "bitweaving": {"n_rows": 10_007}}
+# each deployment kind's rehearsal size; the Star Schema's: rows enough
+# that its queries match from one to hundreds of rows, and a window drain
+# stacks repeated queries as at full size
+TINY = {"bitmap": {"n_users": 4133}, "bitweaving": {"n_rows": 10_007},
+        "ssb": {"n_rows": 20_011}}
 SEED = 2**31 + 4242
 # long enough that a loaded CPU answers queries inside the window
 WINDOW_S = 2.0
@@ -77,14 +81,18 @@ def test_control_is_not_correct(name):
 
 
 def _unchanged(monkeypatch):
-    """Each launch returns its first operand unchanged."""
-    from repro_torch.pim import device_store
+    """Each query's result is its first operand unchanged: a drain
+    computes nothing."""
+    from repro_torch.pim.scheduler import AsyncScheduler
 
-    monkeypatch.setattr(device_store, "_device_compiled",
-                        lambda *a, **k: lambda *arrays: arrays[0].clone())
-    monkeypatch.setattr(device_store, "_device_compiled_stacked",
-                        lambda *a, **k: lambda ops: [o[0].clone()
-                                                     for o in ops])
+    drain = AsyncScheduler.drain
+
+    def broken(self, *a, **k):
+        tickets = drain(self, *a, **k)
+        for t in tickets:
+            t.result._dev.copy_(t.env[min(t.env)]._dev)
+        return tickets
+    monkeypatch.setattr(AsyncScheduler, "drain", broken)
 
 
 def _half_batch(monkeypatch):

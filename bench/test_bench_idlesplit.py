@@ -1,14 +1,15 @@
 """``idlesplit`` on hand-made trace events and program spans: idle time
 by the innermost span, the program's before the benchmark's, weighted by
-overlap; kernel time by the launch that issued it; and the program's
-spans put on a profiler's clock by anchors."""
+overlap, and the traced run's ``idle_gaps`` from it; kernel time by the
+launch that issued it; and the program's spans put on a profiler's clock
+by anchors."""
 
 import json
 
 import pytest
 import torch
 
-from bench import devtrace, hostspans, idlesplit
+from bench import devtrace, harness, idlesplit
 from repro_torch.obs import Tracer
 
 
@@ -19,12 +20,6 @@ def ev(cat, name, ts, dur, tid=1, **args):
 
 def window(t1=100.0):
     return ev("user_annotation", devtrace.WINDOW, 0.0, t1)
-
-
-def annotated(program):
-    """The program's spans as annotations, the way ``devtrace`` reads
-    them."""
-    return [ev("user_annotation", n, a, b - a) for a, b, n, _ in program]
 
 
 def test_a_gap_across_a_syncs_end_is_split_by_overlap():
@@ -38,10 +33,6 @@ def test_a_gap_across_a_syncs_end_is_split_by_overlap():
                                            "runtime.popcount": 10e-6,
                                            "frontend.submit": 30e-6})
     assert got["window_s"] == pytest.approx(100e-6)
-    # devtrace gives the whole gap to the span open at its start
-    assert dict(devtrace.summarize(events + annotated(program), 0.0,
-                                   100.0)["idle_gaps"]) == \
-        pytest.approx({"device_store.sync": 60e-6})
     assert idlesplit.shares(got) == pytest.approx({"idle_in_sync": 20.0,
                                                    "idle_in_program": 40.0})
 
@@ -55,10 +46,27 @@ def test_an_outer_span_with_many_closed_children_is_still_named():
     # idle [72, 100): in the flush, after its sixth child closed
     assert got["idle_s"] == pytest.approx({"frontend.flush": 23e-6,
                                            "bench": 5e-6})
-    # devtrace looks back NEST spans for an open one, and finds none
-    assert dict(devtrace.summarize(events + annotated(program), 0.0,
-                                   100.0)["idle_gaps"]) == \
-        pytest.approx({"bench": 28e-6})
+
+
+def test_a_gap_from_inside_a_sync_to_outside_every_span_is_split():
+    """The gap begins while the host waits in ``device_store.sync`` and
+    goes on after every span closed (an open loop waiting for its next
+    arrival): the breakdown's ``idle_gaps`` give the sync its part and the
+    benchmark's loop the rest, not the whole gap to the sync."""
+    program = [(10, 40, "runtime.popcount", None),
+               (15, 35, "device_store.sync", None)]
+    events = [window(), ev("kernel", "k", 0, 20), ev("kernel", "k", 90, 10)]
+    split = idlesplit.split(events, 0.0, 100.0, program)
+    summary = devtrace.summarize(events, 0.0, 100.0)
+    gaps = harness.breakdown(summary, split)["idle_gaps"]
+    # idle [20, 90): the sync's last 15, popcount's 5 after it, then 50
+    assert [g[0] for g in gaps] == ["bench", "device_store.sync",
+                                    "runtime.popcount"]
+    assert dict(gaps) == pytest.approx({"bench": 50e-6,
+                                        "device_store.sync": 15e-6,
+                                        "runtime.popcount": 5e-6})
+    assert sum(v for _, v in gaps) == pytest.approx(
+        summary["window_s"] - summary["busy_s"])
 
 
 def test_idle_time_sums_to_the_windows_idle_and_ignores_other_threads():
@@ -156,13 +164,13 @@ def test_host_spans_land_around_their_ops_on_the_profilers_clock(tmp_path):
     x = torch.ones(64, 64)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        brackets = [hostspans.anchor()]
+        brackets = [idlesplit.anchor()]
         for k in range(30):
             with tr.host_span("outer", query=k):
                 x = torch.add(x, 1)
                 with tr.host_span("inner"):
                     x = torch.mm(x, x) * 1e-3
-        brackets.append(hostspans.anchor())
+        brackets.append(idlesplit.anchor())
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     doc = json.loads(path.read_text())

