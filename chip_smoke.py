@@ -18,9 +18,9 @@ without printing the result line):
    beside its plain version's, a one-call PyTorch yardstick where one
    exists (for the popcount and the scan, which have none, a call that
    moves the same bytes), and the least time the card could take; the
-   fused kernel also on TPC-H planes at SF 300 (a Q1, a Q14, a Q6 of each
-   program length and a 22-load AND chain, each with its shared-memory
-   bytes a word, every launch walking its persistent blocks' tiles);
+   fused kernel also on TPC-H planes at SF 300 (a Q1, a Q14, two Q6 and a
+   22-load AND chain, each with its shared-memory bytes a word, every
+   launch walking its persistent blocks' tiles);
 3. the serving main path at full width on backend "cuda": a 2^24-user
    bitmap index served to 1024 Zipfian tenants through QueryFrontend,
    the weekly-active query, and the TPC-H lineitem table at scale factor
@@ -886,7 +886,7 @@ def time_fused(torch, rng, timer, row):
             lambda p=planes, b=n_bits: kbw.fused_bitwise_plain(sexpr, names,
                                                                p, b),
             None, (len(sprog.loads) + 1) * 4 * 187538,
-            (sprog.code.shape[0] - len(sprog.loads)) * 187538))
+            (len(sprog.packed) - sprog.n_loads) * 187538))
     out["fused_bitwise"]["more"] = more
     # fused_bitwise_stacked: one epoch of 16 bitmap queries
     q = 16
@@ -917,24 +917,6 @@ def time_fused(torch, rng, timer, row):
     log(f"time fused_bitwise_stacked 16 x x&y pointer table, 3 alternated "
         f"rounds of (device ms, host-path ms): by value {by_value}, "
         f"device table {table}")
-    # the small parameter block (at most SMALL_PTRS pointers and
-    # SMALL_INSTR instructions, 896 bytes) against the 5,120-byte one that
-    # any launch fits, alternated: single x & y, then the epoch
-    small, large = [], []
-    for fn in (lambda: kbw.fused_bitwise(X & Y, ("x", "y"), [x, y], prog),
-               stacked):
-        small.append([])
-        large.append([])
-        for _ in range(3):
-            small[-1].append(timer(fn))
-            kept, kbw.SMALL_PARAMS = kbw.SMALL_PARAMS, False
-            try:
-                large[-1].append(timer(fn))
-            finally:
-                kbw.SMALL_PARAMS = kept
-    out["param block"] = {"small": small, "large": large}
-    log(f"time fused_bitwise parameter block, x&y then 16 x x&y, 3 rounds "
-        f"each of (device ms, host-path ms): small {small}, large {large}")
     out["fused_bitwise"]["sf300"] = time_sf300(torch, timer)
     out["fused_bitwise"]["ssb300"] = time_ssb300(torch, timer)
     return out, x
@@ -970,10 +952,9 @@ def _range_plan(columns, label, spec):
 
 def sf300_programs():
     """(label, expression, names) of the served mix's programs, timed at
-    SF 300: a Q1 (delta 90), a Q14 (1995-07), a Q6 of at most 128
-    instructions (1996, discount 0.07, quantity 25) and one of more (1995,
-    0.05, 24) - the two lengths that took the two parameter blocks - and
-    the control: the same 22 loads as Q6 and a chain of 21 ANDs."""
+    SF 300: a Q1 (delta 90), a Q14 (1995-07), two Q6 (1996, discount
+    0.07, quantity 25: 100 instructions; 1995, 0.05, 24: 116) and the
+    control: the same 22 loads as Q6 and a chain of 21 ANDs."""
     from repro_torch.core import expr as E
 
     def plan(label, spec):
@@ -988,8 +969,8 @@ def sf300_programs():
                 [("l_shipdate", 0, _tpch_days(1998, 12, 1) - 90)]),
            plan("Q14 (12 loads)", [("l_shipdate", _tpch_days(1995, 7, 1),
                                     _tpch_days(1995, 8, 1) - 1)]),
-           plan("Q6 short (22 loads)", q6(1996, 7, 25)),
-           plan("Q6 long (22 loads)", q6(1995, 5, 24))]
+           plan("Q6 1996 (22 loads)", q6(1996, 7, 25)),
+           plan("Q6 1995 (22 loads)", q6(1995, 5, 24))]
     names = out[2][2]
     chain = E.Expr.var(names[0])
     for nm in names[1:]:
@@ -1027,10 +1008,9 @@ def time_sf300(torch, timer):
         ms, launch_ms = timer(lambda: kbw.fused_bitwise(
             expr, names, arrays, prog, n_bits=SF300_ROWS))
         nbytes = (prog.n_loads + 1) * 4 * SF300_WORDS
-        r = {"program": label, "instructions": int(prog.code.shape[0]),
-             "loads": prog.n_loads, "registers": prog.n_regs,
-             "smem_bytes_per_word": getattr(prog, "smem_bytes_per_word",
-                                            None),
+        r = {"program": label, "instructions": len(prog.packed),
+             "loads": prog.n_loads, "registers": prog.shared_regs,
+             "smem_bytes_per_word": prog.smem_bytes_per_word,
              "ms": ms, "launch_ms": launch_ms,
              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
              "hbm_tb_s": nbytes / ms / 1e9,
@@ -1042,10 +1022,6 @@ def time_sf300(torch, timer):
             f"launch path), bound {r['bound_ms']:.6f} ms (bytes), "
             f"{r['hbm_tb_s']:.3f} TB/s, {100 * r['hbm_share']:.1f}% of HBM")
         rows.append(r)
-    # the longer Q6 program through the 5,120-byte parameter block, which
-    # a program of more than SMALL_INSTR instructions takes: the same
-    # speed as the 896-byte block, since the program is decoded from
-    # shared memory
     launches = kbw.fused_bitwise.launches - launches
     if rings is not None:           # every SF 300 launch walks a ring
         rings = kbw.fused_bitwise.ring_launches - rings
@@ -1054,19 +1030,6 @@ def time_sf300(torch, timer):
                  "walked more than one tile a block")
     log(f"fused_bitwise SF 300: {launches} launches, {rings} walked more "
         "than one tile a block")
-    label, expr, names = sf300_programs()[3]
-    prog = kbw.lower(expr, names)
-    arrays = [planes[nm] for nm in names]
-    kept, kbw.SMALL_PARAMS = kbw.SMALL_PARAMS, False
-    try:
-        ms, _ = timer(lambda: kbw.fused_bitwise(expr, names, arrays, prog,
-                                                n_bits=SF300_ROWS))
-    finally:
-        kbw.SMALL_PARAMS = kept
-    log(f"time fused_bitwise SF 300 {label}, 5,120-byte parameter block: "
-        f"kernel {ms:.6f} ms on the device")
-    rows.append({"program": label + ", 5,120-byte parameter block",
-                 "ms": ms})
     del planes
     torch.cuda.empty_cache()
     return rows
@@ -1150,7 +1113,7 @@ def time_ssb300(torch, timer, q=16):
             ms, launch_ms = timer(fn)
             r = {"program": f"{label} {what}",
                  "instructions": int(prog.packed.shape[0]),
-                 "loads": prog.n_loads, "registers": prog.n_regs,
+                 "loads": prog.n_loads, "registers": prog.shared_regs,
                  "smem_bytes_per_word": prog.smem_bytes_per_word,
                  "ms": ms, "launch_ms": launch_ms,
                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,

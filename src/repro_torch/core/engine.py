@@ -127,52 +127,16 @@ def compile_cache_clear() -> None:
     _compile_cached.cache_clear()
 
 
-@functools.lru_cache(maxsize=256)
-def _device_compiled(expression: E.Expr, names: tuple, backend: str,
-                     n_bits: int, donate_idx: Optional[int]):
-    """Callable LRU for the accelerator-resident path, keyed like the
-    reference's jit LRU: one callable per ``(expression, names, backend,
-    n_bits, donation slot)``. On "cuda" it is one fused launch through
-    ``kernels.ops`` (which lowers each expression once). ``donate_idx``
-    names the operand whose buffer the result overwrites in place
-    (``out=`` rebinds of store-private buffers); the plain "torch"
-    backend allocates a fresh result instead, as the reference does off
-    the accelerator."""
-    def compute(*arrays):
-        if backend == "cuda":
-            from ..kernels import ops as kops
-            out = None if donate_idx is None else arrays[donate_idx]
-            return kops._eval(expression, names, arrays, n_bits, out)
-        return _mask_tail(E.eval_expr(expression, dict(zip(names, arrays))),
-                          n_bits)
-    return compute
-
-
-@functools.lru_cache(maxsize=256)
-def _device_compiled_stacked(expression: E.Expr, names: tuple, backend: str,
-                             n_bits: int):
-    """Epoch variant of ``_device_compiled``: the callable takes one list
-    of operand tensors per query and evaluates the whole epoch in ONE
-    launch on "cuda" (per-query operand and output pointers, no stacking
-    copy), returning one result tensor per query."""
-    def compute(operands):
-        if backend == "cuda":
-            from ..kernels import ops as kops
-            return kops._eval_stacked(expression, names, operands, n_bits)
-        return [_mask_tail(E.eval_expr(expression, dict(zip(names, arrays))),
-                           n_bits) for arrays in operands]
-    return compute
-
-
 def device_compile_cache_info():
-    """Cache statistics for the accelerator-resident callable LRUs."""
-    return (_device_compiled.cache_info(),
-            _device_compiled_stacked.cache_info())
+    """Cache statistics for the accelerator-resident path: the LRU of
+    lowered fused programs (``kernels.ops``)."""
+    from ..kernels import ops as kops
+    return kops._lowered.cache_info()
 
 
 def device_compile_cache_clear() -> None:
-    _device_compiled.cache_clear()
-    _device_compiled_stacked.cache_clear()
+    from ..kernels import ops as kops
+    kops._lowered.cache_clear()
 
 
 def binop_expr(op: str) -> E.Expr:

@@ -2,18 +2,18 @@
 
 The TPU version traces one Pallas body per expression. Here each
 ``(expression, names)`` is lowered ONCE in Python into a register
-program - ``(opcode, dst, src0, src1, src2)`` rows, every load first -
+program (``Program.packed``: one word an instruction, every load first)
 that one CUDA kernel interprets for every word, so serving a new
 predicate template never runs the compiler. ``kernels.ops`` keeps the one
 LRU of lowered programs; each launch passes its program by value.
 
-The kernel's form of a program (``Program.packed``) carries marks the
-register program does not need: which sources are the previous
-instruction's result (the kernel reads them from its registers), which
-results a later, non-adjacent instruction reads (only those go back to
-the register file in shared memory), and which loads are read negated
-(a NOT of a load folded into its readers). ``Program.smem_bytes_per_word``
-is what that leaves in shared memory for each word.
+Each instruction's spare bits carry marks: which sources are the
+previous instruction's result (the kernel reads them from its
+registers), whether a later, non-adjacent instruction reads the result
+(only those go back to the register file in shared memory), and whether
+a load is read negated (a NOT of a load folded into its readers).
+``Program.smem_bytes_per_word`` is what that leaves in shared memory for
+each word.
 
 Every wrapper here launches the kernel for CUDA tensors and counts the
 launch in ``<wrapper>.launches``, a launch whose persistent blocks
@@ -52,10 +52,6 @@ MAX_SMEM = 232_448      # shared memory an H100 block may opt in to
 # warps); a tile is their product times 32 words.
 TILES = ((4, 4), (8, 2))
 SM_SHARED = 233_472     # an H100 SM's shared memory; a block takes 1 KB more
-# Let a launch of few pointers and instructions pass the kernel's smaller
-# parameter block (csrc/bitwise.cu SMALL_PTRS / SMALL_INSTR);
-# chip_smoke.py times it against the larger one.
-SMALL_PARAMS = True
 # The marks in a packed instruction's spare bits: source k (0, 1, 2) is
 # the previous instruction's result (bit MARK_FWD + k); the result is read
 # again after the next instruction (MARK_KEEP); source 1 is read negated
@@ -68,41 +64,40 @@ OP_LOAD, OP_ZERO, OP_ONE, OP_NOT, OP_AND, OP_OR, OP_XOR, OP_MAJ = range(8)
 _BINARY = {"and": OP_AND, "or": OP_OR, "xor": OP_XOR}
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class Program:
-    """A lowered expression: ``code`` is (n_instr, 4) int32, one row per
-    instruction ``(op | src2 << 16, dst, src0, src1)``, the ``n_loads``
-    loads first, load k into register k; operand ``k`` of ``names`` is
-    loaded by ``OP_LOAD dst, k``. ``result`` is the register holding the
-    value to store. ``packed`` is the kernel's form of the same
-    computation (``_kernel_form``): one uint32 an instruction, ``op | dst
-    << 3 | src0 << 9 | src1 << 15 | src2 << 21`` and the marks
-    (``MARK_FWD``, ``MARK_KEEP``, ``MARK_NEG``), the same loads first, NOTs
-    of loads folded into their readers, registers only for loads and kept
-    results (``shared_regs`` of them). ``smem_bytes_per_word`` is the
+    """A lowered expression in the kernel's form: ``packed`` is one uint32
+    an instruction, ``op | dst << 3 | src0 << 9 | src1 << 15 | src2 << 21``
+    and the marks (``MARK_FWD``, ``MARK_KEEP``, ``MARK_NEG``), the
+    ``n_loads`` loads first, load k into register k from operand
+    ``loads[k]`` of the ``n_operands`` names, NOTs of loads folded into
+    their readers, registers only for loads and kept results
+    (``shared_regs`` of them). ``result`` is the register the kernel
+    stores when the program is only its loads (any other program's root
+    stays in the kernel's registers). ``smem_bytes_per_word`` is the
     shared memory the kernel moves for each word: each loaded operand
     copied in once, each source read that is not forwarded, each result
     kept."""
 
-    code: np.ndarray
-    n_regs: int
-    result: int
+    packed: np.ndarray
     n_operands: int
     loads: Tuple[int, ...]          # operand indices the program reads
-    packed: np.ndarray = dataclasses.field(compare=False, repr=False)
-    smem_bytes_per_word: int = dataclasses.field(default=0, compare=False)
-    shared_regs: int = dataclasses.field(default=0, compare=False)
+    shared_regs: int
+    smem_bytes_per_word: int
+    result: int = 0
 
     @property
     def n_loads(self) -> int:
         return len(self.loads)
 
 
-def _kernel_form(expression: E.Expr, leaves: List[E.Expr],
-                 inner: List[E.Expr], index: Dict[str, int]
-                 ) -> Tuple[np.ndarray, int, int]:
-    """The kernel's form of a lowered program: (packed words, registers in
-    shared memory, shared-memory bytes a word).
+def lower(expression: E.Expr, names: Sequence[str]) -> Program:
+    """Lower ``expression`` over operands ``names`` to the kernel's
+    program: every load first, each into a register of its own (the
+    kernel's ring stage holds them all), then the other nodes in the
+    post-order of ``E.topo_order``; the root comes last, its value in the
+    kernel's registers. Raises ``ValueError`` past the kernel's operand,
+    instruction or register limits.
 
     - A NOT of a loaded operand whose every reader is an and, or or xor
       (reading it once, beside no other such NOT) is folded into its
@@ -114,6 +109,17 @@ def _kernel_form(expression: E.Expr, leaves: List[E.Expr],
       result is never stored (its reader takes it forwarded) and names
       register 0, as a forwarded source does.
     """
+    names = tuple(names)
+    if len(names) > MAX_OPERANDS:
+        raise ValueError(f"fused_bitwise takes at most {MAX_OPERANDS} "
+                         f"operands, got {len(names)}")
+    index = {nm: k for k, nm in enumerate(names)}
+    order = E.topo_order(expression)
+    if len(order) > MAX_INSTR:
+        raise ValueError(f"fused_bitwise takes at most {MAX_INSTR} "
+                         f"instructions, the expression has {len(order)}")
+    leaves = [nd for nd in order if nd.op == "var"]
+    inner = [nd for nd in order if nd.op != "var"]
     users: Dict[int, List[E.Expr]] = {}
     for node in inner:
         for arg in node.args:
@@ -145,17 +151,21 @@ def _kernel_form(expression: E.Expr, leaves: List[E.Expr],
     reg_of = {id(nd): r for r, nd in enumerate(leaves)}
     free: List[int] = []
     n_regs = len(leaves)
-    rows = []                           # (op, dst, srcs, fwd, neg, keep)
+    words = [OP_LOAD | r << 3 | index[nd.name] << 9
+             for r, nd in enumerate(leaves)]
+    reads_n = 0
     for k, node in enumerate(steps):
         ops = operands(node)
-        srcs, fwd = [], []
-        for value, _ in ops:
-            fwd.append(value.op != "var" and pos[id(value)] == k - 1)
-            srcs.append(0 if fwd[-1] else reg_of[id(value)])
+        word = 0
+        for j, (value, _) in enumerate(ops):
+            if value.op != "var" and pos[id(value)] == k - 1:
+                word |= 1 << (MARK_FWD + j)
+            else:
+                word |= reg_of[id(value)] << (9 + 6 * j)
+                reads_n += 1
         for value, _ in ops:            # sources read before dst write
             if last[id(value)] == k and id(value) in reg_of:
                 free.append(reg_of.pop(id(value)))
-        dst = 0
         if id(node) in kept:
             if free:
                 dst = min(free)
@@ -164,90 +174,22 @@ def _kernel_form(expression: E.Expr, leaves: List[E.Expr],
                 dst = n_regs
                 n_regs += 1
             reg_of[id(node)] = dst
+            word |= dst << 3 | MARK_KEEP
         if node.op == "lit":
-            op = OP_ONE if node.name == "one" else OP_ZERO
+            word |= OP_ONE if node.name == "one" else OP_ZERO
         else:
-            op = {"not": OP_NOT, "maj": OP_MAJ}.get(node.op) or \
+            word |= {"not": OP_NOT, "maj": OP_MAJ}.get(node.op) or \
                 _BINARY[node.op]
-        rows.append((op, dst, srcs, fwd, ops and ops[-1][1], id(node) in kept))
-    if n_regs > MAX_REGS:
-        raise ValueError(f"fused_bitwise holds at most {MAX_REGS} live "
-                         "values; the expression needs more")
-    words = [OP_LOAD | r << 3 | index[nd.name] << 9
-             for r, nd in enumerate(leaves)]
-    reads_n = 0
-    for op, dst, srcs, fwd, neg, keep in rows:
-        srcs = srcs + [0] * (3 - len(srcs))
-        word = op | dst << 3 | srcs[0] << 9 | srcs[1] << 15 | srcs[2] << 21
-        for j, f in enumerate(fwd):
-            word |= f << (MARK_FWD + j)
-            reads_n += not f
-        word |= (MARK_KEEP if keep else 0) | (MARK_NEG if neg else 0)
+        if ops and ops[-1][1]:
+            word |= MARK_NEG
         words.append(word)
-    smem = 4 * (len(leaves) + reads_n + len(kept) + (0 if rows else 1))
-    return np.asarray(words, np.uint32), n_regs, smem
-
-
-def lower(expression: E.Expr, names: Sequence[str]) -> Program:
-    """Lower ``expression`` over operands ``names`` to a register program:
-    every load first, each into a register of its own (the kernel's ring
-    stage holds them all), then the other nodes in the post-order of
-    ``E.topo_order``, a register reused as soon as its value's last
-    consumer has read it; the root comes last, its value in the kernel's
-    registers. Raises ``ValueError`` past the kernel's operand,
-    instruction or register limits."""
-    names = tuple(names)
-    if len(names) > MAX_OPERANDS:
-        raise ValueError(f"fused_bitwise takes at most {MAX_OPERANDS} "
-                         f"operands, got {len(names)}")
-    index = {nm: k for k, nm in enumerate(names)}
-    order = E.topo_order(expression)
-    if len(order) > MAX_INSTR:
-        raise ValueError(f"fused_bitwise takes at most {MAX_INSTR} "
-                         f"instructions, the expression has {len(order)}")
-    leaves = [nd for nd in order if nd.op == "var"]
-    inner = [nd for nd in order if nd.op != "var"]
-    last_use: Dict[int, int] = {}
-    for pos, node in enumerate(inner):
-        for a in node.args:
-            last_use[id(a)] = pos
-    reg_of = {id(nd): r for r, nd in enumerate(leaves)}
-    code = [(OP_LOAD, r, index[nd.name], 0) for r, nd in enumerate(leaves)]
-    free: List[int] = []
-    n_regs = len(leaves)
-    for pos, node in enumerate(inner):
-        srcs = [reg_of[id(a)] for a in node.args]
-        for a in node.args:                 # sources read before dst write
-            if last_use[id(a)] == pos and id(a) in reg_of:
-                free.append(reg_of.pop(id(a)))
-        if free:
-            dst = min(free)
-            free.remove(dst)
-        else:
-            dst = n_regs
-            n_regs += 1
-        if n_regs > MAX_REGS:
-            raise ValueError(f"fused_bitwise holds at most {MAX_REGS} live "
-                             "values; the expression needs more")
-        reg_of[id(node)] = dst
-        if node.op == "lit":
-            code.append((OP_ONE if node.name == "one" else OP_ZERO, dst, 0, 0))
-        elif node.op == "not":
-            code.append((OP_NOT, dst, srcs[0], 0))
-        elif node.op in _BINARY:
-            code.append((_BINARY[node.op], dst, srcs[0], srcs[1]))
-        elif node.op == "maj":
-            code.append((OP_MAJ | (srcs[2] << 16), dst, srcs[0], srcs[1]))
-        else:
-            raise KeyError(node.op)
     if n_regs > MAX_REGS:
         raise ValueError(f"fused_bitwise holds at most {MAX_REGS} live "
                          "values; the expression needs more")
-    code = np.asarray(code, np.int32).reshape(-1, 4)
-    packed, shared_regs, smem = _kernel_form(expression, leaves, inner, index)
-    return Program(code, n_regs, reg_of[id(expression)], len(names),
-                   tuple(index[nd.name] for nd in leaves), packed, smem,
-                   shared_regs)
+    smem = 4 * (len(leaves) + reads_n + len(kept) + (0 if steps else 1))
+    return Program(np.asarray(words, np.uint32), len(names),
+                   tuple(index[nd.name] for nd in leaves), n_regs, smem,
+                   reg_of.get(id(expression), 0))
 
 
 def shared_bytes(program: Program, tile: int, stages: int) -> int:
@@ -331,8 +273,7 @@ def _lib():
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_uint, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
@@ -354,39 +295,65 @@ def by_value(program: Program, queries: int) -> bool:
     return queries * (program.n_operands + 1) <= PARAM_PTRS
 
 
-def _launch(program: Program, table: List[List[torch.Tensor]], shape,
-            n_bits: Optional[int]) -> bool:
-    """One launch over ``table`` = per query [operands..., output].
-    Returns whether its persistent blocks walked more than one tile each
-    (more (query, tile) pairs than blocks)."""
-    device = table[0][-1].device
-    if any(len(row) != program.n_operands + 1 for row in table):
+def _launch(wrapper, expression: E.Expr, names: Sequence[str],
+            operands: Sequence[Sequence[torch.Tensor]], program: Program,
+            n_bits: Optional[int], outs: List[Optional[torch.Tensor]]
+            ) -> List[torch.Tensor]:
+    """The body of both wrappers: ONE launch over ``operands[q]``, query
+    q's tensors (all of one shape), into ``outs[q]`` (None: a fresh
+    tensor), counted on ``wrapper``. CPU tensors take the plain version."""
+    first = operands[0][0]
+    if not first.is_cuda:
+        if first.device.type != "cpu":
+            raise ValueError(f"unsupported device {first.device}")
+        res = fused_bitwise_stacked_plain(expression, names, operands,
+                                          n_bits)
+        return [r if o is None else o.copy_(r) for r, o in zip(res, outs)]
+    if len(operands) > 65535:
+        raise ValueError("fused_bitwise_stacked takes at most 65535 "
+                         "queries a launch")
+    for arrays in operands:
+        _check_operands(arrays, first)
+    _check_operands([o for o in outs if o is not None], first)
+    outs = [torch.empty_like(first) if o is None else o for o in outs]
+    if first.numel() == 0:
+        return outs
+    if any(len(arrays) != program.n_operands for arrays in operands):
         raise ValueError(f"the program reads {program.n_operands} operands")
+    shape = first.shape
     words = int(shape[-1]) if len(shape) else 1
-    n = int(np.prod(shape)) if len(shape) else 1
+    n = first.numel()
     tile = tile_for(program)
     mul, shift = divmod_magic(words)
-    ptrs = [t.data_ptr() for row in table for t in row]
-    if by_value(program, len(table)):
-        host_ptrs, dev_table = (ctypes.c_ulonglong * len(ptrs))(*ptrs), None
-    else:                               # a large epoch: a device table
+    ptrs = [t.data_ptr() for arrays, o in zip(operands, outs)
+            for t in (*arrays, o)]
+    table = not by_value(program, len(operands))
+    if table:                           # a large epoch: a device table
         host_ptrs = None
         dev_table = torch.tensor(ptrs, dtype=torch.int64).pin_memory().to(
-            device, non_blocking=True)
+            first.device, non_blocking=True)
+    else:
+        host_ptrs, dev_table = (ctypes.c_ulonglong * len(ptrs))(*ptrs), None
     code = program.packed
     lib = _lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = torch.cuda.current_stream(first.device).cuda_stream
     grid = ctypes.c_int(0)
     rc = lib.fused_bitwise_launch(
         host_ptrs, None if dev_table is None else dev_table.data_ptr(),
         code.ctypes.data, program.n_operands, program.n_loads,
         int(code.shape[0]), program.result, program.shared_regs, tile, n,
-        words,
-        -1 if n_bits is None else int(n_bits), mul, shift, len(table),
-        int(SMALL_PARAMS), stream, ctypes.byref(grid))
+        words, -1 if n_bits is None else int(n_bits), mul, shift,
+        len(operands), stream, ctypes.byref(grid))
     build.check(lib, rc, "fused_bitwise launch")
-    pairs = -(-n // tile_words(tile)) * len(table)
-    return pairs > grid.value
+    wrapper.launches += 1
+    # persistent blocks walked more than one tile each: more (query, tile)
+    # pairs than blocks
+    wrapper.ring_launches += -(-n // tile_words(tile)) * len(operands) > \
+        grid.value
+    wrapper.wide_launches += program.n_loads > WARP_LOADS
+    if table:               # one query's pointers always go by value
+        wrapper.table_launches += 1
+    return outs
 
 
 def fused_bitwise(expression: E.Expr, names: Sequence[str],
@@ -398,25 +365,8 @@ def fused_bitwise(expression: E.Expr, names: Sequence[str],
     bits past ``n_bits`` of each row when given. ``out`` may be one of
     the operands (an in-place update: each word is read before it is
     written, by the same thread)."""
-    first = arrays[0]
-    if not first.is_cuda:
-        if first.device.type != "cpu":
-            raise ValueError(f"unsupported device {first.device}")
-        res = fused_bitwise_plain(expression, names, arrays, n_bits)
-        if out is None:
-            return res
-        return out.copy_(res)
-    _check_operands(arrays, first)
-    if out is None:
-        out = torch.empty_like(first)
-    _check_operands([out], first)
-    if first.numel() == 0:
-        return out
-    ring = _launch(program, [list(arrays) + [out]], first.shape, n_bits)
-    fused_bitwise.launches += 1
-    fused_bitwise.ring_launches += ring
-    fused_bitwise.wide_launches += program.n_loads > WARP_LOADS
-    return out
+    return _launch(fused_bitwise, expression, names, [arrays], program,
+                   n_bits, [out])[0]
 
 
 fused_bitwise.launches = 0
@@ -432,29 +382,8 @@ def fused_bitwise_stacked(expression: E.Expr, names: Sequence[str],
     """Evaluate one program over an epoch of queries in ONE launch:
     ``operands[q]`` are query q's tensors (all of one shape across the
     epoch). Each result is a tensor of its own."""
-    first = operands[0][0]
-    if not first.is_cuda:
-        if first.device.type != "cpu":
-            raise ValueError(f"unsupported device {first.device}")
-        return fused_bitwise_stacked_plain(expression, names, operands,
-                                           n_bits)
-    if len(operands) > 65535:
-        raise ValueError("fused_bitwise_stacked takes at most 65535 "
-                         "queries a launch")
-    for arrays in operands:
-        _check_operands(arrays, first)
-    outs = [torch.empty_like(first) for _ in operands]
-    if first.numel() == 0:
-        return outs
-    ring = _launch(program,
-                   [list(arrays) + [o] for arrays, o in zip(operands, outs)],
-                   first.shape, n_bits)
-    fused_bitwise_stacked.launches += 1
-    fused_bitwise_stacked.ring_launches += ring
-    fused_bitwise_stacked.wide_launches += program.n_loads > WARP_LOADS
-    fused_bitwise_stacked.table_launches += not by_value(program,
-                                                         len(operands))
-    return outs
+    return _launch(fused_bitwise_stacked, expression, names, operands,
+                   program, n_bits, [None] * len(operands))
 
 
 fused_bitwise_stacked.launches = 0

@@ -93,7 +93,7 @@
 #define MAX_SMEM 232448  // shared memory a block may opt in to on an H100
 #define BARRIER_BYTES 64 // full[MAX_STAGES], empty[MAX_STAGES]
 
-// marks in the packed instruction's spare bits (bitwise.py `_kernel_form`):
+// marks in the packed instruction's spare bits (bitwise.py `lower`):
 // bits 27-29 s0, s1, s2 forwarded; 30 result kept; 31 s1 read negated
 #define MARK_SHIFT 27
 
@@ -662,14 +662,15 @@ const char* repro_error_string(int err) {
 //        (at most PARAM_PTRS of them), or NULL when dev_table holds them
 //        in device memory.
 // prog:  n_instr packed instructions in host memory, load k into register
-//        k first (n_loads of them), marks in bits 27-31 (`_kernel_form`);
+//        k first (n_loads of them), marks in bits 27-31 (`lower`);
 //        n_regs registers (the loads and the kept results) in shared
 //        memory; result_reg is read only when the program is its loads.
 // cfg:   the tile: 0 = 4 words a thread on 4 evaluating warps, 1 = 8 words
 //        on 2 (512 words either way).
-// small_ok lets a launch of at most SMALL_PTRS pointers and SMALL_INSTR
-// instructions pass the smaller parameter block; a program of more than
-// WARP_LOADS loads always passes WideParams<PARAM_PTRS, MAX_INSTR>.
+// The parameter block: WideParams<PARAM_PTRS, MAX_INSTR> for a program
+// of more than WARP_LOADS loads, else Params<SMALL_PTRS, SMALL_INSTR>
+// when the launch has at most SMALL_PTRS pointers and SMALL_INSTR
+// instructions, else Params<PARAM_PTRS, MAX_INSTR>.
 // Persistent blocks walk the queries' tiles (query-major); *grid_out gets
 // the blocks launched. n_bits < 0 leaves the result unmasked; otherwise
 // bits past n_bits of every row are cleared. The column of flat index i
@@ -681,8 +682,7 @@ int fused_bitwise_launch(const unsigned long long* ptrs,
                          int n_in, int n_loads, int n_instr, int result_reg,
                          int n_regs, int cfg, long long n, long long words,
                          long long n_bits, unsigned div_mul, int div_shift,
-                         int queries, int small_ok, void* stream,
-                         int* grid_out) {
+                         int queries, void* stream, int* grid_out) {
   if (n_in < 1 || n_in > MAX_OPERANDS || n_instr < 1 ||
       n_instr > MAX_INSTR || n_loads < 0 || n_loads > n_instr ||
       n_loads > MAX_OPERANDS || n_regs < n_loads || n_regs > MAX_REGS ||
@@ -719,7 +719,7 @@ int fused_bitwise_launch(const unsigned long long* ptrs,
     return launch_params<WideParams<PARAM_PTRS, MAX_INSTR>>(
         ptrs, dev_table, prog, n_instr, n_ptrs, sh, n_regs, cfg, queries,
         stream, grid_out);
-  if (small_ok && n_ptrs <= SMALL_PTRS && n_instr <= SMALL_INSTR)
+  if (n_ptrs <= SMALL_PTRS && n_instr <= SMALL_INSTR)
     return launch_params<Params<SMALL_PTRS, SMALL_INSTR>>(
         ptrs, dev_table, prog, n_instr, n_ptrs, sh, n_regs, cfg, queries,
         stream, grid_out);

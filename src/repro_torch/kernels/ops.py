@@ -1,8 +1,9 @@
 """Public wrappers around the CUDA kernels.
 
 These are the entry points the ``"cuda"`` backend of the engine and the
-device store use. A CUDA tensor launches the hand-written kernel (or
-raises); a CPU tensor takes the kernel's plain PyTorch version. The
+device store use (the store's planner through ``fused_eval``). A CUDA
+tensor launches the hand-written kernel (or raises); a CPU tensor takes
+the kernel's plain PyTorch version. The
 kernels take any ``(rows, words)`` shape and mask the ragged edge
 themselves, so there is no padding to tile multiples here; every
 wrapper returns the shapes the reference package's wrappers return.
@@ -24,9 +25,9 @@ from . import popcount as _pc
 from . import ref
 
 # -- fused-dispatch probe ------------------------------------------------------
-# Counts calls to the fused bitwise entry points at the wrapper layer - one
-# increment per kernel launch issued by Python. Tests and benchmarks
-# assert "one fused dispatch per epoch" against this counter.
+# Counts calls to ``fused_eval`` - one increment per fused kernel launch
+# issued by Python. Tests and benchmarks assert "one fused dispatch per
+# epoch" against this counter.
 
 _FUSED_DISPATCHES = 0
 
@@ -67,30 +68,31 @@ def _rows_words(shape) -> tuple:
     return (int(np.prod(lead)) if lead else 1), words
 
 
-def _eval(expression: E.Expr, names: tuple,
-          arrays: Sequence[torch.Tensor], n_bits: Optional[int] = None,
-          out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One fused launch, tail-masked to ``n_bits`` and written into
-    ``out`` when given (shared by the public wrapper and the engine's
-    callables; no counters)."""
-    return _bitwise.fused_bitwise(expression, names, arrays,
-                                  _lowered(expression, names), n_bits, out)
-
-
-def _eval_stacked(expression: E.Expr, names: tuple,
-                  operands: Sequence[Sequence[torch.Tensor]],
-                  n_bits: Optional[int] = None) -> List[torch.Tensor]:
-    """One launch for an epoch: ``operands[q]`` are query q's tensors."""
-    return _bitwise.fused_bitwise_stacked(
-        expression, names, operands, _lowered(expression, names), n_bits)
+def fused_eval(expression: E.Expr, names: tuple,
+               operands: Sequence[Sequence[torch.Tensor]],
+               n_bits: Optional[int] = None,
+               out: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """ONE fused dispatch for an epoch: ``operands[q]`` are query q's
+    tensors in ``names`` order, each result tail-masked to ``n_bits`` when
+    given. A single query launches ``fused_bitwise`` and may write into
+    ``out`` (one of its operands: in place); an epoch of more launches
+    ``fused_bitwise_stacked``. The entry of the public wrappers below and
+    of ``DevicePlanner``; it counts the dispatch."""
+    _count_dispatch()
+    program = _lowered(expression, names)
+    if len(operands) == 1:
+        return [_bitwise.fused_bitwise(expression, names, operands[0],
+                                       program, n_bits, out)]
+    return _bitwise.fused_bitwise_stacked(expression, names, operands,
+                                          program, n_bits)
 
 
 def bitwise_eval(expression: E.Expr,
                  env: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Fused bitwise expression over packed int32 tensors of equal shape."""
     names = tuple(sorted(env.keys()))
-    _count_dispatch()
-    return _eval(expression, names, [env[n].contiguous() for n in names])
+    return fused_eval(expression, names,
+                      [[env[n].contiguous() for n in names]])[0]
 
 
 def bitwise_eval_stacked(expression: E.Expr, names: Sequence[str],
@@ -100,10 +102,9 @@ def bitwise_eval_stacked(expression: E.Expr, names: Sequence[str],
     name->(..., words) tensors, all equal-shaped; returns one result
     tensor per environment."""
     names = tuple(names)
-    _count_dispatch()
-    return _eval_stacked(expression, names,
-                         [[env[nm].contiguous() for nm in names]
-                          for env in envs])
+    return fused_eval(expression, names,
+                      [[env[nm].contiguous() for nm in names]
+                       for env in envs])
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,7 @@
     charged.
 
   * ``DevicePlanner`` - one whole expression tree evaluates as ONE fused
-    launch over resident tensors (callable LRU in core.engine), results
+    launch over resident tensors (``kernels.ops.fused_eval``), results
     stay resident (dirty: no host read-back until ``get``), and ``out=``
     rebinds of store-created buffers write the result in place into the
     destination's tensor, so chained queries update storage without
@@ -44,10 +44,10 @@ import torch
 
 from ..core import expr as E
 from ..core.bitvector import BitVector
-from ..core.engine import (OpStats, _device_compiled,
-                           _device_compiled_stacked, check_backend,
-                           resolve_device)
+from ..core.engine import OpStats, check_backend, resolve_device
 from ..core.simulator import AmbitError
+from ..kernels import bitwise as kbw
+from ..kernels import ops as kops
 from .store import LruSpillBase
 
 
@@ -329,7 +329,6 @@ class DeviceStore(LruSpillBase):
         No bytes are charged here: the read charges them, as before. A
         handle whose total could pass int32, or a store on the "torch"
         backend, is left to ``popcount``."""
-        from ..kernels import ops as kops
         dev = rbv._dev.reshape(-1, rbv.words32)
         if self.backend != "cuda" or dev.shape[0] * rbv.n_bits >= 1 << 31:
             return
@@ -390,7 +389,6 @@ class DeviceStore(LruSpillBase):
         else:
             dev = rbv._dev.reshape(-1, rbv.words32)
             if self.backend == "cuda":
-                from ..kernels import ops as kops
                 counts = kops.popcount(dev)
                 # one row (every 1-D handle): read its count, no sum launch
                 with self.tracer.host_span("device_store.sync",
@@ -492,53 +490,86 @@ class DevicePlanner:
         when that tensor is store-private and the handle is exactly one
         of the operands. ``count`` issues the result's count right behind
         the launch on "cuda" (``DeviceStore.count_early``)."""
-        names, first = self._validate(env)
-        donate_idx = None
+        return self._run(expression, [env], [out_name], donate_to, [count])[0]
+
+    def execute_epoch(self, jobs: Sequence[tuple],
+                      count: Sequence[bool] = ()) -> List[DeviceBitVector]:
+        """Run one scheduler epoch - ``(expression, env, out_name,
+        out_handle)`` jobs sharing a stack key - as ONE kernel launch.
+        A singleton epoch donates as ``execute`` does, so ``out=`` chains
+        keep their in-place write. ``count[k]`` issues job k's count
+        behind the launch, as ``execute``'s ``count`` does."""
+        donate = None
+        if len(jobs) == 1:
+            _, env, _, out = jobs[0]
+            if out is not None and any(v is out for v in env.values()):
+                donate = out
+        return self._run(jobs[0][0], [job[1] for job in jobs],
+                         [job[2] for job in jobs], donate,
+                         list(count) or [False] * len(jobs))
+
+    def _run(self, expression: E.Expr, envs: List[Dict[str, DeviceBitVector]],
+             out_names: List[Optional[str]],
+             donate_to: Optional[DeviceBitVector],
+             count: List[bool]) -> List[DeviceBitVector]:
+        """The launch of ``execute`` and ``execute_epoch``: one query or
+        an epoch of queries sharing (expression, names, shape)."""
+        names, first = self._validate(envs[0])
+        for env in envs[1:]:
+            jnames, jfirst = self._validate(env)
+            if jnames != names or (jfirst.n_bits, jfirst.shape) != (
+                    first.n_bits, first.shape):
+                raise AmbitError(
+                    "epoch jobs must share (expression, names, shape) - "
+                    "the scheduler's stack key guarantees this")
+        out = None
         if donate_to is not None and donate_to._private:
             # only store-created buffers are overwritten (a put() buffer
             # may be the caller's); aliased twice is also unsafe
-            matches = [k for k, nm in enumerate(names)
-                       if env[nm] is donate_to]
+            matches = [nm for nm in names if envs[0][nm] is donate_to]
             if len(matches) == 1:
-                donate_idx = matches[0]
+                out = donate_to._dev
                 self.store.drop_early(donate_to)    # written in place
-        with self.store.tracer.host_span("device_store.launch", queries=1,
+        operands = [[env[nm]._dev for nm in names] for env in envs]
+        with self.store.tracer.host_span("device_store.launch",
+                                         queries=len(envs),
                                          operands=len(names)) as span:
-            fn = _device_compiled(expression, tuple(names), self.backend,
-                                  first.n_bits, donate_idx)
-            out_dev = fn(*[env[nm]._dev for nm in names])
-            self._note_launch(span, expression, names, 1)
-        # Budget the result AFTER the launch consumed the operands: cold
+            if self.backend == "cuda":
+                outs = kops.fused_eval(expression, tuple(names), operands,
+                                       first.n_bits, out)
+            else:           # plain: a fresh result, as off the accelerator
+                outs = kbw.fused_bitwise_stacked_plain(
+                    expression, names, operands, first.n_bits)
+            self._note_launch(span, expression, names, len(envs))
+        # Budget the results AFTER the launch consumed the operands: cold
         # operands are now legal spill victims, so an exact-fit capacity
         # still runs arbitrarily long chains. A donated destination must
         # survive until the rebind.
         self.store._make_room(
-            first.device_bytes,
-            protect=() if donate_idx is None else (donate_to,))
+            len(envs) * first.device_bytes,
+            protect=() if out is None else (donate_to,))
         self.kernel_launches += 1
-        if self.backend == "cuda":
-            from ..kernels import ops as kops
-            kops._count_dispatch()
-        res = DeviceBitVector(
-            store=self.store, n_bits=first.n_bits, shape=first.shape,
-            words32=first.words32, _dev=out_dev, dirty=True, name=out_name,
-            _private=True)
-        self.store.adopt(res)
-        if count:
-            self.store.count_early(res)
-        self.last_report = DeviceReport(
-            queries=1, kernel_launches=1,
-            donated=0 if donate_idx is None else 1, stats=OpStats())
-        self._record_dispatch(queries=1,
-                              donated=0 if donate_idx is None else 1)
-        return res
+        results = []
+        for out_name, out_dev, early in zip(out_names, outs, count):
+            res = DeviceBitVector(
+                store=self.store, n_bits=first.n_bits, shape=first.shape,
+                words32=first.words32, _dev=out_dev, dirty=True,
+                name=out_name, _private=True)
+            self.store.adopt(res)
+            if early:
+                self.store.count_early(res)
+            results.append(res)
+        donated = 0 if out is None else 1
+        self.last_report = DeviceReport(queries=len(envs), kernel_launches=1,
+                                        donated=donated, stats=OpStats())
+        self._record_dispatch(queries=len(envs), donated=donated)
+        return results
 
     def _note_launch(self, span, expression: E.Expr, names, queries: int
                      ) -> None:
         """On "cuda" with host spans on, the launch span's program
         instructions and pointer route (``kops.launch_args``)."""
         if self.backend == "cuda" and self.store.tracer.host_enabled:
-            from ..kernels import ops as kops
             span.note(**kops.launch_args(expression, tuple(names), queries))
 
     def _record_dispatch(self, queries: int, donated: int = 0) -> None:
@@ -553,54 +584,3 @@ class DevicePlanner:
                        "dispatch", args={"queries": queries,
                                          "backend": self.backend,
                                          "donated": donated})
-
-    def execute_epoch(self, jobs: Sequence[tuple],
-                      count: Sequence[bool] = ()) -> List[DeviceBitVector]:
-        """Run one scheduler epoch - ``(expression, env, out_name,
-        out_handle)`` jobs sharing a stack key - as ONE kernel launch.
-        Singleton epochs take the single-query path so ``out=`` chains
-        keep their in-place write. ``count[k]`` issues job k's count
-        behind the launch, as ``execute``'s ``count`` does."""
-        count = list(count) or [False] * len(jobs)
-        if len(jobs) == 1:
-            expression, env, out_name, out = jobs[0]
-            donate = out if out is not None and \
-                any(v is out for v in env.values()) else None
-            res = self.execute(expression, env, out_name=out_name,
-                               donate_to=donate, count=count[0])
-            return [res]
-        expression, env0, _, _ = jobs[0]
-        names, first = self._validate(env0)
-        for _, env, _, _ in jobs[1:]:
-            jnames, jfirst = self._validate(env)
-            if jnames != names or (jfirst.n_bits, jfirst.shape) != (
-                    first.n_bits, first.shape):
-                raise AmbitError(
-                    "epoch jobs must share (expression, names, shape) - "
-                    "the scheduler's stack key guarantees this")
-        with self.store.tracer.host_span("device_store.launch",
-                                         queries=len(jobs),
-                                         operands=len(names)) as span:
-            fn = _device_compiled_stacked(expression, tuple(names),
-                                          self.backend, first.n_bits)
-            outs = fn([[job[1][nm]._dev for nm in names] for job in jobs])
-            self._note_launch(span, expression, names, len(jobs))
-        self.store._make_room(len(jobs) * first.device_bytes)
-        self.kernel_launches += 1
-        if self.backend == "cuda":
-            from ..kernels import ops as kops
-            kops._count_dispatch()
-        results = []
-        for (_, _, out_name, _), out_dev, early in zip(jobs, outs, count):
-            res = DeviceBitVector(
-                store=self.store, n_bits=first.n_bits, shape=first.shape,
-                words32=first.words32, _dev=out_dev, dirty=True,
-                name=out_name, _private=True)
-            self.store.adopt(res)
-            if early:
-                self.store.count_early(res)
-            results.append(res)
-        self.last_report = DeviceReport(queries=len(jobs),
-                                        kernel_launches=1, stats=OpStats())
-        self._record_dispatch(queries=len(jobs))
-        return results

@@ -473,7 +473,7 @@ def test_fused_bitwise_tpch_layout_on_card(cuda, ename):
         expr, names = EXPRS[ename], ("x", "y", "z")
     prog = kbw.lower(expr, names)
     if ename == "regs64":
-        assert prog.n_regs == kbw.MAX_REGS
+        assert prog.shared_regs == kbw.MAX_REGS
     rng = np.random.default_rng(len(names))
     views = list(words(rng, (len(names), 187538), cuda).unbind(0))
     for n_bits in (6_001_215, 6_001_215 - 31, None):

@@ -6,9 +6,9 @@ The same numpy inputs (from ``default_rng``) go through the JAX package's
 Exact equality throughout: integer bit arithmetic has no tolerance.
 
 The register program that ``csrc/bitwise.cu`` interprets cannot run here,
-so numpy emulators run it instead and are held against ``eval_expr``: one
-of the plain register program (``code``), one of the kernel's form
-(``packed``) that honours its forwarding, write-back and negation marks.
+so a numpy emulator runs it instead (``packed``, honouring its
+forwarding, write-back and negation marks) and is held against
+``eval_expr``.
 The kernels themselves are checked on the card by
 ``tests/test_torch_cuda.py``.
 """
@@ -137,33 +137,6 @@ def test_bitweaving_scan_matches_reference(b):
 # -- the register program of csrc/bitwise.cu ----------------------------------
 
 
-def emulate(program: kbw.Program, arrays):
-    """numpy model of fused_bitwise_kernel's instruction loop."""
-    regs = [None] * program.n_regs
-    for head, dst, s0, s1 in program.code.tolist():
-        op, s2 = head & 0xFFFF, head >> 16
-        if op == kbw.OP_LOAD:
-            regs[dst] = arrays[s0]
-        elif op == kbw.OP_ZERO:
-            regs[dst] = np.zeros_like(arrays[0])
-        elif op == kbw.OP_ONE:
-            regs[dst] = ~np.zeros_like(arrays[0])
-        elif op == kbw.OP_NOT:
-            regs[dst] = ~regs[s0]
-        elif op == kbw.OP_AND:
-            regs[dst] = regs[s0] & regs[s1]
-        elif op == kbw.OP_OR:
-            regs[dst] = regs[s0] | regs[s1]
-        elif op == kbw.OP_XOR:
-            regs[dst] = regs[s0] ^ regs[s1]
-        elif op == kbw.OP_MAJ:
-            a, b, c = regs[s0], regs[s1], regs[s2]
-            regs[dst] = (a & b) | (b & c) | (c & a)
-        else:
-            raise AssertionError(op)
-    return regs[program.result]
-
-
 def rand_expr(rng, names, depth=0):
     if depth > 3 or rng.integers(3) == 0:
         if rng.integers(8) == 0:
@@ -178,19 +151,6 @@ def rand_expr(rng, names, depth=0):
     return {"and": a & b, "or": a | b, "xor": a ^ b}[op]
 
 
-@pytest.mark.parametrize("seed", range(6))
-def test_lowered_program_matches_eval_expr(seed):
-    rng = np.random.default_rng(100 + seed)
-    names = ("a", "b", "c", "d")
-    env = {nm: words(rng, (3, 17)) for nm in names}
-    for _ in range(8):
-        expr = rand_expr(rng, names)
-        prog = kbw.lower(expr, names)
-        got = emulate(prog, [env[nm] for nm in names])
-        np.testing.assert_array_equal(got, E.eval_expr(expr, env))
-        assert prog.n_regs <= kbw.MAX_REGS
-
-
 def test_lowered_tpch_predicate_fits_the_kernel():
     """A two-column predicate over the widest TPC-H columns (8 + 7
     planes) - the largest program the serving path builds."""
@@ -202,16 +162,16 @@ def test_lowered_tpch_predicate_fits_the_kernel():
     env = {nm: words(rng, (64,)) for nm in names}
     prog = kbw.lower(expr, tuple(sorted(names)))
     assert len(set(prog.loads)) == 15
-    assert prog.code.shape[0] <= kbw.MAX_INSTR
-    assert prog.n_regs <= kbw.MAX_REGS
-    got = emulate(prog, [env[nm] for nm in sorted(names)])
+    assert len(prog.packed) <= kbw.MAX_INSTR
+    assert prog.shared_regs <= kbw.MAX_REGS
+    got = emulate_packed(prog, [env[nm] for nm in sorted(names)])
     np.testing.assert_array_equal(got, E.eval_expr(expr, env))
 
 
 def test_lowering_reuses_registers_and_masks_in_plain_version():
     expr = ((X & Y) | Z) ^ X
     prog = kbw.lower(expr, ("x", "y", "z"))
-    assert prog.code.shape[0] == 6 and prog.n_regs == 3
+    assert len(prog.packed) == 6 and prog.shared_regs == 3
     rng = np.random.default_rng(3)
     arrays = [from_numpy_u32(words(rng, (2, 5)), device="cpu")
               for _ in range(3)]
@@ -263,7 +223,7 @@ def wide_program(n: int, kind: str):
 def test_wide_program_matches_reference(n, kind):
     """Programs past the producer warp's 32 loads, up to the cap: one
     dispatch an evaluation, bit for bit with the reference, and the
-    kernel's register program and packed form equal to ``eval_expr``."""
+    kernel's packed program equal to ``eval_expr``."""
     rng = np.random.default_rng(n + (kind == "plan"))
     expr, names = wide_program(n, kind)
     env = {nm: words(rng, (2, 19)) for nm in names}
@@ -271,7 +231,6 @@ def test_wide_program_matches_reference(n, kind):
     assert prog.n_operands == prog.n_loads == n > kbw.WARP_LOADS
     arrays = [env[nm] for nm in names]
     want = E.eval_expr(expr, env)
-    np.testing.assert_array_equal(emulate(prog, arrays), want)
     np.testing.assert_array_equal(emulate_packed(prog, arrays), want)
     ops.fused_dispatch_reset()
     jops.fused_dispatch_reset()
@@ -377,9 +336,10 @@ def emulate_packed(program: kbw.Program, arrays):
     return v
 
 
-@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("seed", [100 + k for k in range(6)]
+                         + [700 + k for k in range(6)])
 def test_packed_program_with_marks_matches_eval_expr(seed):
-    rng = np.random.default_rng(700 + seed)
+    rng = np.random.default_rng(seed)
     names = ("a", "b", "c", "d")
     env = {nm: words(rng, (3, 17)) for nm in names}
     for _ in range(8):
@@ -387,12 +347,16 @@ def test_packed_program_with_marks_matches_eval_expr(seed):
         prog = kbw.lower(expr, names)
         got = emulate_packed(prog, [env[nm] for nm in names])
         np.testing.assert_array_equal(got, E.eval_expr(expr, env))
-        # the same loads first; NOTs of loads folded away, nothing added
+        # every operand the expression reads loaded first, load k into
+        # register k; NOTs of loads folded away, nothing added
+        order = E.topo_order(expr)
         n = prog.n_loads
-        loads = prog.code[:n].astype(np.int64)
-        np.testing.assert_array_equal(prog.packed[:n],
-                                      loads[:, 1] << 3 | loads[:, 2] << 9)
-        assert prog.n_loads <= len(prog.packed) <= len(prog.code)
+        assert [names[k] for k in prog.loads] == \
+            [nd.name for nd in order if nd.op == "var"]
+        np.testing.assert_array_equal(
+            prog.packed[:n],
+            np.arange(n) << 3 | np.asarray(prog.loads, np.int64) << 9)
+        assert prog.n_loads <= len(prog.packed) <= len(order)
         assert prog.n_loads <= prog.shared_regs <= kbw.MAX_REGS
 
 
@@ -430,33 +394,27 @@ def tpch_query(family, *args):
     return expr, tuple(sorted(names))
 
 
-@pytest.mark.parametrize("family,args,group", [
-    ("q1", (60,), None), ("q1", (91,), None), ("q1", (120,), None),
-    ("q14", (1993, 1), None), ("q14", (1995, 7), None),
-    ("q14", (1997, 12), None),
-    ("q6", (1996, 7, 25), "short"), ("q6", (1994, 2, 24), "short"),
-    ("q6", (1993, 7, 24), "short"), ("q6", (1995, 5, 24), "long"),
-    ("q6", (1995, 6, 24), "long"), ("q6", (1995, 9, 24), "long")])
-def test_packed_tpch_predicates_match_eval_expr(family, args, group):
-    """The served mix's Q1, Q14 and Q6 predicates, Q6 from both program
-    lengths (at most 128 instructions, and more), through the packed
-    form's forwarding and write-back marks."""
+@pytest.mark.parametrize("family,args", [
+    ("q1", (60,)), ("q1", (91,)), ("q1", (120,)),
+    ("q14", (1993, 1)), ("q14", (1995, 7)), ("q14", (1997, 12)),
+    ("q6", (1996, 7, 25)), ("q6", (1994, 2, 24)), ("q6", (1993, 7, 24)),
+    ("q6", (1995, 5, 24)), ("q6", (1995, 6, 24)), ("q6", (1995, 9, 24))])
+def test_packed_tpch_predicates_match_eval_expr(family, args):
+    """The served mix's Q1, Q14 and Q6 predicates (Q6 over several years,
+    discounts and quantities) through the packed form's forwarding and
+    write-back marks."""
     expr, names = tpch_query(family, *args)
     prog = kbw.lower(expr, names)
-    n_instr = prog.code.shape[0]
-    if group is not None:
-        assert (n_instr <= 128) == (group == "short")
     rng = np.random.default_rng(sum(args))
     env = {nm: words(rng, (2, 33)) for nm in names}
     got = emulate_packed(prog, [env[nm] for nm in names])
     np.testing.assert_array_equal(got, E.eval_expr(expr, env))
-    np.testing.assert_array_equal(got, emulate(prog, [env[nm]
-                                                      for nm in names]))
-    # forwarding takes at least a third off the interpreter's bytes
-    arity = {kbw.OP_LOAD: 0, kbw.OP_ZERO: 0, kbw.OP_ONE: 0, kbw.OP_NOT: 1,
-             kbw.OP_MAJ: 3}
-    srcs = sum(arity.get(int(row[0]) & 0xFFFF, 2) for row in prog.code)
-    unmarked = 4 * (prog.n_loads + srcs + n_instr - prog.n_loads - 1)
+    # forwarding takes at least a third off the interpreter's bytes: an
+    # unmarked program loads each operand, reads every source of every
+    # other node and writes back every result but the root's
+    order = E.topo_order(expr)
+    srcs = sum(len(nd.args) for nd in order)
+    unmarked = 4 * (prog.n_loads + srcs + len(order) - prog.n_loads - 1)
     assert prog.smem_bytes_per_word <= unmarked * 2 // 3
 
 
@@ -483,8 +441,9 @@ def test_smem_bytes_per_word_hand_counted():
     # first and is read two instructions on, so kept:
     # 4 * (3 + 2 + 1 + 2 + 1) = 36 (40 with the not: 4 * (3 + 1 + 1 + 1
     # + 1 + 2 + 1))
-    prog = kbw.lower((X & ~Y) | (Z & ~Y), ("x", "y", "z"))
-    assert prog.code.shape[0] == 7 and len(prog.packed) == 6
+    expr = (X & ~Y) | (Z & ~Y)
+    prog = kbw.lower(expr, ("x", "y", "z"))
+    assert len(E.topo_order(expr)) == 7 and len(prog.packed) == 6
     neg = [bool(w & kbw.MARK_NEG) for w in prog.packed.tolist()]
     keep = [bool(w & kbw.MARK_KEEP) for w in prog.packed.tolist()]
     assert neg == [False] * 3 + [True, True, False]

@@ -148,15 +148,11 @@ def test_loads_first_program_matches_reference(seed):
     for _ in range(6):
         expr = rand_expr(rng, names)
         prog = kbw.lower(expr, names)
-        ops_col = prog.code[:, 0] & 0xFFFF
-        assert (ops_col[:prog.n_loads] == kbw.OP_LOAD).all()
-        assert (ops_col[prog.n_loads:] != kbw.OP_LOAD).all()
-        assert list(prog.code[:prog.n_loads, 1]) == list(range(prog.n_loads))
+        decoded = [decode(word) for word in prog.packed.tolist()]
         assert len(set(prog.loads)) == prog.n_loads
-        for row, word in zip(prog.code.tolist(),
-                             prog.packed[:prog.n_loads].tolist()):
-            op, dst, s0, s1, s2 = decode(word)
-            assert (op | s2 << 16, dst, s0, s1) == tuple(row)
+        assert [d[:3] for d in decoded[:prog.n_loads]] == \
+            [(kbw.OP_LOAD, k, s) for k, s in enumerate(prog.loads)]
+        assert all(d[0] != kbw.OP_LOAD for d in decoded[prog.n_loads:])
         got = run_kernel(prog, [env[nm] for nm in names])
         np.testing.assert_array_equal(got, E.eval_expr(expr, env))
         want = np.asarray(jops.bitwise_eval(to_ref(expr), env))
@@ -247,18 +243,17 @@ def test_register_buckets_and_their_limits():
     names = tuple(sorted({nd.name for nd in E.topo_order(two)
                           if nd.op == "var"}))
     prog = kbw.lower(two, names)
-    assert prog.n_loads == 15 and prog.n_regs <= 24
+    assert prog.n_loads == 15 and prog.shared_regs <= 24
     assert kbw.tile_for(prog) == (
         1 if 6 * (kbw.shared_bytes(prog, 1, 1) + 1024) <= kbw.SM_SHARED
         else 0)
     # the largest program the limits allow: 4 words a thread, one stage
-    code = np.zeros((kbw.MAX_INSTR, 4), np.int32)
-    code[:kbw.MAX_OPERANDS, 1] = np.arange(kbw.MAX_OPERANDS)
-    code[kbw.MAX_OPERANDS:, 0] = kbw.OP_AND
-    widest = kbw.Program(code, kbw.MAX_REGS, 0, kbw.MAX_OPERANDS,
-                         tuple(range(kbw.MAX_OPERANDS)),
-                         np.zeros(kbw.MAX_INSTR, np.uint32),
-                         shared_regs=kbw.MAX_REGS)
+    packed = np.full(kbw.MAX_INSTR, kbw.OP_AND, np.uint32)
+    packed[:kbw.MAX_OPERANDS] = kbw.OP_LOAD | \
+        np.arange(kbw.MAX_OPERANDS, dtype=np.uint32) * (1 << 3 | 1 << 9)
+    widest = kbw.Program(packed, n_operands=kbw.MAX_OPERANDS,
+                         loads=tuple(range(kbw.MAX_OPERANDS)),
+                         shared_regs=kbw.MAX_REGS, smem_bytes_per_word=0)
     assert kbw.tile_for(widest) == 0
     assert kbw.shared_bytes(widest, 0, 1) <= kbw.MAX_SMEM
     for tile in range(len(kbw.TILES)):
@@ -270,7 +265,7 @@ def test_register_buckets_and_their_limits():
 def test_program_of_a_single_operand_or_literal():
     x = E.Expr.var("x")
     prog = kbw.lower(x, ("x",))
-    assert prog.n_loads == 1 and prog.code.shape[0] == 1
+    assert prog.n_loads == 1 and len(prog.packed) == 1
     a = words(np.random.default_rng(1), (2, 9))
     np.testing.assert_array_equal(run_kernel(prog, [a]), a)
     one = kbw.lower(E.Expr("lit", (), "one"), ("x",))
