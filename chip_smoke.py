@@ -1059,10 +1059,14 @@ def ssb300_programs():
 def time_ssb300(torch, timer, q=16):
     """SSB Q4.2 and Q4.3 on SF 300 planes, each one launch on the wide
     route: alone, then as an epoch of ``q`` repeats of the query (one
-    stacked launch whose pointers go in a device table, as a drain of
-    repeated dashboard queries launches it); device ms beside the HBM
-    bound (alone: every plane read once and the result written; the
-    epoch: the same planes once and ``q`` results), each result checked
+    stacked launch, as a drain of repeated dashboard queries launches it:
+    one job, its pointers by value, on a tree that evaluates a repeated
+    job once; else ``q`` evaluations, their pointers in a device table);
+    and Q4.2 as a control epoch of ``q`` distinct operand rows (the planes
+    rotated among the names: ``q`` jobs, the table on either tree). Device
+    ms beside the HBM bound (alone: every plane read once and the result
+    written; the repeats: the same planes once and ``q`` results; the
+    control: each row's planes and its result), each result checked
     against the plain version. Skipped (an empty list) on a tree whose
     kernel takes fewer operands."""
     from repro_torch.kernels import bitwise as kbw
@@ -1086,6 +1090,7 @@ def time_ssb300(torch, timer, q=16):
         want = kbw.fused_bitwise_plain(expr, names, arrays, SSB300_ROWS)
         wide, table = (kbw.fused_bitwise.wide_launches,
                        kbw.fused_bitwise_stacked.table_launches)
+        shared = getattr(kbw.fused_bitwise_stacked, "shared_outputs", None)
         got = kbw.fused_bitwise(expr, names, arrays, prog,
                                 n_bits=SSB300_ROWS)
         if not torch.equal(got, want):
@@ -1099,17 +1104,37 @@ def time_ssb300(torch, timer, q=16):
             fail(f"fused_bitwise_stacked {label} x {q} at SF 300: queries "
                  f"{bad} differ from the plain version")
         del outs, want
-        if (kbw.fused_bitwise.wide_launches - wide,
-                kbw.fused_bitwise_stacked.table_launches - table) != (1, 1):
+        route = (kbw.fused_bitwise.wide_launches - wide,
+                 kbw.fused_bitwise_stacked.table_launches - table)
+        if shared is None and route != (1, 1):
             fail(f"{label}: the launches did not take the wide route and "
                  "the device table")
-        for what, fn, nbytes in (
-                ("alone", lambda: kbw.fused_bitwise(
-                    expr, names, arrays, prog, n_bits=SSB300_ROWS),
-                 (prog.n_loads + 1) * plane_bytes),
-                (f"{q}-query epoch", lambda: kbw.fused_bitwise_stacked(
-                    expr, names, [arrays] * q, prog, n_bits=SSB300_ROWS),
-                 (prog.n_loads + q) * plane_bytes)):
+        if shared is not None and (route, kbw.fused_bitwise_stacked.
+                                   shared_outputs - shared) != ((1, 0), q - 1):
+            fail(f"{label}: the launches did not take the wide route, the "
+                 f"epoch not one job by value with {q - 1} shared outputs")
+        timed = [("alone", lambda: kbw.fused_bitwise(
+                      expr, names, arrays, prog, n_bits=SSB300_ROWS),
+                  (prog.n_loads + 1) * plane_bytes),
+                 (f"{q}-query epoch", lambda: kbw.fused_bitwise_stacked(
+                     expr, names, [arrays] * q, prog, n_bits=SSB300_ROWS),
+                  (prog.n_loads + q) * plane_bytes)]
+        if not rows:                    # Q4.2: the control epoch
+            rotated = [arrays[k:] + arrays[:k] for k in range(q)]
+            outs = kbw.fused_bitwise_stacked(expr, names, rotated, prog,
+                                             n_bits=SSB300_ROWS)
+            for k, (o, a) in enumerate(zip(outs, rotated)):
+                if not torch.equal(o, kbw.fused_bitwise_plain(
+                        expr, names, a, SSB300_ROWS)):
+                    fail(f"fused_bitwise_stacked {label} control epoch: "
+                         f"query {k} differs from the plain version")
+            del outs
+            timed.append((f"{q}-query epoch of distinct rows (control)",
+                          lambda: kbw.fused_bitwise_stacked(
+                              expr, names, rotated, prog,
+                              n_bits=SSB300_ROWS),
+                          q * (prog.n_loads + 1) * plane_bytes))
+        for what, fn, nbytes in timed:
             ms, launch_ms = timer(fn)
             r = {"program": f"{label} {what}",
                  "instructions": int(prog.packed.shape[0]),

@@ -21,7 +21,12 @@ walked more than one tile each in ``<wrapper>.ring_launches``, and a
 launch of a program of more than ``WARP_LOADS`` loads (the kernel's wide
 route) in ``<wrapper>.wide_launches``; ``fused_bitwise_stacked`` counts
 an epoch whose pointers went in a device table in ``.table_launches``.
-CPU tensors take the plain PyTorch version beside it. Nothing falls back.
+An epoch's queries whose operand pointers are all equal are one job
+(``group_jobs``): the kernel evaluates it once a tile and stores the
+result into each query's own output; ``fused_bitwise_stacked`` counts
+the outputs so served without an evaluation of their own in
+``.shared_outputs``. CPU tensors take the plain PyTorch version beside
+it. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -273,7 +278,8 @@ def _lib():
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_uint, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
     return lib
 
 
@@ -288,11 +294,52 @@ def _check_operands(arrays: Sequence[torch.Tensor], like: torch.Tensor
                 f"{a.dtype} {tuple(a.shape)} on {a.device}")
 
 
-def by_value(program: Program, queries: int) -> bool:
-    """Whether a launch of ``queries`` evaluations of ``program`` passes
-    its operand and output pointers by value in the launch (at most
-    ``PARAM_PTRS``) rather than in a device table."""
-    return queries * (program.n_operands + 1) <= PARAM_PTRS
+def group_jobs(rows: Sequence[tuple]) -> List[List[int]]:
+    """The distinct jobs of a launch whose query q reads the operand
+    pointers ``rows[q]``: each job lists the queries of one row, first
+    occurrence first, and the jobs come in the order of their first
+    occurrences. One program over equal pointers gives equal bits, as no
+    output of a stacked launch aliases an operand."""
+    jobs: Dict[tuple, List[int]] = {}
+    for q, row in enumerate(rows):
+        jobs.setdefault(row, []).append(q)
+    return list(jobs.values())
+
+
+def pointer_table(rows: Sequence[tuple], jobs: Sequence[Sequence[int]],
+                  outs: Sequence[int]) -> List[int]:
+    """The pointers of a launch (csrc/bitwise.cu ``fused_bitwise_launch``)
+    of queries reading ``rows[q]`` into ``outs[q]``, grouped into ``jobs``
+    (``group_jobs``): each query's row and then its output while no job
+    repeats; else each job's row and then the range ``start | end << 32``
+    of its outputs in the list of every output, grouped by job, that
+    follows the rows."""
+    if len(jobs) == len(rows):
+        return [p for row, o in zip(rows, outs) for p in (*row, o)]
+    table: List[int] = []
+    listed: List[int] = []
+    for job in jobs:
+        table += [*rows[job[0]], len(listed) | (len(listed) + len(job)) << 32]
+        listed += [outs[q] for q in job]
+    return table + listed
+
+
+def pointer_count(program: Program, queries: int,
+                  jobs: Optional[int] = None) -> int:
+    """Pointers a launch of ``queries`` queries of ``program`` carries
+    when they are ``jobs`` distinct jobs (all distinct by default): a row
+    a job, and each output listed apart when jobs repeat."""
+    jobs = queries if jobs is None else jobs
+    return jobs * (program.n_operands + 1) + (queries if jobs < queries
+                                              else 0)
+
+
+def by_value(program: Program, queries: int,
+             jobs: Optional[int] = None) -> bool:
+    """Whether such a launch passes its operand and output pointers by
+    value in the launch (at most ``PARAM_PTRS``) rather than in a device
+    table."""
+    return pointer_count(program, queries, jobs) <= PARAM_PTRS
 
 
 def _launch(wrapper, expression: E.Expr, names: Sequence[str],
@@ -301,7 +348,9 @@ def _launch(wrapper, expression: E.Expr, names: Sequence[str],
             ) -> List[torch.Tensor]:
     """The body of both wrappers: ONE launch over ``operands[q]``, query
     q's tensors (all of one shape), into ``outs[q]`` (None: a fresh
-    tensor), counted on ``wrapper``. CPU tensors take the plain version."""
+    tensor), counted on ``wrapper``; the queries of one job
+    (``group_jobs``) are evaluated once. CPU tensors take the plain
+    version."""
     first = operands[0][0]
     if not first.is_cuda:
         if first.device.type != "cpu":
@@ -325,9 +374,12 @@ def _launch(wrapper, expression: E.Expr, names: Sequence[str],
     n = first.numel()
     tile = tile_for(program)
     mul, shift = divmod_magic(words)
-    ptrs = [t.data_ptr() for arrays, o in zip(operands, outs)
-            for t in (*arrays, o)]
-    table = not by_value(program, len(operands))
+    n_in = program.n_operands
+    flat = [t.data_ptr() for arrays in operands for t in arrays]
+    rows = [tuple(flat[k:k + n_in]) for k in range(0, len(flat), n_in)]
+    jobs = group_jobs(rows)
+    ptrs = pointer_table(rows, jobs, [o.data_ptr() for o in outs])
+    table = not by_value(program, len(operands), len(jobs))
     if table:                           # a large epoch: a device table
         host_ptrs = None
         dev_table = torch.tensor(ptrs, dtype=torch.int64).pin_memory().to(
@@ -340,19 +392,21 @@ def _launch(wrapper, expression: E.Expr, names: Sequence[str],
     grid = ctypes.c_int(0)
     rc = lib.fused_bitwise_launch(
         host_ptrs, None if dev_table is None else dev_table.data_ptr(),
-        code.ctypes.data, program.n_operands, program.n_loads,
+        code.ctypes.data, n_in, program.n_loads,
         int(code.shape[0]), program.result, program.shared_regs, tile, n,
         words, -1 if n_bits is None else int(n_bits), mul, shift,
-        len(operands), stream, ctypes.byref(grid))
+        len(jobs), len(outs), stream, ctypes.byref(grid))
     build.check(lib, rc, "fused_bitwise launch")
     wrapper.launches += 1
-    # persistent blocks walked more than one tile each: more (query, tile)
+    # persistent blocks walked more than one tile each: more (job, tile)
     # pairs than blocks
-    wrapper.ring_launches += -(-n // tile_words(tile)) * len(operands) > \
+    wrapper.ring_launches += -(-n // tile_words(tile)) * len(jobs) > \
         grid.value
     wrapper.wide_launches += program.n_loads > WARP_LOADS
     if table:               # one query's pointers always go by value
         wrapper.table_launches += 1
+    if len(jobs) < len(outs):           # only an epoch repeats a job
+        wrapper.shared_outputs += len(outs) - len(jobs)
     return outs
 
 
@@ -381,7 +435,8 @@ def fused_bitwise_stacked(expression: E.Expr, names: Sequence[str],
                           ) -> List[torch.Tensor]:
     """Evaluate one program over an epoch of queries in ONE launch:
     ``operands[q]`` are query q's tensors (all of one shape across the
-    epoch). Each result is a tensor of its own."""
+    epoch). Each result is a tensor of its own; queries of one job
+    (``group_jobs``) share its evaluation, not their outputs."""
     return _launch(fused_bitwise_stacked, expression, names, operands,
                    program, n_bits, [None] * len(operands))
 
@@ -390,3 +445,4 @@ fused_bitwise_stacked.launches = 0
 fused_bitwise_stacked.ring_launches = 0
 fused_bitwise_stacked.wide_launches = 0
 fused_bitwise_stacked.table_launches = 0
+fused_bitwise_stacked.shared_outputs = 0

@@ -44,7 +44,7 @@
 //   within the 16-byte granules that hold the operand's own words, so it
 //   never leaves its allocation's pages) and the program indexes each
 //   operand at its own shift. A warp still reads consecutive words.
-// - Persistent blocks walk (query, tile) pairs, query-major: the grid is
+// - Persistent blocks walk (job, tile) pairs, job-major: the grid is
 //   min(pairs, resident blocks), so a launch that fits the card at once
 //   runs one tile a block, and a long row or a stacked epoch walks its
 //   tiles. The ring is as deep as it can be without costing a resident
@@ -63,7 +63,14 @@
 // The stacked form (one launch for an epoch of queries) reads a table of
 // per-query operand and output pointers: no operand is copied into a
 // stack. The table travels by value when it fits (PARAM_PTRS pointers),
-// else in device memory.
+// else in device memory. Queries whose operand pointers are all equal
+// are one job (bitwise.py `group_jobs`). An epoch that repeats a job
+// takes its parameter block wrapped in Shared: the table then holds a
+// row for each job, whose last entry is the range of the job's outputs
+// in a list of every output after the rows, and the blocks walk (job,
+// tile) pairs, each tile evaluated once and stored from registers into
+// every output of its job, so a repeated dashboard query streams its
+// planes once. An epoch of distinct jobs runs the instance it ran before.
 //
 // A program of more loads than the producer warp has lanes (WARP_LOADS;
 // the four-column Star Schema conjunctions load 38 planes) takes a
@@ -76,6 +83,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 #include <unordered_map>
 
 #if !defined(CUDART_VERSION) || CUDART_VERSION < 12010
@@ -100,6 +108,7 @@
 template <int P, int I>
 struct Params {
   static constexpr int LANE_LOADS = 1;    // loads a producer lane issues
+  static constexpr bool SHARED = false;   // a job's row ends in its output
   unsigned long long p[P];
   uint32_t prog[I];   // op | dst << 3 | s0 << 9 | s1 << 15 | s2 << 21 | marks
 };
@@ -111,13 +120,20 @@ struct WideParams : Params<P, I> {
   static constexpr int LANE_LOADS = 2;
 };
 
+// The block of an epoch that repeats a job: a job's row ends in the range
+// start | end << 32 of its outputs in the list after the rows.
+template <class B>
+struct Shared : B {
+  static constexpr bool SHARED = true;
+};
+
 // Launch constants; offsets are bytes of dynamic shared memory.
 struct Shape {
   int n_in, n_loads, n_comp, result_reg, stages;
   int masked, div_shift, slot_writes;
   uint32_t div_mul, rem_mask, tiles;
   uint32_t prog_stride, stage_off, stage_bytes, file_off;
-  long long n, queries, words, full_words;
+  long long n, jobs, words, full_words;
 };
 
 enum {
@@ -298,20 +314,21 @@ __device__ __forceinline__ uint32_t entry_x(uint32_t ins, uint32_t c_word) {
   }
 }
 
-// A block's walk over (query, tile) pairs, query-major: pair b, then
-// b + gridDim.x, ...; a division only where the walk crosses a query.
+// A block's walk over (job, tile) pairs, job-major: pair b, then
+// b + gridDim.x, ...; a division only where the walk crosses a job (a
+// query when no job repeats).
 struct Walk {
-  uint32_t q, tile, tiles, stride;
-  long long queries;
-  __device__ __forceinline__ Walk(uint32_t tiles_, long long queries_)
-      : q(queries_ == 1 ? 0u : blockIdx.x / tiles_),
-        tile(queries_ == 1 ? blockIdx.x : blockIdx.x % tiles_),
-        tiles(tiles_), stride(gridDim.x), queries(queries_) {}
-  __device__ __forceinline__ bool more() const { return q < queries; }
+  uint32_t j, tile, tiles, stride;
+  long long jobs;
+  __device__ __forceinline__ Walk(uint32_t tiles_, long long jobs_)
+      : j(jobs_ == 1 ? 0u : blockIdx.x / tiles_),
+        tile(jobs_ == 1 ? blockIdx.x : blockIdx.x % tiles_),
+        tiles(tiles_), stride(gridDim.x), jobs(jobs_) {}
+  __device__ __forceinline__ bool more() const { return j < jobs; }
   __device__ __forceinline__ void next() {
     tile += stride;                 // tiles, stride < 2^31: no overflow
     if (tile >= tiles) {
-      q += tile / tiles;
+      j += tile / tiles;
       tile %= tiles;
     }
   }
@@ -332,6 +349,35 @@ __device__ __forceinline__ uint32_t aligned_span(const uint32_t* src,
   *bytes = static_cast<uint32_t>(((a1 + 15) & ~uintptr_t(15)) -
                                  (a0 & ~uintptr_t(15)));
   return static_cast<uint32_t>(a0 & 15);
+}
+
+// Store the thread's W words of the tile at word i0 (word w at
+// i0 + w CT + tid) from registers into `out`, masked per row.
+template <int W, int CT>
+__device__ __forceinline__ void store_tile(uint32_t* out,
+                                           const uint32_t (&v)[W],
+                                           long long i0, int tid,
+                                           const Shape& sh) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const long long i = i0 + w * CT + tid;
+    if (i < sh.n) {
+      uint32_t x = v[w];
+      if (sh.masked) {
+        long long col;
+        if (i < 0x80000000LL && sh.words < 0x80000000LL) {  // mulhi
+          const uint32_t u = static_cast<uint32_t>(i);
+          const uint32_t quo = (__umulhi(u, sh.div_mul) + u) >> sh.div_shift;
+          col = static_cast<long long>(
+              u - quo * static_cast<uint32_t>(sh.words));
+        } else {
+          col = i % sh.words;
+        }
+        x &= col_mask(col, sh.full_words, sh.rem_mask);
+      }
+      out[i] = x;
+    }
+  }
 }
 
 // Warps 0..NC-1 evaluate (CT = 32 NC threads, W words each: a tile of
@@ -361,7 +407,7 @@ fused_bitwise_kernel(const PR params,
   const int n_comp = sh.n_comp;
   if (tid >= CT) {
     // ---- producer: issue each stage's copies, resolve its program ------
-    // The program of a stage depends on the query only through the
+    // The program of a stage depends on the job only through the
     // operands' shifts; it is resolved again when they change (lane s
     // holds stage s's: 2 bits an operand, valid bit 0 of `held`; loads
     // 32-47 of a wide program in `held_x`).
@@ -369,11 +415,11 @@ fused_bitwise_kernel(const PR params,
     uint32_t held = 0, held_lo = 0, held_hi = 0, held_x = 0;
     int s = 0;
     uint32_t phase = 0;
-    for (Walk it(sh.tiles, sh.queries); it.more(); it.next()) {
-      const long long q = it.q;
+    for (Walk it(sh.tiles, sh.jobs); it.more(); it.next()) {
+      const long long j = it.j;
       const long long i0 = it.tile * T;
       const long long i1 = i0 + T < sh.n ? i0 + T : sh.n;
-      const long long row = q * (sh.n_in + 1);
+      const long long row = j * (sh.n_in + 1);
       uint32_t shift = 0;                 // bytes past a 16-byte boundary
       uint32_t bytes = 0;
       const char* from = nullptr;
@@ -474,11 +520,11 @@ fused_bitwise_kernel(const PR params,
   const uint32_t tb = 4u * tid;       // the thread's byte in a row of words
   int s = 0;
   uint32_t phase = 0;
-  for (Walk it(sh.tiles, sh.queries); it.more(); it.next()) {
-    const long long q = it.q;
+  for (Walk it(sh.tiles, sh.jobs); it.more(); it.next()) {
+    const long long j = it.j;
     const long long i0 = it.tile * T;
-    uint32_t* out = reinterpret_cast<uint32_t*>(
-        PTR_AT(q * (sh.n_in + 1) + sh.n_in));
+    // the job's output, or (Shared) the range of its outputs
+    const unsigned long long last = PTR_AT(j * (sh.n_in + 1) + sh.n_in);
     mbar_wait(sm_s + 8 * s, phase);
     const uint4* prog = reinterpret_cast<const uint4*>(
         reinterpret_cast<const char*>(sm) + BARRIER_BYTES +
@@ -505,25 +551,15 @@ fused_bitwise_kernel(const PR params,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncwarp();
     if ((tid & 31) == 0) mbar_arrive(sm_s + 8 * (MAX_STAGES + s));
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const long long i = i0 + w * CT + tid;
-      if (i < sh.n) {
-        uint32_t x = v[w];
-        if (sh.masked) {
-          long long col;
-          if (i < 0x80000000LL && sh.words < 0x80000000LL) {  // mulhi
-            const uint32_t u = static_cast<uint32_t>(i);
-            const uint32_t quo = (__umulhi(u, sh.div_mul) + u) >> sh.div_shift;
-            col = static_cast<long long>(
-                u - quo * static_cast<uint32_t>(sh.words));
-          } else {
-            col = i % sh.words;
-          }
-          x &= col_mask(col, sh.full_words, sh.rem_mask);
-        }
-        out[i] = x;
-      }
+    if constexpr (PR::SHARED) {    // every output of the job
+      const long long list = sh.jobs * (sh.n_in + 1);
+      const long long end = list + static_cast<long long>(last >> 32);
+      for (long long o = list + static_cast<long long>(last & 0xFFFFFFFFull);
+           o < end; ++o)
+        store_tile<W, CT>(reinterpret_cast<uint32_t*>(PTR_AT(o)), v, i0, tid,
+                          sh);
+    } else {
+      store_tile<W, CT>(reinterpret_cast<uint32_t*>(last), v, i0, tid, sh);
     }
     if (++s == S) {
       s = 0;
@@ -602,7 +638,7 @@ static int plan(Shape& sh, int n_regs, int* blocks_per_sm, size_t* smem) {
 
 template <int W, int NC, class PR>
 static int launch_cfg(const PR& params, const unsigned long long* table,
-                      Shape sh, int n_regs, int queries, cudaStream_t stream,
+                      Shape sh, int n_regs, int jobs, cudaStream_t stream,
                       int* grid_out) {
   constexpr long long T = (long long)W * NC * 32;
   int nb = 0;
@@ -612,8 +648,8 @@ static int launch_cfg(const PR& params, const unsigned long long* table,
   const long long tiles = (sh.n + T - 1) / T;
   if (tiles >= 0x80000000LL) return static_cast<int>(cudaErrorInvalidValue);
   sh.tiles = static_cast<uint32_t>(tiles);
-  sh.queries = queries;
-  const long long items = tiles * queries;
+  sh.jobs = jobs;
+  const long long items = tiles * jobs;
   const long long resident = (long long)nb * sm_count();
   if (resident <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long grid = items < resident ? items : resident;
@@ -632,7 +668,7 @@ template <class PR>
 static int launch_params(const unsigned long long* ptrs,
                          const void* dev_table, const unsigned* prog,
                          int n_instr, long long n_ptrs, const Shape& sh,
-                         int n_regs, int cfg, int queries, void* stream,
+                         int n_regs, int cfg, int jobs, void* stream,
                          int* grid_out) {
   PR params;
   for (int k = 0; k < n_instr; ++k) params.prog[k] = prog[k];
@@ -643,12 +679,37 @@ static int launch_params(const unsigned long long* ptrs,
       static_cast<const unsigned long long*>(dev_table);
   switch (cfg) {
     case 0:
-      return launch_cfg<4, 4>(params, t, sh, n_regs, queries, s, grid_out);
+      return launch_cfg<4, 4>(params, t, sh, n_regs, jobs, s, grid_out);
     case 1:
-      return launch_cfg<8, 2>(params, t, sh, n_regs, queries, s, grid_out);
+      return launch_cfg<8, 2>(params, t, sh, n_regs, jobs, s, grid_out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The parameter block: WideParams for a program of more than WARP_LOADS
+// loads, else Params<SMALL_PTRS, SMALL_INSTR> when the launch has at most
+// SMALL_PTRS pointers and SMALL_INSTR instructions, else
+// Params<PARAM_PTRS, MAX_INSTR>; each wrapped in Shared when jobs repeat.
+template <bool SHARED>
+static int launch_block(const unsigned long long* ptrs, const void* dev_table,
+                        const unsigned* prog, int n_loads, int n_instr,
+                        long long n_ptrs, const Shape& sh, int n_regs,
+                        int cfg, int jobs, void* stream, int* grid_out) {
+  using Wide = WideParams<PARAM_PTRS, MAX_INSTR>;
+  using Small = Params<SMALL_PTRS, SMALL_INSTR>;
+  using Large = Params<PARAM_PTRS, MAX_INSTR>;
+  using WideB = std::conditional_t<SHARED, Shared<Wide>, Wide>;
+  using SmallB = std::conditional_t<SHARED, Shared<Small>, Small>;
+  using LargeB = std::conditional_t<SHARED, Shared<Large>, Large>;
+  if (n_loads > WARP_LOADS)
+    return launch_params<WideB>(ptrs, dev_table, prog, n_instr, n_ptrs, sh,
+                                n_regs, cfg, jobs, stream, grid_out);
+  if (n_ptrs <= SMALL_PTRS && n_instr <= SMALL_INSTR)
+    return launch_params<SmallB>(ptrs, dev_table, prog, n_instr, n_ptrs, sh,
+                                 n_regs, cfg, jobs, stream, grid_out);
+  return launch_params<LargeB>(ptrs, dev_table, prog, n_instr, n_ptrs, sh,
+                               n_regs, cfg, jobs, stream, grid_out);
 }
 
 extern "C" {
@@ -657,21 +718,20 @@ const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// ptrs:  queries * (n_in + 1) pointers (operands, then the output) to
+// ptrs:  jobs * (n_in + 1) pointers (operands, then the output) to
 //        (rows, words) uint32 buffers of n = rows * words, in host memory
 //        (at most PARAM_PTRS of them), or NULL when dev_table holds them
-//        in device memory.
+//        in device memory. When outputs > jobs, each job's row ends with
+//        start | end << 32 instead, its outputs' entries [start, end) in
+//        a list of the output pointers that follows the rows.
 // prog:  n_instr packed instructions in host memory, load k into register
 //        k first (n_loads of them), marks in bits 27-31 (`lower`);
 //        n_regs registers (the loads and the kept results) in shared
 //        memory; result_reg is read only when the program is its loads.
 // cfg:   the tile: 0 = 4 words a thread on 4 evaluating warps, 1 = 8 words
 //        on 2 (512 words either way).
-// The parameter block: WideParams<PARAM_PTRS, MAX_INSTR> for a program
-// of more than WARP_LOADS loads, else Params<SMALL_PTRS, SMALL_INSTR>
-// when the launch has at most SMALL_PTRS pointers and SMALL_INSTR
-// instructions, else Params<PARAM_PTRS, MAX_INSTR>.
-// Persistent blocks walk the queries' tiles (query-major); *grid_out gets
+// The parameter block: `launch_block`.
+// Persistent blocks walk the jobs' tiles (job-major); *grid_out gets
 // the blocks launched. n_bits < 0 leaves the result unmasked; otherwise
 // bits past n_bits of every row are cleared. The column of flat index i
 // is i - words * ((umulhi(i, div_mul) + i) >> div_shift) while i and
@@ -682,13 +742,13 @@ int fused_bitwise_launch(const unsigned long long* ptrs,
                          int n_in, int n_loads, int n_instr, int result_reg,
                          int n_regs, int cfg, long long n, long long words,
                          long long n_bits, unsigned div_mul, int div_shift,
-                         int queries, void* stream, int* grid_out) {
+                         int jobs, int outputs, void* stream, int* grid_out) {
   if (n_in < 1 || n_in > MAX_OPERANDS || n_instr < 1 ||
       n_instr > MAX_INSTR || n_loads < 0 || n_loads > n_instr ||
       n_loads > MAX_OPERANDS || n_regs < n_loads || n_regs > MAX_REGS ||
       (n_loads == n_instr && (result_reg < 0 || result_reg >= n_loads)) ||
-      queries < 1 ||
-      queries > 65535 || n <= 0 || words <= 0 || words > 0xFFFFFFFFLL ||
+      jobs < 1 || outputs < jobs ||
+      outputs > 65535 || n <= 0 || words <= 0 || words > 0xFFFFFFFFLL ||
       prog == nullptr || grid_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < n_loads; ++k)      // load k fills register k
@@ -698,7 +758,8 @@ int fused_bitwise_launch(const unsigned long long* ptrs,
   int slot_writes = 0;                  // a kept result in a load's slot
   for (int k = n_loads; k < n_instr; ++k)
     slot_writes |= (prog[k] >> 30 & 1) && ((prog[k] >> 3) & 63) < unsigned(n_loads);
-  const long long n_ptrs = (long long)queries * (n_in + 1);
+  const long long n_ptrs =
+      (long long)jobs * (n_in + 1) + (outputs > jobs ? outputs : 0);
   if (dev_table == nullptr && (ptrs == nullptr || n_ptrs > PARAM_PTRS))
     return static_cast<int>(cudaErrorInvalidValue);
   Shape sh = {};
@@ -715,17 +776,11 @@ int fused_bitwise_launch(const unsigned long long* ptrs,
   sh.div_mul = div_mul;
   sh.div_shift = div_shift;
   sh.slot_writes = slot_writes;
-  if (n_loads > WARP_LOADS)
-    return launch_params<WideParams<PARAM_PTRS, MAX_INSTR>>(
-        ptrs, dev_table, prog, n_instr, n_ptrs, sh, n_regs, cfg, queries,
-        stream, grid_out);
-  if (n_ptrs <= SMALL_PTRS && n_instr <= SMALL_INSTR)
-    return launch_params<Params<SMALL_PTRS, SMALL_INSTR>>(
-        ptrs, dev_table, prog, n_instr, n_ptrs, sh, n_regs, cfg, queries,
-        stream, grid_out);
-  return launch_params<Params<PARAM_PTRS, MAX_INSTR>>(
-      ptrs, dev_table, prog, n_instr, n_ptrs, sh, n_regs, cfg, queries,
-      stream, grid_out);
+  if (outputs > jobs)
+    return launch_block<true>(ptrs, dev_table, prog, n_loads, n_instr, n_ptrs,
+                              sh, n_regs, cfg, jobs, stream, grid_out);
+  return launch_block<false>(ptrs, dev_table, prog, n_loads, n_instr, n_ptrs,
+                             sh, n_regs, cfg, jobs, stream, grid_out);
 }
 
 }  // extern "C"

@@ -53,14 +53,17 @@ def _lowered(expression: E.Expr, names: tuple) -> _bitwise.Program:
     return _bitwise.lower(expression, names)
 
 
-def launch_args(expression: E.Expr, names: tuple, queries: int) -> dict:
-    """What a launch of ``queries`` evaluations carries, for its host
-    span: the kernel program's instructions and whether the pointers go
-    by value in the launch or in a device table."""
+def launch_args(expression: E.Expr, names: tuple, queries: int,
+                evaluations: int) -> dict:
+    """What a launch of ``queries`` queries in ``evaluations`` distinct
+    jobs carries, for its host span: the kernel program's instructions,
+    the evaluations, and whether the pointers go by value in the launch
+    or in a device table."""
     program = _lowered(expression, names)
     return {"instructions": int(program.packed.shape[0]),
-            "pointers": "value" if _bitwise.by_value(program, queries)
-            else "table"}
+            "evaluations": evaluations,
+            "pointers": "value" if _bitwise.by_value(
+                program, queries, evaluations) else "table"}
 
 
 def _rows_words(shape) -> tuple:

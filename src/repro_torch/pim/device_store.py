@@ -535,12 +535,15 @@ class DevicePlanner:
                                          queries=len(envs),
                                          operands=len(names)) as span:
             if self.backend == "cuda":
+                shared = kbw.fused_bitwise_stacked.shared_outputs
                 outs = kops.fused_eval(expression, tuple(names), operands,
                                        first.n_bits, out)
+                self._note_launch(
+                    span, expression, names, len(envs), len(envs) -
+                    kbw.fused_bitwise_stacked.shared_outputs + shared)
             else:           # plain: a fresh result, as off the accelerator
                 outs = kbw.fused_bitwise_stacked_plain(
                     expression, names, operands, first.n_bits)
-            self._note_launch(span, expression, names, len(envs))
         # Budget the results AFTER the launch consumed the operands: cold
         # operands are now legal spill victims, so an exact-fit capacity
         # still runs arbitrarily long chains. A donated destination must
@@ -565,12 +568,14 @@ class DevicePlanner:
         self._record_dispatch(queries=len(envs), donated=donated)
         return results
 
-    def _note_launch(self, span, expression: E.Expr, names, queries: int
-                     ) -> None:
-        """On "cuda" with host spans on, the launch span's program
-        instructions and pointer route (``kops.launch_args``)."""
-        if self.backend == "cuda" and self.store.tracer.host_enabled:
-            span.note(**kops.launch_args(expression, tuple(names), queries))
+    def _note_launch(self, span, expression: E.Expr, names, queries: int,
+                     evaluations: int) -> None:
+        """With host spans on, the launch span's program instructions, its
+        evaluations (the epoch's distinct jobs: queries less the outputs
+        the kernel shared) and pointer route (``kops.launch_args``)."""
+        if self.store.tracer.host_enabled:
+            span.note(**kops.launch_args(expression, tuple(names), queries,
+                                         evaluations))
 
     def _record_dispatch(self, queries: int, donated: int = 0) -> None:
         m = self.store.metrics

@@ -237,20 +237,171 @@ def test_wide_program_alone_and_as_a_stacked_epoch_on_card(cuda, n):
     assert torch.equal(got, kbw.fused_bitwise_plain(expr, names, arrays,
                                                     n_bits))
     # the epoch: query q reads its own planes at its own offsets, every
-    # fourth query the deployment's (a repeated dashboard query)
+    # fourth query the deployment's (a repeated dashboard query): 13 jobs
     operands = [arrays if q % 4 == 0 else
                 [_offset_words(rng, (187_539,), 4 * (q + k) % 16, cuda)
                  for k in range(n)] for q in range(16)]
-    assert not kbw.by_value(prog, len(operands))
+    assert not kbw.by_value(prog, len(operands), 13)
     st = kbw.fused_bitwise_stacked
-    before = (st.launches, st.wide_launches, st.table_launches)
+    before = (st.launches, st.wide_launches, st.table_launches,
+              st.shared_outputs)
     outs = kbw.fused_bitwise_stacked(expr, names, operands, prog,
                                      n_bits=n_bits)
-    assert (st.launches, st.wide_launches, st.table_launches) == \
-        tuple(b + 1 for b in before)
+    assert (st.launches, st.wide_launches, st.table_launches,
+            st.shared_outputs) == tuple(b + d for b, d in
+                                        zip(before, (1, 1, 1, 3)))
     wants = kbw.fused_bitwise_stacked_plain(expr, names, operands, n_bits)
     assert all(torch.equal(g, w) for g, w in zip(outs, wants))
     assert torch.equal(outs[0], got) and torch.equal(outs[4], got)
+
+
+def _days(y, m, d):
+    import datetime
+    return (datetime.date(y, m, d) - datetime.date(1992, 1, 1)).days
+
+
+def _plan(columns, spec):
+    """``(expression, names)`` of a conjunction of ``(column, lo, hi)``
+    BitWeaving ranges over ``columns`` ((name, bits) pairs)."""
+    bits = dict(columns)
+    expr, names = None, []
+    for col, lo, hi in spec:
+        term = scan_expr(bits[col], lo, hi, prefix=f"{col}_b")
+        names += [f"{col}_b{i}" for i in range(bits[col])]
+        expr = term if expr is None else expr & term
+    return expr, tuple(sorted(names))
+
+
+# TPC-H Q6 (1996, discount 0.07, quantity 25) over 22 planes, and the
+# Star Schema's Q4.2 over 38
+TPCH_Q6 = _plan((("l_shipdate", 12), ("l_discount", 4), ("l_quantity", 6)),
+                [("l_shipdate", _days(1996, 1, 1), _days(1997, 1, 1) - 1),
+                 ("l_discount", 6, 8), ("l_quantity", 0, 24)])
+SSB_Q42 = _plan((("c_city", 8), ("s_city", 8), ("lo_orderdate", 12),
+                 ("p_brand1", 10)),
+                [("c_city", 50, 99), ("s_city", 50, 99),
+                 ("lo_orderdate", _days(1997, 1, 1), _days(1999, 1, 1) - 1),
+                 ("p_brand1", 0, 399)])
+
+
+def _stacked_against_plain(expr, names, operands, prog, n_bits=None):
+    """One stacked launch of ``operands`` held against the plain version:
+    every output exact and a tensor of its own, ``shared_outputs`` grown by
+    the queries less the jobs, and a write into one repeat's output seen
+    in no other. Returns the wrapper's counters' growth (launches, wide,
+    table, ring, shared) and the jobs."""
+    st = kbw.fused_bitwise_stacked
+    counters = ("launches", "wide_launches", "table_launches",
+                "ring_launches", "shared_outputs")
+    before = [getattr(st, c) for c in counters]
+    outs = kbw.fused_bitwise_stacked(expr, names, operands, prog,
+                                     n_bits=n_bits)
+    grew = tuple(getattr(st, c) - b for c, b in zip(counters, before))
+    jobs = kbw.group_jobs([tuple(t.data_ptr() for t in arrays)
+                           for arrays in operands])
+    assert grew[0] == 1 and grew[4] == len(operands) - len(jobs)
+    wants = kbw.fused_bitwise_stacked_plain(expr, names, operands, n_bits)
+    assert all(torch.equal(g, w) for g, w in zip(outs, wants))
+    assert len({o.data_ptr() for o in outs}) == len(outs)
+    for job in jobs:
+        if len(job) > 1:
+            outs[job[0]].bitwise_not_()
+            assert all(torch.equal(outs[k], wants[k]) for k in job[1:])
+            assert not torch.equal(outs[job[0]], wants[job[0]])
+    return grew, jobs
+
+
+@pytest.mark.parametrize("plan", ["tpch_q6", "ssb_q42"])
+def test_repeated_job_evaluated_once_into_every_output_on_card(cuda, plan):
+    """16 queries of one job - TPC-H Q6's 22 planes, or SSB Q4.2's 38 on
+    the wide route - on planes 4 bytes past a 16-byte boundary with a
+    tail mask: one evaluation a tile, 15 outputs shared, the pointers by
+    value (16 x 39 of SSB's did not fit, 16 x 23 of Q6's did)."""
+    expr, names = {"tpch_q6": TPCH_Q6, "ssb_q42": SSB_Q42}[plan]
+    rng = np.random.default_rng(36)
+    prog = kbw.lower(expr, names)
+    assert prog.n_loads == len(names)
+    arrays = [_offset_words(rng, (187_539,), 4, cuda) for _ in names]
+    assert all(a.data_ptr() % 16 == 4 for a in arrays)
+    q = 16
+    assert kbw.by_value(prog, q, 1)
+    assert kbw.by_value(prog, q) == (plan == "tpch_q6")
+    grew, jobs = _stacked_against_plain(expr, names, [arrays] * q, prog,
+                                        187_539 * 32 - 13)
+    assert jobs == [list(range(q))]
+    assert grew == (1, int(len(names) > kbw.WARP_LOADS), 0, grew[3], 15)
+
+
+@pytest.mark.parametrize("route", ["value", "table"])
+def test_mixed_epoch_of_three_jobs_with_repeats_on_card(cuda, route):
+    """Three distinct jobs, each repeated, interleaved in the epoch, on
+    operands 4, 8 and 12 bytes off 16: exact on both pointer routes (the
+    table: more queries than the parameter block holds)."""
+    rng = np.random.default_rng(37 + (route == "table"))
+    names = tuple(f"x{i}" for i in range(8))
+    expr = scan_expr(8, 37, 200, prefix="x")
+    prog = kbw.lower(expr, names)
+    shape = (3, 1001) if route == "value" else (2, 9)
+    sets = [[_offset_words(rng, shape, 4 * (j + 1), cuda) for _ in names]
+            for j in range(3)]
+    q = 12 if route == "value" else kbw.PARAM_PTRS - 3 * 9 + 3
+    order = [0, 1, 0, 2] + [int(k) for k in rng.integers(0, 3, q - 4)]
+    assert kbw.by_value(prog, q, 3) == (route == "value")
+    grew, jobs = _stacked_against_plain(
+        expr, names, [sets[k] for k in order], prog, shape[-1] * 32 - 5)
+    assert [order[job[0]] for job in jobs] == [0, 1, 2]
+    assert grew[2] == (route == "table") and grew[4] == q - 3
+
+
+@pytest.mark.parametrize("route", ["value", "table"])
+@pytest.mark.parametrize("n", [8, 38])
+def test_epoch_without_repeats_takes_its_route_as_before_on_card(cuda, n,
+                                                                 route):
+    """Distinct operand rows share nothing: the pointer route is the one
+    ``queries * (operands + 1)`` pointers pick, the wide route the one its
+    loads pick."""
+    rng = np.random.default_rng(n)
+    expr, names = (scan_expr(8, 3, 250, prefix="x"),
+                   tuple(f"x{i}" for i in range(8))) if n == 8 else SSB_Q42
+    prog = kbw.lower(expr, names)
+    most = kbw.PARAM_PTRS // (n + 1)
+    q = 5 if route == "value" else most + 2
+    operands = [[_offset_words(rng, (2, 37), 4 * k % 16, cuda)
+                 for k in range(n)] for _ in range(q)]
+    grew, jobs = _stacked_against_plain(expr, names, operands, prog, 1000)
+    assert len(jobs) == q
+    assert grew[1:3] == (int(n > kbw.WARP_LOADS), int(route == "table"))
+    assert grew[4] == 0
+
+
+def test_launch_span_notes_one_evaluation_for_a_repeated_query_on_card(
+        cuda):
+    """A drain of 16 tickets of one SSB Q4.2 plan over resident planes is
+    one launch of one job: its span notes 1 evaluation and pointers by
+    value; every ticket counts its own result, equal to the query alone."""
+    from repro_torch.apps import bitweaving_db as bw
+    from repro_torch.obs import Tracer
+    columns = (("c_city", 8), ("s_city", 8), ("lo_orderdate", 12),
+               ("p_brand1", 10))
+    specs = [("c_city", 50, 99), ("s_city", 50, 99),
+             ("lo_orderdate", 1827, 2556), ("p_brand1", 0, 399)]
+    tr = Tracer(enabled=False, host_enabled=True)
+    rt = AmbitRuntime(backend="cuda", device=cuda, tracer=tr)
+    table = bw.TpchTable.synthesize(n_rows=100_003, seed=5, columns=columns,
+                                    device=cuda)
+    expr, env = bw.predicate_plan(table, specs, rt)
+    one = rt.popcount(rt.eval(expr, env))
+    shared = kbw.fused_bitwise_stacked.shared_outputs
+    tickets = [rt.submit(expr, env) for _ in range(16)]
+    rt.drain()
+    counts = [rt.popcount(t.result) for t in tickets]
+    assert counts == [one] * 16 and one > 0
+    assert len({t.result._dev.data_ptr() for t in tickets}) == 16
+    assert kbw.fused_bitwise_stacked.shared_outputs == shared + 15
+    launches = [e.args for e in tr.host_events
+                if e.name == "device_store.launch"]
+    assert [(a["queries"], a["evaluations"], a["pointers"])
+            for a in launches] == [(1, 1, "value"), (16, 1, "value")]
 
 
 def test_fused_bitwise_tail_mask_every_remainder_on_card(cuda):
@@ -710,7 +861,8 @@ def test_served_count_waits_for_its_own_launch_on_card(cuda):
     first result is counted behind its own launch, so its ``popcount``
     returns while the stream still runs the rest, and the count is
     exact. One ``popcount_rows`` launch a terminal result, none at the
-    read."""
+    read. The second drain's 16 queries read the planes in 16 orders
+    (rotated and reflected), so its one launch evaluates 16 jobs."""
     rng = np.random.default_rng(71)
     words_ = (1 << 24) + 37                 # 64 MB a plane
     rt = AmbitRuntime(backend="cuda", device=cuda)
@@ -721,9 +873,14 @@ def test_served_count_waits_for_its_own_launch_on_card(cuda):
              for k in range(8)]
     launches = kpc.popcount_rows.launches
     rt.drain()
-    second = [rt.submit(scan_expr(8, 37, 250, prefix="x"), env)
-              for _ in range(16)]
+    orders = [[(i + k) % 8 for i in range(8)] for k in range(8)] + \
+        [[(k - i) % 8 for i in range(8)] for k in range(8)]
+    second = [rt.submit(scan_expr(8, 37, 250, prefix="x"),
+                        {f"x{i}": planes[p] for i, p in enumerate(order)})
+              for order in orders]
+    shared = kbw.fused_bitwise_stacked.shared_outputs
     rt.drain()
+    assert kbw.fused_bitwise_stacked.shared_outputs == shared
     assert kpc.popcount_rows.launches - launches == 24
     assert rt.store.early_counts == 24
     got = rt.popcount(first[0].result)

@@ -449,3 +449,111 @@ def test_smem_bytes_per_word_hand_counted():
     assert neg == [False] * 3 + [True, True, False]
     assert keep == [False] * 3 + [True, False, False]
     assert prog.smem_bytes_per_word == 36
+
+
+# An epoch's operand pointer rows as letters: equal letters, equal rows.
+JOB_ROWS = {
+    "distinct": ("abcd", [[0], [1], [2], [3]]),
+    "same": ("aaaaaa", [[0, 1, 2, 3, 4, 5]]),
+    "alternating": ("abab", [[0, 2], [1, 3]]),
+    "interleaved": ("baacbcca", [[0, 4], [1, 2, 7], [3, 5, 6]]),
+    "one": ("a", [[0]]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JOB_ROWS))
+def test_group_jobs_keeps_first_occurrence_order(case):
+    """Queries of equal pointer rows are one job: the jobs in the order
+    of their first queries, each job's queries in epoch order."""
+    letters, want = JOB_ROWS[case]
+    rows = [tuple(0x1000 * (ord(c) - 96) + 16 * k for k in range(3))
+            for c in letters]
+    assert kbw.group_jobs(rows) == want
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_group_jobs_maps_every_query_to_the_job_of_its_row(seed):
+    """Random epochs of 1-40 queries over 1-6 distinct rows, in any
+    order: the jobs partition the queries, one row a job."""
+    rng = np.random.default_rng(seed)
+    q = int(rng.integers(1, 41))
+    distinct = [tuple(int(p) for p in rng.integers(1, 2**47, size=5) * 16)
+                for _ in range(int(rng.integers(1, 7)))]
+    rows = [distinct[int(k)] for k in rng.integers(0, len(distinct), q)]
+    jobs = kbw.group_jobs(rows)
+    assert sorted(k for job in jobs for k in job) == list(range(q))
+    assert [job[0] for job in jobs] == sorted(job[0] for job in jobs)
+    assert len({rows[job[0]] for job in jobs}) == len(jobs)
+    for job in jobs:
+        assert job == sorted(job) and {rows[k] for k in job} == \
+            {rows[job[0]]}
+
+
+@pytest.mark.parametrize("case", sorted(JOB_ROWS))
+def test_pointer_table_lists_each_job_once_and_every_output(case):
+    """Without repeats the table is each query's row and output, as
+    before; with them, each job's row and the range of its outputs in the
+    list after the rows, which holds every output once, grouped by job.
+    Its length is what ``pointer_count`` reckons."""
+    letters, _ = JOB_ROWS[case]
+    n_in = 3
+    rows = [tuple(0x1000 * (ord(c) - 96) + 16 * k for k in range(n_in))
+            for c in letters]
+    outs = [0x100000 + 64 * q for q in range(len(rows))]
+    jobs = kbw.group_jobs(rows)
+    table = kbw.pointer_table(rows, jobs, outs)
+    prog = kbw.lower(X & Y & Z, ("x", "y", "z"))
+    assert len(table) == kbw.pointer_count(prog, len(rows), len(jobs))
+    if len(jobs) == len(rows):
+        assert table == [p for r, o in zip(rows, outs) for p in (*r, o)]
+        return
+    listed = table[len(jobs) * (n_in + 1):]
+    assert sorted(listed) == outs
+    for j, job in enumerate(jobs):
+        entry = table[j * (n_in + 1):(j + 1) * (n_in + 1)]
+        assert tuple(entry[:n_in]) == rows[job[0]]
+        start, end = entry[n_in] & 0xFFFFFFFF, entry[n_in] >> 32
+        assert listed[start:end] == [outs[k] for k in job]
+
+
+@pytest.mark.parametrize("n", [8, 22, 38, 48])
+def test_pointer_count_at_the_edge_of_the_parameter_block(n):
+    """By value up to ``PARAM_PTRS`` pointers: ``queries * (n + 1)``
+    without repeats, ``jobs * (n + 1) + queries`` with them."""
+    names = tuple(f"v{i:02d}" for i in range(n))
+    expr = E.Expr.var(names[0])
+    for nm in names[1:]:
+        expr = expr & E.Expr.var(nm)
+    prog = kbw.lower(expr, names)
+    row = n + 1
+    most = kbw.PARAM_PTRS // row            # distinct queries by value
+    assert kbw.pointer_count(prog, most) == most * row
+    assert kbw.by_value(prog, most) and not kbw.by_value(prog, most + 1)
+    assert kbw.by_value(prog, most, most)
+    # a repeated job: its row once, every output listed
+    assert kbw.pointer_count(prog, 16, 1) == row + 16
+    for jobs in (1, 3, most - 1):
+        edge = kbw.PARAM_PTRS - jobs * row  # queries that just fit
+        if edge <= jobs:
+            continue
+        assert kbw.pointer_count(prog, edge, jobs) == kbw.PARAM_PTRS
+        assert kbw.by_value(prog, edge, jobs)
+        assert not kbw.by_value(prog, edge + 1, jobs)
+    # 16 x SSB Q4.2 over the same planes: 624 pointers, now 55
+    if n == 38:
+        assert (kbw.pointer_count(prog, 16), kbw.pointer_count(prog, 16, 1)) \
+            == (624, 55)
+        assert not kbw.by_value(prog, 16) and kbw.by_value(prog, 16, 1)
+
+
+def test_repeated_rows_on_the_cpu_stay_distinct_outputs():
+    """The plain path evaluates each query; repeated operands still give
+    each query a tensor of its own."""
+    rng = np.random.default_rng(9)
+    env = {nm: from_numpy_u32(words(rng, (2, 5)), device="cpu")
+           for nm in ("x", "y", "z")}
+    outs = ops.bitwise_eval_stacked(EXPRS["mixed"], ("x", "y", "z"),
+                                    [env] * 4)
+    assert len({o.data_ptr() for o in outs}) == 4
+    want = E.eval_expr(EXPRS["mixed"], env)
+    assert all(torch.equal(o, want) for o in outs)
