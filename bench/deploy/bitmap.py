@@ -3,7 +3,8 @@
 Every bitmap of the config is drawn on the card (``datagen``), put into
 the ``AmbitRuntime`` as a resident handle of a ``BitmapIndex`` (the put
 shares the drawn tensor, so nothing crosses the host), and a query's plan
-is ``BitmapIndex.query_plan`` over its bitmaps' names.
+joins one ``BitmapIndex.query_plan`` a bitmap by the spec's AND, OR and NOT
+(``compose``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from repro_torch.apps.bitmap_index import BitmapIndex
 from repro_torch.core import BitVector
 
 from .. import datagen
+from . import compose
 
 
 class Deployment:
@@ -24,4 +26,10 @@ class Deployment:
                 BitVector(words[i], n_users), name=name)
 
     def plan(self, spec):
-        return self.index.query_plan([t[1] for t in spec])
+        return compose(spec, self._bitmap)
+
+    def _bitmap(self, element):
+        if element[0] != "bitmap":
+            raise ValueError(f"a bitmap deployment serves bitmaps, got "
+                             f"{element!r}")
+        return self.index.query_plan([element[1]])

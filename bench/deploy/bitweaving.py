@@ -3,8 +3,9 @@
 Each column's values are drawn on the card in row chunks (``datagen``)
 and bit-sliced there by the port's ``kernels/ref.bitslice`` into one
 ``(bits, words)`` plane tensor, the ``BitWeavingColumn`` of a
-``TpchTable``; a query's plan is ``predicate_plan`` over its ranges, which
-puts the planes into the runtime on first use (sharing them).
+``TpchTable``; a query's plan joins one ``predicate_plan`` a range, which
+puts the planes into the runtime on first use (sharing them), by the
+spec's AND, OR and NOT (``compose``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from repro_torch.apps.bitweaving_db import (BitWeavingColumn, TpchTable,
 from repro_torch.kernels import ref
 
 from .. import datagen
+from . import compose
 
 
 class Deployment:
@@ -42,5 +44,10 @@ class Deployment:
         self.runtime = runtime
 
     def plan(self, spec):
-        return predicate_plan(self.table, [(t[1], t[2], t[3]) for t in spec],
-                              self.runtime)
+        return compose(spec, self._range)
+
+    def _range(self, element):
+        if element[0] != "range":
+            raise ValueError(f"a BitWeaving deployment serves ranges, got "
+                             f"{element!r}")
+        return predicate_plan(self.table, [element[1:]], self.runtime)

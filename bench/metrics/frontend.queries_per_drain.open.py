@@ -1,7 +1,7 @@
 """frontend.queries_per_drain.open: queries a window drain took, from the
 program's counters over the traced window (serve_batched_queries over
 serve_drains). Open-loop cells, where deadline drains leave windows part
-filled; moves p99_ms."""
+filled; moves p50_ms."""
 
 
 def read(run):

@@ -4,7 +4,7 @@ time (each span less the spans inside it) of every ``frontend.*`` span
 (submit, tick, flush, take_completed, drain), over the window's
 ``runtime.popcount`` spans, one an answer. Also reads
 frontend.self_ms_per_query.open: the closed cells' entry moves qps, the
-open cell's p99_ms."""
+open cell's p50_ms."""
 
 
 def read(run):

@@ -3,7 +3,7 @@ query answered in the traced window: the self time of the program's
 ``scheduler.drain`` spans (epochs and planning, less the launches inside
 them), over the window's answers. Also reads
 scheduler.self_ms_per_query.open: the closed cells' entry moves qps, the
-open cell's p99_ms."""
+open cell's p50_ms."""
 
 
 def read(run):

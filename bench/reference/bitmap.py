@@ -1,5 +1,6 @@
-"""Plain reference of the bitmap deployment: AND the query's bitmaps and
-count the set bits (SWAR in int64)."""
+"""Plain reference of the bitmap deployment: evaluate the query word by
+word (AND, OR, and NOT within the users) over its bitmaps and count the
+set bits (SWAR in int64)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from typing import Dict, Iterable
 
 import torch
 
-from .. import datagen
+from .. import datagen, traffic
 
 
 def popcount(words: torch.Tensor) -> int:
@@ -20,9 +21,9 @@ def popcount(words: torch.Tensor) -> int:
 
 
 def operand_bytes(cfg: dict, spec) -> Dict[tuple, int]:
-    """The bitmaps a query reads, each with its bytes."""
+    """The bitmaps a query reads, each once with its bytes."""
     nbytes = datagen.words_for(int(cfg["n_users"])) * 4
-    return {("bitmap", t[1]): nbytes for t in spec}
+    return {("bitmap", t[1]): nbytes for t in traffic.leaves(spec)}
 
 
 class Reference:
@@ -30,12 +31,16 @@ class Reference:
         self.words = datagen.bitmap_words(cfg, seed, device)
         self.row = {nm: i for i, nm in enumerate(datagen.bitmap_names(cfg))}
         self.control = control
+        # the words' bits that are users: a NOT sets none past them
+        n_users = int(cfg["n_users"])
+        self.users = torch.full((datagen.words_for(n_users),), -1,
+                                dtype=torch.int32, device=device)
+        if n_users % datagen.WORD:
+            self.users[-1] = (1 << n_users % datagen.WORD) - 1
 
     def count(self, spec) -> int:
-        acc = None
-        for t in spec:
-            w = self.words[self.row[t[1]]]
-            acc = w if acc is None else acc & w
+        acc = traffic.fold(spec, lambda t: self.words[self.row[t[1]]],
+                           lambda w: ~w & self.users)
         if self.control:
             return 2 * popcount(acc[::2])
         return popcount(acc)

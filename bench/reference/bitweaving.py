@@ -1,6 +1,6 @@
 """Plain reference of the BitWeaving deployment: a joint histogram of the
-columns' values, drawn again from the seed, and a box sum over it for
-each conjunction of ranges."""
+columns' values, drawn again from the seed, and for each query the sum of
+the bins its ranges, joined by AND, OR and NOT, select."""
 
 from __future__ import annotations
 
@@ -9,16 +9,16 @@ from typing import Dict, Iterable
 
 import torch
 
-from .. import datagen
+from .. import datagen, traffic
 
 
 def operand_bytes(cfg: dict, spec) -> Dict[tuple, int]:
     """The bit planes a query reads (every plane of each column it
-    ranges over), each with its bytes."""
+    ranges over), each once with its bytes."""
     plane = datagen.words_for(int(cfg["n_rows"])) * 4
     bits = {c["name"]: int(c["bits"]) for c in cfg["columns"]}
     out = {}
-    for t in spec:
+    for t in traffic.leaves(spec):
         for i in range(bits[t[1]]):
             out[("plane", t[1], i)] = plane
     return out
@@ -46,15 +46,18 @@ class Reference:
         self.scale = 2 if control else 1
 
     def count(self, spec) -> int:
-        lo = [0] * len(self.dims)
-        hi = [d - 1 for d in self.dims]
-        for t in spec:
-            k = self.columns.index(t[1])
-            lo[k], hi[k] = max(lo[k], int(t[2])), min(hi[k], int(t[3]))
-        if any(a > b for a, b in zip(lo, hi)):
-            return 0
-        box = self.hist[tuple(slice(a, b + 1) for a, b in zip(lo, hi))]
-        return self.scale * int(box.sum())
+        return self.scale * int((self.hist * traffic.fold(
+            spec, self._bins)).sum())
+
+    def _bins(self, element) -> torch.Tensor:
+        """The bins a range selects, a bool tensor shaped to broadcast
+        over the histogram."""
+        k = self.columns.index(element[1])
+        codes = torch.arange(self.dims[k], device=self.hist.device)
+        shape = [1] * len(self.dims)
+        shape[k] = self.dims[k]
+        return ((codes >= int(element[2])) & (codes <= int(element[3]))
+                ).view(shape)
 
     def counts(self, specs: Iterable) -> Dict[tuple, int]:
         return {s: self.count(s) for s in specs}

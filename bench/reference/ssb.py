@@ -1,8 +1,8 @@
 """Plain reference of the Star Schema deployment: the columns' values
 drawn again from the seed, and for each distinct query the count of rows
-whose every column lies in its range, compared value by value a chunk of
-rows at a time (six columns of codes are too many for the BitWeaving
-reference's joint histogram: 2^48 bins)."""
+it selects (each range compared value by value, joined by AND, OR and
+NOT), a chunk of rows at a time (six columns of codes are too many for
+the BitWeaving reference's joint histogram: 2^48 bins)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from typing import Dict, Iterable
 
 import torch
 
-from .. import datagen
+from .. import datagen, traffic
 from .bitweaving import operand_bytes
 
 __all__ = ["Reference", "operand_bytes"]
@@ -35,14 +35,13 @@ class Reference:
                                      f"{self.bits[name]} bits")
             if self.control:
                 values = {k: v[::2] for k, v in values.items()}
+
+            def selects(t, values=values):
+                v = values[t[1]]
+                return (v >= int(t[2])) & (v <= int(t[3]))
+
             for s in specs:
-                match = None
-                for _, column, lo, hi in s:
-                    v = values[column]
-                    term = (v >= int(lo)) & (v <= int(hi))
-                    match = term if match is None else match.logical_and_(
-                        term)
-                totals[s] += int(match.sum())
-            del values
+                totals[s] += int(traffic.fold(s, selects).sum())
+            del values, selects
         scale = 2 if self.control else 1
         return {s: scale * c for s, c in totals.items()}

@@ -126,6 +126,7 @@ def test_a_suffixed_metric_falls_back_to_the_shorter_names_reader():
         metrics / "scheduler.self_ms_per_query.py"
     assert harness.reader_path("frontend.queries_per_drain.open") == \
         metrics / "frontend.queries_per_drain.open.py"
+    assert harness.reader_path("p99_ms.open") == metrics / "p99_ms.py"
     with pytest.raises(FileNotFoundError):
         harness.reader_path("nothing.here")
 

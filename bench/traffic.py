@@ -18,26 +18,46 @@ every block of queries holds the families in exact proportion, shuffled.
 A family draws its ``params`` per query (``{"uniform": [lo, hi]}``, both
 ends included, or ``{"zipf": s, "n": N}``, a rank 0..N-1 with weight
 (rank+1)^-s), each param's values in a block balanced to their expected
-counts and shuffled, and resolves its ``terms`` from them:
+counts and shuffled, and resolves its ``terms`` from them. A query is the
+conjunction of its terms; each term resolves to one element of the spec
+or more:
 
   * ``{"bitmaps": "week{j}", "j": [lo, hi]}`` - one bitmap a j in
-    lo..hi; ``{"bitmaps": "male"}`` - one named bitmap;
-  * ``{"column": "l_quantity", "lo": lo, "hi": hi}`` - lo <= value <= hi.
+    lo..hi, each its own element ``("bitmap", name)``; with
+    ``"join": "any"``, one element, the OR of those bitmaps;
+    ``{"bitmaps": "male"}`` - one named bitmap;
+  * ``{"column": "l_quantity", "lo": lo, "hi": hi}`` - lo <= value <= hi,
+    the element ``("range", column, lo, hi)``;
+  * ``{"column": "c_city", "in": [[lo, hi], ...]}`` - an IN-list: the OR
+    of its ranges over the one column;
+  * ``{"any": [[term, ...], ...]}`` - the OR of its branches, each branch
+    the conjunction of its terms: ``("any", (branch, ...))``, each branch
+    a tuple of elements;
+  * ``{"not": term}`` - the negation of the term, ``("not", element)``
+    (a term of several elements is negated as one branch of an ``any``).
+    Only the deployment's rows or users count: bits past them never do.
 
 ``lo``/``hi`` are integer expressions over the params (``+ - * // %``,
 parentheses, and ``days(y, m, d)``: days since the mix's ``date_base``).
-A query is the conjunction of its terms, as a hashable spec: a tuple of
-``("bitmap", name)`` and ``("range", column, lo, hi)``.
+A spec is the tuple of a query's elements: hashable and sortable, and a
+query of ranges (or of bitmaps) alone is the tuple of its ranges (or
+bitmaps) in the order of its terms, as before any other form existed.
+A family's terms are checked once, when the mix is read
+(``compile_term``): a term of no known form raises, naming it. ``leaves``
+walks a spec's ranges and bitmaps; ``fold`` evaluates a spec from its
+leaves, for a deployment's plan and for a reference's count alike.
 """
 
 from __future__ import annotations
 
 import ast
 import datetime
+import functools
 import itertools
 import json
+import operator
 from pathlib import Path
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -144,6 +164,116 @@ def _draw(dist: dict, rng: np.random.Generator, size: int) -> np.ndarray:
     return balanced(_support(dist), _weights(dist), rng, size)
 
 
+def _bad(term, why: str) -> ValueError:
+    return ValueError(f"malformed term {term!r}: {why}")
+
+
+def _pair(term, x) -> list:
+    if not (isinstance(x, list) and len(x) == 2):
+        raise _bad(term, f"{x!r} is not a [lo, hi] pair")
+    return x
+
+
+def _some(term, items, what: str) -> list:
+    if not (isinstance(items, list) and items):
+        raise _bad(term, f"{what} is a list of at least one")
+    return items
+
+
+_RANGE, _IN = {"column", "lo", "hi"}, {"column", "in"}
+_BITMAPS = {"bitmaps", "j", "join"}
+
+
+def compile_term(term) -> Callable:
+    """One term of a family, its form checked once: a function of the
+    param values and the date base to the term's spec elements. Raises,
+    naming the term, on a term of no known form (and, when called, on an
+    OR or a NOT of nothing)."""
+    if not isinstance(term, dict):
+        raise _bad(term, "a term is a JSON object")
+    keys = term.keys()
+    if keys == _RANGE:
+        column, lo, hi = term["column"], term["lo"], term["hi"]
+        return lambda env, base: [("range", column, evaluate(lo, env, base),
+                                   evaluate(hi, env, base))]
+    if "bitmaps" in keys:
+        join = term.get("join", "all")
+        if not keys <= _BITMAPS or ("join" in keys and "j" not in keys) \
+                or join not in ("all", "any"):
+            raise _bad(term, "a bitmaps term takes j, and join (all or "
+                       "any) with j")
+        name = term["bitmaps"]
+        if "j" not in keys:
+            return lambda env, base: [("bitmap", name)]
+        lo, hi = _pair(term, term["j"])
+
+        def bitmaps(env, base):
+            out = [("bitmap", name.format(j=j)) for j in range(
+                evaluate(lo, env, base), evaluate(hi, env, base) + 1)]
+            if join == "all":
+                return out
+            if not out:
+                raise _bad(term, "join any over no bitmap")
+            return [("any", tuple((b,) for b in out))]
+        return bitmaps
+    if keys == _IN:
+        column = term["column"]
+        pairs = [_pair(term, r) for r in _some(term, term["in"], "in")]
+        return lambda env, base: [("any", tuple(
+            (("range", column, evaluate(lo, env, base),
+              evaluate(hi, env, base)),) for lo, hi in pairs))]
+    if keys == {"any"}:
+        branches = [[compile_term(t) for t in _some(term, b, "a branch")]
+                    for b in _some(term, term["any"], "any")]
+
+        def any_(env, base):
+            out = []
+            for branch in branches:
+                out.append(tuple(e for t in branch for e in t(env, base)))
+                if not out[-1]:
+                    raise _bad(term, "a branch has no element")
+            return [("any", tuple(out))]
+        return any_
+    if keys == {"not"}:
+        inner = compile_term(term["not"])
+
+        def not_(env, base):
+            out = inner(env, base)
+            if not out:
+                raise _bad(term, "not of no element")
+            return [("not", out[0] if len(out) == 1
+                     else ("any", (tuple(out),)))]
+        return not_
+    raise _bad(term, "no known form")
+
+
+def leaves(spec) -> Iterator[tuple]:
+    """Every ``range`` and ``bitmap`` element of ``spec``, nested or not,
+    in order."""
+    for e in spec:
+        if e[0] == "any":
+            for branch in e[1]:
+                yield from leaves(branch)
+        elif e[0] == "not":
+            yield from leaves((e[1],))
+        else:
+            yield e
+
+
+def fold(spec, leaf: Callable, invert: Callable = operator.invert):
+    """``spec`` evaluated from its leaves: ``leaf(element)`` for each range
+    or bitmap, ``&`` over a conjunction left to right, ``|`` over an
+    ``any``'s branches, and ``invert`` for a ``not``."""
+    def element(e):
+        if e[0] == "any":
+            return functools.reduce(operator.or_,
+                                    (fold(b, leaf, invert) for b in e[1]))
+        if e[0] == "not":
+            return invert(element(e[1]))
+        return leaf(e)
+    return functools.reduce(operator.and_, (element(e) for e in spec))
+
+
 class Family:
     def __init__(self, doc: dict, date_base: datetime.date):
         self.name = doc["name"]
@@ -151,25 +281,13 @@ class Family:
         self.params = dict(doc.get("params", {}))
         self.terms = list(doc["terms"])
         self.date_base = date_base
+        self._terms = [compile_term(t) for t in self.terms]
 
     def resolve(self, values: Dict[str, int]) -> tuple:
         """The spec of one query with these param values."""
         spec = []
-        for term in self.terms:
-            if "bitmaps" in term:
-                if "j" in term:
-                    lo, hi = (evaluate(x, values, self.date_base)
-                              for x in term["j"])
-                    spec += [("bitmap", term["bitmaps"].format(j=j))
-                             for j in range(lo, hi + 1)]
-                else:
-                    spec.append(("bitmap", term["bitmaps"]))
-            elif "column" in term:
-                spec.append(("range", term["column"],
-                             evaluate(term["lo"], values, self.date_base),
-                             evaluate(term["hi"], values, self.date_base)))
-            else:
-                raise ValueError(f"unknown term {term}")
+        for term in self._terms:
+            spec += term(values, self.date_base)
         return tuple(spec)
 
     def specs(self) -> List[tuple]:
